@@ -21,7 +21,23 @@ no result line) on any error:
    against the plain version;
 4. runs the README quickstart (``@fe.dataflow_fn`` sharpen, 512x1024)
    through the port, checks it against the graph's reference semantics
-   on the card, and prints the ``kernels`` line.
+   on the card;
+5. LM serving, granite-3-2b at full width and depth (40 layers, bf16,
+   random weights from ``--seed``): holds the three LM kernels
+   (flash attention, decode attention, fused MLP; built in phase 2 with
+   the group kernels) against their plain versions at the serving
+   path's shapes, in float32 (max abs error <= 1e-5 * max|plain|) and
+   in the path's types (<= 8e-3 * max|plain|, two bfloat16 steps);
+   times kernel, plain version and the library yardstick
+   (``F.scaled_dot_product_attention``; the MLP has none); serves 8
+   requests through ``ContinuousBatcher`` (4 slots, 512 positions, 32
+   new tokens each), checks the tokens and the launch counts (flash 40
+   per prefill, decode attention 40 per decode step, MLP 40 per prefill
+   and per decode step; a fused MLP call's two launches count as one),
+   and teacher-forces two requests through ``prefill`` /
+   ``decode_step`` with the kernels and with ``impl="ref"``, logits
+   within 5e-2 * max|logits|;
+6. prints the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +60,7 @@ H, W = 1080, 1920
 QS_H, QS_W = 512, 1024
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 FULL_POWER_W = 700.0
 TOL = 1e-6                       # kernel vs plain, relative to max|plain|
 LIB_TOL = 1e-5                   # library call vs plain (conv2d reassociates)
@@ -156,9 +173,12 @@ def main() -> int:
     compile_s = time.perf_counter() - t0
     kernels = [k for a in [*apps.values(), qs_app] for k in a.kernels]
     t0 = time.perf_counter()
-    build.build_libraries([k.source for k in kernels])
+    lm_sources = [build.CudaSource(name) for name in LM_KERNELS]
+    build.build_libraries([("sg", k.source) for k in kernels]
+                          + [(src.name, src.source) for src in lm_sources])
     print(f"compiled {len(apps) + 1} apps in {compile_s:.2f} s; built "
-          f"{len(kernels)} kernels in {time.perf_counter() - t0:.2f} s "
+          f"{len(kernels)} group kernels and {len(lm_sources)} LM kernels "
+          f"in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
     timer = Timer(torch, REPS)
@@ -259,18 +279,273 @@ def main() -> int:
     print(json.dumps(row), flush=True)
     entries.append(row)
 
+    # -- phase 5: LM serving, granite-3-2b at full width ----------------
+    lm_entries = lm_serving(torch, timer, smi, args.seed)
+
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": r["launches"], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]} for r in entries]}), flush=True)
+         "library_ms": r["library_ms"]} for r in entries] + lm_entries}),
+        flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ----------------------------------------------------------------------
+# phase 5: LM serving
+# ----------------------------------------------------------------------
+LM_KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:83"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:65"),
+    "fused_mlp": ("src/repro_torch/csrc/fused_mlp.cu",
+                  "src/repro/kernels/fused_mlp.py:64"),
+}
+LM_F32_TOL = 1e-5                # kernel vs plain, float32 operands
+LM_PATH_TOL = 8e-3               # kernel vs plain, bf16 out: two bf16 steps
+# Teacher-forced logits, kernels vs impl="ref", relative to max|logits|.
+# Each decode step runs 120 kernel calls whose bf16 outputs round at
+# other places than the plain versions' (one bf16 step is 2**-8 = 0.4 %);
+# through 40 residual layers such differences add up like a random walk,
+# about sqrt(120) * 0.4 % = 4 %, so 5e-2 of the largest logit.
+LM_LOGIT_TOL = 5e-2
+PROMPT_LENS = (17, 64, 100, 128, 200, 255, 31, 90)
+NEW_TOKENS = 32
+N_SLOTS, MAX_LEN = 4, 512
+FLASH_S = (100, 128, 255)
+DECODE_LENS = (17, 130, 301, 511)
+MLP_T = (4, 255)
+
+
+def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
+    """Phase 5; returns the LM kernels' entries of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.models import model as M
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    cfg = get_config("granite_3_2b")
+    Hq, Hkv, D, d, f = (cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model,
+                        cfg.d_ff)
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+
+    def randn(*shape, std=1.0, dtype=f32):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * std).to(dtype)
+
+    def compare(name, got, want, tol):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(bool(torch.isfinite(got.float()).all()) and err <= tol * scale,
+              f"{name}: kernel vs plain max abs err {err:.3e} > {tol} * "
+              f"{scale:.3e}")
+        return err
+
+    def bound(n_bytes, n_ops):
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / BF16_OPS_PER_S * 1e3
+        return {"bytes": n_bytes, "ops": n_ops,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    # -- kernels against their plain versions, then timed ----------------
+    cases = []                     # (kernel, label, kernel fn, plain fn,
+    for S in FLASH_S:              #  library fn, bound)
+        q, k, v = (randn(1, S, h, D).transpose(1, 2)
+                   for h in (Hq, Hkv, Hkv))          # the model's views
+        compare(f"flash_attention[S={S}] f32",
+                flash_attention(q, k, v, causal=True),
+                R.flash_attention_ref(q, k, v, causal=True), LM_F32_TOL)
+        qb, kb, vb = (t.to(bf16) for t in (q, k, v))
+        pairs = S * (S + 1) // 2
+        cases.append((
+            "flash_attention", f"S={S}",
+            lambda qb=qb, kb=kb, vb=vb: flash_attention(qb, kb, vb,
+                                                        causal=True),
+            lambda qb=qb, kb=kb, vb=vb: R.flash_attention_ref(qb, kb, vb,
+                                                              causal=True),
+            lambda qb=qb, kb=kb, vb=vb: F.scaled_dot_product_attention(
+                qb, kb, vb, is_causal=True, enable_gqa=True),
+            bound(2 * S * D * (2 * Hq + 2 * Hkv), 4 * Hq * D * pairs)))
+    lens = torch.tensor(DECODE_LENS, device="cuda")
+    keep = torch.arange(MAX_LEN, device="cuda")[None] <= lens[:, None]
+    bias = torch.where(keep, 0.0, -1e30)
+    q = randn(N_SLOTS, Hq, D)
+    k, v = randn(N_SLOTS, Hkv, MAX_LEN, D), randn(N_SLOTS, Hkv, MAX_LEN, D)
+    compare("decode_attention f32", decode_attention(q, k, v, bias=bias),
+            R.decode_attention_ref(q, k, v, bias=bias), LM_F32_TOL)
+    qb = q.to(bf16)                # the path: bf16 query, f32 cache
+    live = sum(n + 1 for n in DECODE_LENS)   # positions the masks keep
+    cases.append((
+        "decode_attention", f"{N_SLOTS}x{MAX_LEN}",
+        lambda: decode_attention(qb, k, v, bias=bias),
+        lambda: R.decode_attention_ref(qb, k, v, bias=bias),
+        lambda: F.scaled_dot_product_attention(        # same types needed
+            qb.float()[:, :, None], k, v, attn_mask=bias[:, None, None],
+            enable_gqa=True)[:, :, 0],
+        bound(2 * N_SLOTS * Hq * D * 2 + live * Hkv * D * 4 * 2
+              + N_SLOTS * MAX_LEN * 4, 4 * Hq * D * live)))
+    for T in MLP_T:
+        ws = [randn(d), randn(d, f, std=d ** -0.5),
+              randn(d, f, std=d ** -0.5), randn(f, d, std=f ** -0.5)]
+        x = randn(T, d)
+        compare(f"fused_mlp[T={T}] f32", fused_mlp(x, *ws),
+                R.fused_mlp_ref(x, *ws), LM_F32_TOL)
+        xb, wb = x.to(bf16), [w.to(bf16) for w in ws]
+        cases.append((
+            "fused_mlp", f"T={T}",
+            lambda xb=xb, wb=wb: fused_mlp(xb, *wb),
+            lambda xb=xb, wb=wb: R.fused_mlp_ref(xb, *wb), None,
+            bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)))
+
+    rows = []
+    for name, label, kern, plain, library, bnd in cases:
+        err = compare(f"{name}[{label}]", kern(), plain(), LM_PATH_TOL)
+        row = {"kernel": name, "shape": label, "max_abs_err": err,
+               "ms": timer(kern), "plain_ms": timer(plain), **bnd,
+               "library_ms": None, "card": smi}
+        if library is not None:    # the yardstick must compute the same
+            compare(f"{name}[{label}] library", library(), plain(),
+                    LM_PATH_TOL)
+            row["library_ms"] = timer(library)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+
+    # -- the slice end to end: 8 requests through the batcher ------------
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+
+    class TimedBatcher(ContinuousBatcher):
+        """Records CUDA events around each admission and decode step."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefill_events, self.decode_events = [], []
+
+        def _admit(self):
+            n0, ev0 = self.prefills, torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            super()._admit()
+            if self.prefills > n0:
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                self.prefill_events.append((ev0, ev1, self.prefills - n0))
+
+        def _decode_step(self, tokens, lengths):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = super()._decode_step(tokens, lengths)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            self.decode_events.append((ev0, ev1))
+            return out
+
+    warm = ContinuousBatcher(cfg, params, 1, 64, device="cuda")
+    warm.submit(Request(rid=-1, prompt=prompts[0][:8], max_new_tokens=3))
+    warm.run_to_completion()
+    del warm
+    batcher = TimedBatcher(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    flash_attention.launches = decode_attention.launches = 0
+    fused_mlp.launches = 0
+    t0 = time.perf_counter()
+    done = batcher.run_to_completion()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches,
+                "fused_mlp": fused_mlp.launches}
+    L, steps = cfg.n_layers, batcher.decode_steps
+    check(sorted(r.rid for r in done) == list(range(len(prompts))),
+          f"serving: {len(done)} of {len(prompts)} requests finished")
+    for r in done:
+        check(len(r.tokens) == NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"serving: request {r.rid} gave {len(r.tokens)} tokens")
+    want = {"flash_attention": L * len(prompts),
+            "decode_attention": L * steps,
+            "fused_mlp": L * (len(prompts) + steps)}
+    check(launches == want and all(launches.values()),
+          f"serving launches {launches}, expected {want}")
+    prefill_ms = [a.elapsed_time(b) / n for a, b, n in
+                  batcher.prefill_events]
+    decode_ms = [a.elapsed_time(b) for a, b in batcher.decode_events]
+    decode_tokens = len(prompts) * (NEW_TOKENS - 1)
+    print(json.dumps({
+        "serving": cfg.name, "layers": L, "slots": N_SLOTS,
+        "max_len": MAX_LEN, "requests": len(prompts),
+        "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
+        "params": cfg.n_params(), "init_s": init_s, "wall_s": wall_s,
+        "prefills": batcher.prefills, "decode_steps": steps,
+        "launches": launches,
+        "prefill_ms_per_request_median": statistics.median(prefill_ms),
+        "prefill_ms_per_request": prefill_ms,
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_tokens_per_s": decode_tokens / (sum(decode_ms) / 1e3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": smi}), flush=True)
+
+    # -- teacher forcing: the kernels against impl="ref" -----------------
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    by_rid = {r.rid: r for r in done}
+    for r in (by_rid[0], by_rid[5]):            # prompts of 17 and 255
+        seqs = {}
+        for label, c in (("kernels", cfg), ("ref", ref_cfg)):
+            cache = M.init_cache(c, 1, MAX_LEN, dtype=f32, device="cuda")
+            tok = torch.tensor(r.prompt, device="cuda", dtype=torch.long)
+            logits, cache = M.prefill(params, c, tok[None], cache)
+            out = [logits[0]]
+            for t in r.tokens[:-1]:
+                tok = torch.tensor([t], device="cuda")
+                logits, cache = M.decode_step(params, c, tok, cache)
+                out.append(logits[0])
+            seqs[label] = torch.stack(out)
+        kern, ref = seqs["kernels"], seqs["ref"]
+        err = (kern - ref).abs().amax(-1)            # per step
+        scale = float(ref.abs().max())
+        agree = float((ref.argmax(-1).cpu()
+                       == torch.tensor(r.tokens)).float().mean())
+        print(json.dumps({
+            "teacher_forced": r.rid, "prompt_len": len(r.prompt),
+            "steps": len(r.tokens), "max_abs_dlogits": float(err.max()),
+            "max_abs_logits": scale, "tol": LM_LOGIT_TOL * scale,
+            "greedy_agree_share": agree, "card": smi}), flush=True)
+        check(float(err.max()) <= LM_LOGIT_TOL * scale,
+              f"teacher-forced request {r.rid}: kernels vs ref logits "
+              f"{float(err.max()):.3e} > {LM_LOGIT_TOL} * {scale:.3e}")
+
+    return [{"name": f"{row['kernel']}[{row['shape']}]", "route": "cuda",
+             "source": LM_KERNELS[row["kernel"]][0],
+             "replaces": LM_KERNELS[row["kernel"]][1],
+             "launches": launches[row["kernel"]],
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+            for row in rows]
 
 
 if __name__ == "__main__":

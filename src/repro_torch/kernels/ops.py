@@ -1,0 +1,84 @@
+"""Public wrappers of the LM kernels (the port of ``repro.kernels.ops``).
+
+Every op takes ``impl=``:
+
+- ``"cuda"`` — the hand-written Hopper kernel; a CPU tensor raises;
+- ``"ref"``  — the plain PyTorch version (:mod:`repro_torch.kernels.ref`),
+  on whatever device the tensors are;
+- ``"auto"`` — the kernel for CUDA tensors, the plain version for CPU
+  tensors, for all three ops, prefill attention included.
+
+``"auto"`` departs from the reference for prefill attention: there
+``models/layers.py`` resolves ``"auto"`` with ``auto_native=False``, so
+prefill kept the portable XLA form and reached the Pallas kernel only
+when asked by name, because that kernel is wrong at ragged causal
+lengths (ROADMAP §C).  The port's kernel is right at every length, so
+``"auto"`` takes it.  Models call only these wrappers, so the kernel
+choice is a config knob (``ModelConfig.attn_impl``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import DeviceUnavailableError, NotPortedError
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.decode_attention import (decode_attention as
+                                                  _decode_kernel)
+from repro_torch.kernels.flash_attention import (flash_attention as
+                                                 _flash_kernel)
+from repro_torch.kernels.fused_mlp import fused_mlp as _mlp_kernel
+
+__all__ = ["attention", "decode_attention", "mlp", "ssd", "rmsnorm",
+           "IMPLS"]
+
+IMPLS = ("auto", "cuda", "ref")
+
+
+def _use_kernel(impl: str, x: torch.Tensor) -> bool:
+    """Whether ``impl`` on tensors like ``x`` runs the kernel."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "ref":
+        return False
+    if impl == "cuda" and not x.is_cuda:
+        raise DeviceUnavailableError(
+            f"impl='cuda' needs CUDA tensors, got a tensor on {x.device}")
+    return x.is_cuda
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    return _ref.rmsnorm_ref(x, w, eps)
+
+
+def attention(q, k, v, bias=None, causal=True, impl: str = "auto",
+              scale=None):
+    """q: (B, Hq, Sq, Dk); k: (B, Hkv, Sk, Dk); v: (B, Hkv, Sk, Dv)."""
+    if _use_kernel(impl, q):
+        return _flash_kernel(q, k, v, bias=bias, causal=causal, scale=scale)
+    return _ref.flash_attention_ref(q, k, v, bias=bias, causal=causal,
+                                    scale=scale)
+
+
+def decode_attention(q, k, v, bias=None, impl: str = "auto", scale=None):
+    """q: (B, Hq, Dk); k: (B, Hkv, S, Dk); v: (B, Hkv, S, Dv)."""
+    if _use_kernel(impl, q):
+        return _decode_kernel(q, k, v, bias=bias, scale=scale)
+    return _ref.decode_attention_ref(q, k, v, bias=bias, scale=scale)
+
+
+def mlp(x, w_norm, w_gate, w_up, w_down, eps: float = 1e-6,
+        impl: str = "auto"):
+    """Fused rmsnorm + SwiGLU.  x: (..., d), leading dims flattened."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if _use_kernel(impl, x):
+        y = _mlp_kernel(x2, w_norm, w_gate, w_up, w_down, eps=eps)
+    else:
+        y = _ref.fused_mlp_ref(x2, w_norm, w_gate, w_up, w_down, eps=eps)
+    return y.reshape(*lead, x.shape[-1])
+
+
+def ssd(*args, **kwargs):
+    """The Mamba2 SSD scan comes with the SSM slice."""
+    raise NotPortedError("ops.ssd (the Mamba2 SSD scan, kernels/ssd_scan.py)"
+                         " is not ported yet")

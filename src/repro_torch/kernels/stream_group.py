@@ -228,7 +228,7 @@ class GroupKernel:
     def launcher(self):
         """The library's ``sg_launch``, built and loaded on first use."""
         if self._fn is None:
-            lib = build.load_library(self.source)
+            lib = build.load_library("sg", self.source)
             n = len(self.group.inputs) + len(self.group.outputs)
             fn = lib.sg_launch
             fn.argtypes = ([ctypes.c_void_p] * n

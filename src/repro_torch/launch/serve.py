@@ -1,0 +1,115 @@
+"""Serving launcher: batched prefill + greedy decode (the port of
+``repro.launch.serve``).
+
+``python -m repro_torch.launch.serve --arch granite_3_2b [--full]
+--batch 4 --prompt-len 32 --gen-len 32 [--device cpu]``
+
+Builds random parameters from ``--seed`` and a cache in the config's
+type, prefills ``--batch`` random prompts at once and decodes
+``--gen-len - 1`` more tokens in lock step.  On the card, prefill and
+decode are timed with CUDA events; on the CPU (``--device cpu``, the
+plain PyTorch versions) with the host clock, and the output says which.
+A mesh (``--mesh-data``) is not ported and raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS, get_config, get_smoke
+from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.models import model as M
+from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+__all__ = ["main"]
+
+
+class _Clock:
+    """Elapsed milliseconds of a phase: CUDA events on the card, the
+    host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.source = "cuda events" if dev.type == "cuda" else "host clock"
+
+    def start(self):
+        if self.dev.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def stop_ms(self, start) -> float:
+        if self.dev.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+        return (time.perf_counter() - start) * 1e3
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="granite_3_2b",
+                    help=f"one of {ARCHS}")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--mesh-data", type=int, default=0,
+                    help="sharded serving: not ported, raises")
+    args = ap.parse_args(argv)
+
+    if args.mesh_data:
+        raise NotPortedError("--mesh-data (sharded serving) is not ported "
+                             "yet")
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    params = M.init(cfg, args.seed, device=dev)
+    B = args.batch
+    max_len = args.prompt_len + args.gen_len + 8
+    cache = M.init_cache(cfg, B, max_len, dtype=M.torch_dtype(cfg.dtype),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
+                           generator=gen, device=dev)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+
+    clock = _Clock(dev)
+    t0 = clock.start()
+    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    tp = clock.stop_ms(t0)
+
+    tok = torch.argmax(logits, -1)
+    outs = [tok]
+    t0 = clock.start()
+    for _ in range(args.gen_len - 1):
+        logits, cache = decode(params, {"token": tok}, cache)
+        tok = torch.argmax(logits, -1)
+        outs.append(tok)
+    td = clock.stop_ms(t0)
+
+    gen_tokens = torch.stack(outs, 1).cpu().numpy()
+    n_dec = B * (args.gen_len - 1)
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(f"{cfg.name} on {where} ({clock.source}): prefill {tp:.1f} ms "
+          f"({B * args.prompt_len / tp * 1e3:.0f} tok/s), decode "
+          f"{td:.1f} ms ({n_dec / max(td, 1e-9) * 1e3:.0f} tok/s)")
+    if not (np.all(gen_tokens >= 0) and np.all(gen_tokens < cfg.vocab_size)):
+        raise RuntimeError("generated tokens outside the vocabulary")
+    print("first row:", gen_tokens[0][:12], "... OK")
+    return {"config": cfg.name, "device": where, "clock": clock.source,
+            "prefill_ms": tp, "decode_ms": td, "tokens": gen_tokens}
+
+
+if __name__ == "__main__":
+    main()

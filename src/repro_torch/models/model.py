@@ -1,0 +1,209 @@
+"""The dense LM: parameters, cache, prefill and decode (the port of
+``repro.models.model``).
+
+Public API (plain functions over dicts of tensors):
+  param_defs(cfg)                          declarative parameter tree
+  init(cfg, rng, device)                   parameter values
+  from_jax_params(cfg, params_np, device)  the reference's values, carried over
+  init_cache(cfg, batch, max_len, dtype, device)   decode cache
+  prefill(params, cfg, tokens, cache)      fill the cache, last-position logits
+  decode_step(params, cfg, token, cache)   one token for every sequence
+
+The parameters keep the reference's layout: every block parameter is
+stacked on a leading layer axis, and the layers run as a Python loop
+over it (the reference's ``_scan_or_loop``).  This slice ports the
+``dense`` family's serving path; every other family, MLA, MoE, encoder
+and vision inputs, and the training path (``loss_fn``) raise
+:class:`~repro_torch.device.NotPortedError`.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["param_defs", "init", "from_jax_params", "loss_fn",
+           "init_cache", "prefill", "decode_step", "torch_dtype",
+           "check_ported"]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``ModelConfig.dtype`` ("bfloat16", "float32", ...) as a torch dtype."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise :class:`NotPortedError` for what this slice does not run."""
+    if cfg.family != "dense":
+        raise NotPortedError(f"{cfg.name}: the {cfg.family!r} family is not "
+                             f"ported yet (this slice serves 'dense')")
+    if cfg.use_mla:
+        raise NotPortedError(f"{cfg.name}: MLA attention is not ported yet")
+    if cfg.n_experts > 0:
+        raise NotPortedError(f"{cfg.name}: MoE blocks are not ported yet")
+    if cfg.kv_repeat_to > 0:
+        raise NotPortedError(f"{cfg.name}: kv_repeat_to is not ported yet")
+
+
+# ----------------------------------------------------------------------
+# parameters
+# ----------------------------------------------------------------------
+def _stack(defs: Any, n: int) -> Any:
+    """Prepend a stacked 'layers' dim to every ParamDef in a tree."""
+    if isinstance(defs, L.ParamDef):
+        return L.ParamDef((n,) + defs.shape, ("layers",) + defs.axes,
+                          defs.init, defs.scale)
+    return {k: _stack(v, n) for k, v in defs.items()}
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    check_ported(cfg)
+    d, V = cfg.d_model, cfg.vocab_size
+    defs: dict[str, Any] = {
+        "embed": L.ParamDef((V, d), ("vocab", "embed"), scale=0.02),
+        "final_ln": L.ParamDef((d,), ("embed",), "ones"),
+        "blocks": _stack({"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)},
+                         cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = L.ParamDef((d, V), ("embed", "vocab"))
+    return defs
+
+
+def init(cfg: ModelConfig, rng: int | torch.Generator = 0,
+         device=None) -> dict:
+    """Random parameters by the declared laws.  ``rng`` is a seed or a
+    ``torch.Generator`` on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    defs = param_defs(cfg)
+    if isinstance(rng, torch.Generator):
+        gen = rng
+        if gen.device.type != dev.type:
+            raise ValueError(f"the generator lives on {gen.device}, the "
+                             f"parameters on {dev}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(int(rng))
+    return L.init_tree(defs, gen, torch_dtype(cfg.dtype), dev)
+
+
+def _from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.array(a)                      # a writable copy
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16, by name
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def from_jax_params(cfg: ModelConfig, params_np: Mapping,
+                    device=None) -> dict:
+    """The reference's parameter tree (``jax.tree.map(np.asarray,
+    repro.models.model.init(...))``) as the port's, bit for bit.
+
+    bfloat16 arrays are read through an int16 view by their dtype's name,
+    so this needs neither JAX nor ``ml_dtypes``.
+    """
+    dev = resolve_device(device)
+    defs = param_defs(cfg)
+
+    def carry(d, p, path):
+        if isinstance(d, L.ParamDef):
+            t = _from_numpy(p, dev)
+            if tuple(t.shape) != d.shape:
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(t.shape)}, expected {d.shape}")
+            return t
+        if set(d) != set(p):
+            raise ValueError(f"{'/'.join(path) or 'params'}: keys "
+                             f"{sorted(p)}, expected {sorted(d)}")
+        return {k: carry(d[k], p[k], path + (k,)) for k in d}
+
+    return carry(defs, params_np, ())
+
+
+# ----------------------------------------------------------------------
+# the layer loop
+# ----------------------------------------------------------------------
+def _layer(tree: Any, i: int) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: _layer(v, i) for k, v in tree.items()}
+
+
+def _run_blocks(params, cfg, x, pos, cache=None, index=None):
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        cache_l = None if cache is None else _layer(cache["attn"], i)
+        x, _ = L.attention_block(p["attn"], cfg, x, pos, cache_l, index)
+        x = L.mlp_block(p["mlp"], cfg, x)
+    return x
+
+
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _check_inputs(cfg, enc_embeds, extra_embeds):
+    check_ported(cfg)
+    if enc_embeds is not None or extra_embeds is not None:
+        raise NotPortedError("encoder (enc_embeds) and vision "
+                             "(extra_embeds) inputs are not ported yet")
+
+
+def loss_fn(params, cfg, batch):
+    """The training path comes with a later slice."""
+    raise NotPortedError("loss_fn (the training path) is not ported yet")
+
+
+# ----------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ----------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """{"index": 0, "attn": {"k", "v"} (layers, batch, Hkv, max_len, D)}."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    per_layer = L.decode_attn_cache(cfg, cfg.n_layers * batch, max_len,
+                                    dtype, dev)
+    return {"index": torch.zeros((), dtype=torch.int32, device=dev),
+            "attn": {k: c.view(cfg.n_layers, batch, *c.shape[1:])
+                     for k, c in per_layer.items()}}
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: dict, enc_embeds=None, extra_embeds=None
+            ) -> tuple[torch.Tensor, dict]:
+    """Run the prompt through the model, filling the cache (in place).
+    Returns (last-position logits (B, V) float32, cache)."""
+    _check_inputs(cfg, enc_embeds, extra_embeds)
+    x = L.embed_tokens(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    x = _run_blocks(params, cfg, x, pos, cache, 0)
+    cache = {**cache, "index": torch.tensor(S, dtype=torch.int32,
+                                            device=x.device)}
+    x = L.rmsnorm(x[:, -1:], params["final_ln"], cfg.norm_eps)
+    return L.unembed(x, _head(params, cfg))[:, 0], cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict) -> tuple[torch.Tensor, dict]:
+    """One token for every sequence.  token: (B,) int.  ``cache["index"]``
+    is a scalar (lock-step) or a (B,) vector of per-slot lengths
+    (continuous batching).  Returns (logits (B, V) float32, cache)."""
+    check_ported(cfg)
+    idx = cache["index"]
+    x = L.embed_tokens(params["embed"], token[:, None]).to(
+        torch_dtype(cfg.dtype))
+    pos = idx[None] if idx.dim() == 0 else idx[:, None]
+    x = _run_blocks(params, cfg, x, pos, cache, idx)
+    cache = {**cache, "index": idx + 1}
+    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return L.unembed(x, _head(params, cfg))[:, 0], cache

@@ -1,0 +1,155 @@
+"""Continuous-batching serving scheduler (the port of
+``repro.runtime.batcher``).
+
+A fixed pool of decode *slots*; new requests are admitted into free
+slots between steps and sequences retire on EOS or their length budget.
+Each slot decodes against its own history length: the cache index is a
+per-slot vector, so the attention bias masks each slot at its own
+length and sequences of different ages share one batch.
+
+As in the reference, prompts are prefilled one at a time (B = 1, into
+a fresh float32 cache whose rows are then copied into the slot), decode
+runs across all slots every step, and the host's lengths are the
+scheduler's truth.  There is no ``jit``: the decode step runs eagerly,
+one kernel launch per op.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.slots import SlotPool
+
+__all__ = ["Request", "ContinuousBatcher"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (prompt_len,) int32
+    max_new_tokens: int = 32
+    eos_id: int = -1                   # -1: run to the length budget
+    # filled by the batcher:
+    tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ContinuousBatcher:
+    """Fixed-slot continuous batching on top of prefill / decode.
+
+    ``params`` must live on ``device`` (default: the card).  The cache is
+    the stacked (layers, slots, ...) tree of :func:`M.init_cache`, in
+    ``dtype`` (float32 by default, as in the reference).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, n_slots: int,
+                 max_len: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg, self.params = cfg, params
+        self.n_slots, self.max_len = n_slots, max_len
+        self.cache = M.init_cache(cfg, n_slots, max_len, dtype=dtype,
+                                  device=self.device)
+        # per-slot sequence lengths (host copy is the scheduler truth)
+        self.lengths = np.zeros(n_slots, np.int32)
+        self.pool: SlotPool = SlotPool(n_slots)
+        self.prefills = 0
+        self.decode_steps = 0
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self.pool.submit(req)
+
+    @property
+    def active(self) -> int:
+        return self.pool.active
+
+    @property
+    def queue(self):
+        return self.pool.queue
+
+    @property
+    def slot_req(self) -> list[Request | None]:
+        return self.pool.slots
+
+    @property
+    def finished(self) -> list[Request]:
+        return self.pool.finished
+
+    # ------------------------------------------------------------------
+    def _admit(self) -> None:
+        """Prefill queued requests into free slots (one at a time)."""
+        for slot, req in self.pool.admit():
+            prompt = torch.as_tensor(np.asarray(req.prompt),
+                                     dtype=torch.long,
+                                     device=self.device)[None]
+            tmp_cache = M.init_cache(self.cfg, 1, self.max_len,
+                                     dtype=torch.float32, device=self.device)
+            logits, tmp_cache = M.prefill(self.params, self.cfg, prompt,
+                                          tmp_cache)
+            self._copy_slot(tmp_cache, slot)
+            req.tokens.append(int(torch.argmax(logits[0], -1)))
+            self.lengths[slot] = len(req.prompt)
+            self.prefills += 1
+
+    def _copy_slot(self, src_cache: dict, slot: int) -> None:
+        """Copy a B = 1 cache into slot ``slot`` of the pool cache."""
+        for name, pool in self.cache["attn"].items():
+            pool[:, slot:slot + 1] = src_cache["attn"][name]
+
+    # ------------------------------------------------------------------
+    def _decode_step(self, tokens: np.ndarray, lengths: np.ndarray):
+        """One decode step with PER-SLOT lengths: each slot writes its KV
+        at its own position and attends under its own mask."""
+        cache = dict(self.cache)
+        cache["index"] = torch.tensor(lengths, device=self.device)
+        token = torch.tensor(tokens, dtype=torch.long, device=self.device)
+        logits, cache = M.decode_step(self.params, self.cfg, token, cache)
+        self.decode_steps += 1
+        return logits, cache
+
+    def step(self) -> int:
+        """Admit, decode once for all active slots, retire finished.
+
+        Returns the number of tokens produced this step."""
+        self._admit()
+        if self.active == 0:
+            return 0
+        tokens = np.zeros(self.n_slots, np.int32)
+        for i, r in enumerate(self.slot_req):
+            if r is not None:
+                tokens[i] = r.tokens[-1]
+        logits, new_cache = self._decode_step(tokens, self.lengths)
+        # keep host lengths authoritative (the step +1s them all,
+        # including idle slots; we install our own vector next step)
+        self.cache = new_cache
+        nxt = torch.argmax(logits, -1).cpu().numpy().astype(np.int32)
+        produced = 0
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            self.lengths[i] += 1
+            r.tokens.append(int(nxt[i]))
+            produced += 1
+            over = len(r.tokens) >= r.max_new_tokens
+            eos = r.eos_id >= 0 and int(nxt[i]) == r.eos_id
+            if over or eos or self.lengths[i] >= self.max_len - 1:
+                r.done = True
+        # continuous refill: reap every finished sequence's slot; the next
+        # _admit() backfills them without a drain barrier
+        for slot in self.pool.ready(lambda r: r.done):
+            self.pool.retire(slot)
+            self.lengths[slot] = 0
+        return produced
+
+    def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
+        steps = 0
+        while (self.queue or self.active) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.finished

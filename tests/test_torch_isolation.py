@@ -21,6 +21,9 @@ torch.set_num_threads(1)
 from repro_torch.core import apps as tapps               # noqa: E402
 from repro_torch.core.compiler import compile_graph      # noqa: E402
 from repro_torch.core.graph import as_inputs             # noqa: E402
+from repro_torch.configs import get_smoke                # noqa: E402
+from repro_torch.models import model as tmodel           # noqa: E402
+from repro_torch.runtime.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.device import (DeviceUnavailableError,  # noqa: E402
                                 resolve_device)
 
@@ -78,6 +81,14 @@ def test_cuda_request_raises_without_a_card():
         compile_graph(g, device="cuda")
     with pytest.raises(DeviceUnavailableError):
         as_inputs(g, {"img": [[0.0] * 64] * 16}, None)
+    cfg = get_smoke("granite_3_2b")
+    with pytest.raises(DeviceUnavailableError):
+        tmodel.init(cfg, 0)
+    with pytest.raises(DeviceUnavailableError):
+        tmodel.init_cache(cfg, 2, 16)
+    params = tmodel.init(cfg, 0, device="cpu")
+    with pytest.raises(DeviceUnavailableError):
+        ContinuousBatcher(cfg, params, n_slots=2, max_len=16)
     assert resolve_device("cpu").type == "cpu"
 
 

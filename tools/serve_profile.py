@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where a decode step's time goes: granite-3-2b served by the port on one
+NVIDIA GPU.
+
+Fills the 4 slots of ``repro_torch.runtime.batcher.ContinuousBatcher``
+(512 positions) with prompts of 17, 64, 100 and 128 tokens, runs 5 warm
+decode steps, then 10 more under ``torch.profiler`` (CPU and CUDA
+activities) and reports per decode step:
+
+- wall ms: the host clock around the steps, ending in a synchronize;
+- device ms: the kernels' and copies' time from the profiler's
+  ``key_averages()`` (one stream, so their sum is the busy time);
+- the device's idle share, ``1 - device / wall``;
+- launches: device events per step;
+- the kernels by device time, with their launches per step.
+
+Prints one JSON line with the card's ``nvidia-smi`` name and power limit
+and writes the full kernel table to ``chiprun_out/serve_profile.json``.
+
+Run:  python3 tools/serve_profile.py [--seed 0]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+from chip_smoke import card_line  # noqa: E402
+
+PROMPT_LENS = (17, 64, 100, 128)
+N_SLOTS, MAX_LEN = 4, 512
+WARM, STEPS = 5, 10
+OUT = ROOT / "chiprun_out" / "serve_profile.json"
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("serve_profile: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    smi, _ = card_line()
+    cfg = get_config("granite_3_2b")
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(
+        args.seed), device="cuda")
+    rng = np.random.default_rng(args.seed)
+    batcher = ContinuousBatcher(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
+    for i, n in enumerate(PROMPT_LENS):
+        batcher.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32),
+            max_new_tokens=WARM + STEPS + 2))
+    for _ in range(WARM):
+        batcher.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            batcher.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    rows = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append({"name": evt.key[:120], "ms_per_step": us / 1e3
+                         / STEPS, "launches_per_step": evt.count / STEPS})
+    rows.sort(key=lambda r: -r["ms_per_step"])
+    device_ms = sum(r["ms_per_step"] for r in rows)
+    summary = {
+        "profile": cfg.name, "slots": N_SLOTS, "max_len": MAX_LEN,
+        "steps": STEPS, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms if rows else "not measured",
+        "idle_share": 1 - device_ms / wall_ms if rows else "not measured",
+        "launches_per_step": sum(r["launches_per_step"] for r in rows),
+        "top": rows[:8], "card": smi}
+    print(json.dumps(summary), flush=True)
+    OUT.parent.mkdir(exist_ok=True)
+    OUT.write_text(json.dumps({**summary, "kernels": rows}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -69,7 +69,8 @@ def main() -> int:
         plans[name] = {label: app.kernels[0] for label, app in cands.items()}
     sources = sorted({k.source for p in plans.values() for k in p.values()})
     for i in range(0, len(sources), BUILD_BATCH):
-        build.build_libraries(sources[i:i + BUILD_BATCH])
+        build.build_libraries(
+            [("sg", s) for s in sources[i:i + BUILD_BATCH]])
     print(f"compiled and built {len(sources)} kernels in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
