@@ -37,7 +37,20 @@ no result line) on any error:
    and teacher-forces two requests through ``prefill`` /
    ``decode_step`` with the kernels and with ``impl="ref"``, logits
    within 5e-2 * max|logits|;
-6. prints the ``kernels`` line.
+6. SSM and hybrid serving: holds the ``ssd_scan`` kernel (built in
+   phase 2) against its plain version at mamba2-2.7b's shapes (s = 255,
+   ragged, and s = 2048, 16 chunks of carried state; bfloat16 x, B, C)
+   and zamba2-1.2b's (s = 200), and in float32 with g = 2 and an
+   ``init_state``; serves 8 requests on mamba2-2.7b at full width and
+   depth (64 layers, bf16, random weights from ``--seed``) through the
+   4-slot batcher with ``ssd_scan`` launched exactly 64 times per
+   prefill (and never at decode); teacher-forces two requests against
+   ``impl="ref"`` (logits within twice the spread between two plain
+   versions) and one in float32 (within 1e-4 * max|logits|); then frees
+   it and serves 4 requests on zamba2-1.2b at full width (38 Mamba2
+   layers, 6 shared-attention sites with 32/32 heads), checking every
+   kernel's launch count, and teacher-forces one request both ways;
+7. prints the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -282,6 +295,9 @@ def main() -> int:
     # -- phase 5: LM serving, granite-3-2b at full width ----------------
     lm_entries = lm_serving(torch, timer, smi, args.seed)
 
+    # -- phase 6: SSM and hybrid serving, mamba2-2.7b and zamba2-1.2b ----
+    lm_entries += ssm_serving(torch, timer, smi, args.seed)
+
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -298,6 +314,194 @@ def main() -> int:
 
 
 # ----------------------------------------------------------------------
+# helpers of the serving phases
+# ----------------------------------------------------------------------
+def compare_close(torch, name, got, want, tol) -> float:
+    """Max abs error of a kernel's output against its plain version;
+    fails unless finite and within ``tol * max|want|``."""
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(bool(torch.isfinite(got.float()).all()) and err <= tol * scale,
+          f"{name}: kernel vs plain max abs err {err:.3e} > {tol} * "
+          f"{scale:.3e}")
+    return err
+
+
+def lm_bound(n_bytes, n_ops, ops_per_s) -> dict:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ops_per_s * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_cases(torch, timer, smi, cases, tol) -> list[dict]:
+    """Each (kernel, label, kernel fn, plain fn, library fn or None,
+    bound) case: checked against the plain version (and the library
+    call against it) and timed; one row each."""
+    rows = []
+    for name, label, kern, plain, library, bnd in cases:
+        err = compare_close(torch, f"{name}[{label}]", kern(), plain(), tol)
+        row = {"kernel": name, "shape": label, "max_abs_err": err,
+               "ms": timer(kern), "plain_ms": timer(plain), **bnd,
+               "library_ms": None, "card": smi}
+        if library is not None:    # the yardstick must compute the same
+            compare_close(torch, f"{name}[{label}] library", library(),
+                          plain(), tol)
+            row["library_ms"] = timer(library)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+    return rows
+
+
+def kernel_entries(rows, launches) -> list[dict]:
+    """Prints each case row with its kernel's launches on the main path
+    and returns the rows' entries of the kernels line."""
+    entries = []
+    for row in rows:
+        row["launches"] = launches[row["kernel"]]
+        print(json.dumps(row), flush=True)
+        entries.append({
+            "name": f"{row['kernel']}[{row['shape']}]", "route": "cuda",
+            "source": LM_KERNELS[row["kernel"]][0],
+            "replaces": LM_KERNELS[row["kernel"]][1],
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    return entries
+
+
+def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
+                   init_s, expected) -> tuple[list, dict]:
+    """Serves ``prompts`` through a ``ContinuousBatcher`` of N_SLOTS x
+    MAX_LEN after a short warm-up, with every launch counter of
+    ``counters`` at 0 just before; checks the tokens and that the counts
+    equal ``expected(prefills, decode_steps)``; prints the ``serving``
+    line.  Returns (finished requests, launch counts)."""
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    class TimedBatcher(ContinuousBatcher):
+        """Records CUDA events around each admission and decode step."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefill_events, self.decode_events = [], []
+
+        def _admit(self):
+            n0, ev0 = self.prefills, torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            super()._admit()
+            if self.prefills > n0:
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                self.prefill_events.append((ev0, ev1, self.prefills - n0))
+
+        def _decode_step(self, tokens, lengths):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = super()._decode_step(tokens, lengths)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            self.decode_events.append((ev0, ev1))
+            return out
+
+    warm = ContinuousBatcher(cfg, params, 1, 64, device="cuda")
+    warm.submit(Request(rid=-1, prompt=prompts[0][:8], max_new_tokens=3))
+    warm.run_to_completion()
+    del warm
+    batcher = TimedBatcher(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    done = batcher.run_to_completion()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = batcher.decode_steps
+    check(sorted(r.rid for r in done) == list(range(len(prompts))),
+          f"{cfg.name}: {len(done)} of {len(prompts)} requests finished")
+    for r in done:
+        check(len(r.tokens) == new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"{cfg.name}: request {r.rid} gave {len(r.tokens)} tokens")
+    want = expected(batcher.prefills, steps)
+    check(launches == want and all(launches.values()),
+          f"{cfg.name} serving launches {launches}, expected {want}")
+    prefill_ms = [a.elapsed_time(b) / n for a, b, n in
+                  batcher.prefill_events]
+    decode_ms = [a.elapsed_time(b) for a, b in batcher.decode_events]
+    decode_tokens = len(prompts) * (new_tokens - 1)
+    print(json.dumps({
+        "serving": cfg.name, "layers": cfg.n_layers, "slots": N_SLOTS,
+        "max_len": MAX_LEN, "requests": len(prompts),
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": new_tokens,
+        "params": cfg.n_params(), "init_s": init_s, "wall_s": wall_s,
+        "prefills": batcher.prefills, "decode_steps": steps,
+        "launches": launches,
+        "prefill_ms_per_request_median": statistics.median(prefill_ms),
+        "prefill_ms_per_request": prefill_ms,
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_tokens_per_s": decode_tokens / (sum(decode_ms) / 1e3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": smi}), flush=True)
+    return done, launches
+
+
+def teacher_force(torch, cfg, params, r, smi, tol=None,
+                  spread_factor=None) -> None:
+    """Feeds request ``r``'s prompt and tokens through ``prefill`` /
+    ``decode_step`` with the kernels and with ``impl="ref"``; fails
+    unless every step's logits agree within ``tol * max|logits|`` or,
+    with ``spread_factor``, within that many times the largest
+    difference between two plain versions: ``impl="ref"`` and the same
+    with chunks of one position (the scan's token-by-token recurrence),
+    which differ only in where they round."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    routes = {"kernels": cfg, "ref": ref_cfg}
+    if spread_factor is not None:
+        routes["ref_chunk1"] = dataclasses.replace(ref_cfg, ssm_chunk=1)
+    seqs = {}
+    for label, c in routes.items():
+        cache = M.init_cache(c, 1, MAX_LEN, dtype=torch.float32,
+                             device="cuda")
+        tok = torch.tensor(r.prompt, device="cuda", dtype=torch.long)
+        logits, cache = M.prefill(params, c, tok[None], cache)
+        out = [logits[0]]
+        for t in r.tokens[:-1]:
+            tok = torch.tensor([t], device="cuda")
+            logits, cache = M.decode_step(params, c, tok, cache)
+            out.append(logits[0])
+        seqs[label] = torch.stack(out)
+    kern, ref = seqs["kernels"], seqs["ref"]
+    err = float((kern - ref).abs().max())
+    scale = float(ref.abs().max())
+    agree = float((ref.argmax(-1).cpu()
+                   == torch.tensor(r.tokens)).float().mean())
+    row = {"teacher_forced": r.rid, "config": cfg.name, "dtype": cfg.dtype,
+           "prompt_len": len(r.prompt), "steps": len(r.tokens),
+           "max_abs_dlogits": err, "max_abs_logits": scale}
+    if spread_factor is None:
+        limit, rule = tol * scale, f"{tol} * max|logits|"
+    else:
+        spread = float((seqs["ref_chunk1"] - ref).abs().max())
+        limit, rule = spread_factor * spread, f"{spread_factor} * spread"
+        row["plain_spread"] = spread
+    row.update({"tol": limit, "greedy_agree_share": agree, "card": smi})
+    print(json.dumps(row), flush=True)
+    check(bool(torch.isfinite(kern).all()) and err <= limit,
+          f"{cfg.name} ({cfg.dtype}) teacher-forced request {r.rid}: "
+          f"kernels vs ref logits {err:.3e} > {rule} = {limit:.3e}")
+
+
+# ----------------------------------------------------------------------
 # phase 5: LM serving
 # ----------------------------------------------------------------------
 LM_KERNELS = {   # name -> (source, the TPU kernel it replaces)
@@ -307,6 +511,8 @@ LM_KERNELS = {   # name -> (source, the TPU kernel it replaces)
                          "src/repro/kernels/decode_attention.py:65"),
     "fused_mlp": ("src/repro_torch/csrc/fused_mlp.cu",
                   "src/repro/kernels/fused_mlp.py:64"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:79"),
 }
 LM_F32_TOL = 1e-5                # kernel vs plain, float32 operands
 LM_PATH_TOL = 8e-3               # kernel vs plain, bf16 out: two bf16 steps
@@ -326,8 +532,6 @@ MLP_T = (4, 255)
 
 def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     """Phase 5; returns the LM kernels' entries of the kernels line."""
-    import dataclasses
-
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -336,7 +540,6 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_mlp import fused_mlp
     from repro_torch.models import model as M
-    from repro_torch.runtime.batcher import ContinuousBatcher, Request
 
     cfg = get_config("granite_3_2b")
     Hq, Hkv, D, d, f = (cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model,
@@ -349,20 +552,10 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
                 * std).to(dtype)
 
     def compare(name, got, want, tol):
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        check(bool(torch.isfinite(got.float()).all()) and err <= tol * scale,
-              f"{name}: kernel vs plain max abs err {err:.3e} > {tol} * "
-              f"{scale:.3e}")
-        return err
+        return compare_close(torch, name, got, want, tol)
 
     def bound(n_bytes, n_ops):
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / BF16_OPS_PER_S * 1e3
-        return {"bytes": n_bytes, "ops": n_ops,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        return lm_bound(n_bytes, n_ops, BF16_OPS_PER_S)
 
     # -- kernels against their plain versions, then timed ----------------
     cases = []                     # (kernel, label, kernel fn, plain fn,
@@ -414,19 +607,7 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
             lambda xb=xb, wb=wb: R.fused_mlp_ref(xb, *wb), None,
             bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)))
 
-    rows = []
-    for name, label, kern, plain, library, bnd in cases:
-        err = compare(f"{name}[{label}]", kern(), plain(), LM_PATH_TOL)
-        row = {"kernel": name, "shape": label, "max_abs_err": err,
-               "ms": timer(kern), "plain_ms": timer(plain), **bnd,
-               "library_ms": None, "card": smi}
-        if library is not None:    # the yardstick must compute the same
-            compare(f"{name}[{label}] library", library(), plain(),
-                    LM_PATH_TOL)
-            row["library_ms"] = timer(library)
-        row["bound_share"] = row["bound_ms"] / row["ms"]
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+    rows = time_cases(torch, timer, smi, cases, LM_PATH_TOL)
 
     # -- the slice end to end: 8 requests through the batcher ------------
     t0 = time.perf_counter()
@@ -438,114 +619,182 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in PROMPT_LENS]
 
-    class TimedBatcher(ContinuousBatcher):
-        """Records CUDA events around each admission and decode step."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.prefill_events, self.decode_events = [], []
-
-        def _admit(self):
-            n0, ev0 = self.prefills, torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            super()._admit()
-            if self.prefills > n0:
-                ev1 = torch.cuda.Event(enable_timing=True)
-                ev1.record()
-                self.prefill_events.append((ev0, ev1, self.prefills - n0))
-
-        def _decode_step(self, tokens, lengths):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            out = super()._decode_step(tokens, lengths)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev1.record()
-            self.decode_events.append((ev0, ev1))
-            return out
-
-    warm = ContinuousBatcher(cfg, params, 1, 64, device="cuda")
-    warm.submit(Request(rid=-1, prompt=prompts[0][:8], max_new_tokens=3))
-    warm.run_to_completion()
-    del warm
-    batcher = TimedBatcher(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
-    for i, p in enumerate(prompts):
-        batcher.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
-    flash_attention.launches = decode_attention.launches = 0
-    fused_mlp.launches = 0
-    t0 = time.perf_counter()
-    done = batcher.run_to_completion()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches,
-                "fused_mlp": fused_mlp.launches}
-    L, steps = cfg.n_layers, batcher.decode_steps
-    check(sorted(r.rid for r in done) == list(range(len(prompts))),
-          f"serving: {len(done)} of {len(prompts)} requests finished")
-    for r in done:
-        check(len(r.tokens) == NEW_TOKENS
-              and all(0 <= t < cfg.vocab_size for t in r.tokens),
-              f"serving: request {r.rid} gave {len(r.tokens)} tokens")
-    want = {"flash_attention": L * len(prompts),
-            "decode_attention": L * steps,
-            "fused_mlp": L * (len(prompts) + steps)}
-    check(launches == want and all(launches.values()),
-          f"serving launches {launches}, expected {want}")
-    prefill_ms = [a.elapsed_time(b) / n for a, b, n in
-                  batcher.prefill_events]
-    decode_ms = [a.elapsed_time(b) for a, b in batcher.decode_events]
-    decode_tokens = len(prompts) * (NEW_TOKENS - 1)
-    print(json.dumps({
-        "serving": cfg.name, "layers": L, "slots": N_SLOTS,
-        "max_len": MAX_LEN, "requests": len(prompts),
-        "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
-        "params": cfg.n_params(), "init_s": init_s, "wall_s": wall_s,
-        "prefills": batcher.prefills, "decode_steps": steps,
-        "launches": launches,
-        "prefill_ms_per_request_median": statistics.median(prefill_ms),
-        "prefill_ms_per_request": prefill_ms,
-        "decode_ms_per_step_median": statistics.median(decode_ms),
-        "decode_tokens_per_s": decode_tokens / (sum(decode_ms) / 1e3),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "card": smi}), flush=True)
+    counters = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_mlp": fused_mlp}
+    L = cfg.n_layers
+    done, launches = serve_requests(
+        torch, cfg, params, prompts, NEW_TOKENS, counters, smi, init_s,
+        lambda prefills, steps: {"flash_attention": L * prefills,
+                                 "decode_attention": L * steps,
+                                 "fused_mlp": L * (prefills + steps)})
 
     # -- teacher forcing: the kernels against impl="ref" -----------------
-    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
     by_rid = {r.rid: r for r in done}
     for r in (by_rid[0], by_rid[5]):            # prompts of 17 and 255
-        seqs = {}
-        for label, c in (("kernels", cfg), ("ref", ref_cfg)):
-            cache = M.init_cache(c, 1, MAX_LEN, dtype=f32, device="cuda")
-            tok = torch.tensor(r.prompt, device="cuda", dtype=torch.long)
-            logits, cache = M.prefill(params, c, tok[None], cache)
-            out = [logits[0]]
-            for t in r.tokens[:-1]:
-                tok = torch.tensor([t], device="cuda")
-                logits, cache = M.decode_step(params, c, tok, cache)
-                out.append(logits[0])
-            seqs[label] = torch.stack(out)
-        kern, ref = seqs["kernels"], seqs["ref"]
-        err = (kern - ref).abs().amax(-1)            # per step
-        scale = float(ref.abs().max())
-        agree = float((ref.argmax(-1).cpu()
-                       == torch.tensor(r.tokens)).float().mean())
-        print(json.dumps({
-            "teacher_forced": r.rid, "prompt_len": len(r.prompt),
-            "steps": len(r.tokens), "max_abs_dlogits": float(err.max()),
-            "max_abs_logits": scale, "tol": LM_LOGIT_TOL * scale,
-            "greedy_agree_share": agree, "card": smi}), flush=True)
-        check(float(err.max()) <= LM_LOGIT_TOL * scale,
-              f"teacher-forced request {r.rid}: kernels vs ref logits "
-              f"{float(err.max()):.3e} > {LM_LOGIT_TOL} * {scale:.3e}")
+        teacher_force(torch, cfg, params, r, smi, tol=LM_LOGIT_TOL)
 
-    return [{"name": f"{row['kernel']}[{row['shape']}]", "route": "cuda",
-             "source": LM_KERNELS[row["kernel"]][0],
-             "replaces": LM_KERNELS[row["kernel"]][1],
-             "launches": launches[row["kernel"]],
-             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-            for row in rows]
+    return kernel_entries(rows, launches)
+
+
+# ----------------------------------------------------------------------
+# phase 6: SSM and hybrid serving
+# ----------------------------------------------------------------------
+SSD_CHUNK = 128
+# (label, b, s, h, p, g, n, dtype name, init_state): mamba2-2.7b's prefill
+# shapes (ragged, and 16 chunks of carried state), zamba2-1.2b's, and a
+# float32 case with g = 2 and a start state
+SSD_CASES = (("mamba2 s=255", 1, 255, 80, 64, 1, 128, "bfloat16", False),
+             ("mamba2 s=2048", 1, 2048, 80, 64, 1, 128, "bfloat16", False),
+             ("zamba2 s=200", 1, 200, 64, 64, 1, 64, "bfloat16", False),
+             ("f32 g=2 init s=300", 1, 300, 80, 64, 2, 128, "float32", True))
+ZAMBA_REQUESTS, ZAMBA_NEW_TOKENS = 4, 16
+# Teacher-forced logits of the SSM models, kernels vs impl="ref".  Only the
+# scan differs between the routes of mamba2 (its decode step is plain
+# PyTorch in both); zamba2 adds its 6 attention and MLP sites.  In float32
+# the kernels and the plain versions differ in summation order only, about
+# 1e-6 of max|y| per call; over 64 layers that grows like a random walk to
+# about sqrt(64) * 1e-6 ~ 1e-5 of the largest logit, so 1e-4.  In bfloat16
+# each call's output rounds at other places (one bf16 step is 0.4 %), and
+# the recurrent state carries those differences on through the layers and
+# steps: two plain versions, the chunked scan and the same with chunks of
+# one position, already differ by several percent of the largest logit.  So
+# in bfloat16 the kernels must stay within twice the plain versions' spread.
+SSM_F32_LOGIT_TOL = 1e-4
+SSM_SPREAD_FACTOR = 2.0
+
+
+def ssd_bound(b, s, h, p, g, n, esize, init) -> dict:
+    """Bytes: x, B, C and y in their type, dt, A, the start state and the
+    final state in float32, each once.  Operations: per head and chunk of
+    r rows, the lower triangles of C B^T (r(r+1)/2 x n) and of the masked
+    product with x dt (r(r+1)/2 x p), the carried state's contribution
+    (r x n x p; none for the first chunk without a start state) and the
+    state update (r x p x n), two each for a multiply-add; float32 on the
+    CUDA cores, as the function computes (the reference converts to
+    float32 too)."""
+    n_bytes = (2 * b * s * h * p * esize + b * s * h * 4 + h * 4
+               + 2 * b * s * g * n * esize + b * h * p * n * 4 * (2 if init
+                                                                  else 1))
+    ops = 0
+    for c0 in range(0, s, SSD_CHUNK):
+        r = min(SSD_CHUNK, s - c0)
+        tri = r * (r + 1) // 2
+        ops += 2 * tri * (n + p) + 2 * r * p * n
+        if c0 > 0 or init:
+            ops += 2 * r * n * p
+    return lm_bound(n_bytes, ops * b * h, FP32_OPS_PER_S)
+
+
+def teacher_force_f32(torch, M, cfg, seed, r, smi) -> None:
+    """Teacher-forces ``r`` through the model in float32 (weights drawn
+    anew from ``seed``), kernels vs ``impl="ref"`` within
+    SSM_F32_LOGIT_TOL; frees the card's memory before and after."""
+    import dataclasses
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init(f32, torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    teacher_force(torch, f32, params, r, smi, tol=SSM_F32_LOGIT_TOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
+    """Phase 6; returns the ``ssd_scan`` entries of the kernels line."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import model as M
+
+    gc.collect()                       # phase 5's model is gone
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+
+    # -- the kernel against its plain version, then timed ---------------
+    cases = []
+    for label, b, s, h, p, g, n, dname, init in SSD_CASES:
+        dtype = getattr(torch, dname)
+        x = torch.randn(b, s, h, p, device="cuda", generator=gen).to(dtype)
+        dt = torch.rand(b, s, h, device="cuda", generator=gen) * 0.19 + 0.01
+        A = -(torch.rand(h, device="cuda", generator=gen) * 1.5 + 0.5)
+        B = torch.randn(b, s, g, n, device="cuda", generator=gen).to(dtype)
+        C = torch.randn(b, s, g, n, device="cuda", generator=gen).to(dtype)
+        i0 = (torch.randn(b, h, p, n, device="cuda", generator=gen)
+              if init else None)
+        args = (x, dt, A, B, C)
+        y, fs = ssd_scan(*args, chunk=SSD_CHUNK, init_state=i0)
+        yr, fr = R.ssd_ref(*args, chunk=SSD_CHUNK, init_state=i0)
+        compare_close(torch, f"ssd_scan[{label}] final state", fs, fr,
+                      LM_F32_TOL)
+        if dtype == torch.float32:
+            compare_close(torch, f"ssd_scan[{label}] y", y, yr, LM_F32_TOL)
+        cases.append((
+            "ssd_scan", label,
+            lambda a=args, i0=i0: ssd_scan(*a, chunk=SSD_CHUNK,
+                                           init_state=i0)[0],
+            lambda a=args, i0=i0: R.ssd_ref(*a, chunk=SSD_CHUNK,
+                                            init_state=i0)[0],
+            None, ssd_bound(b, s, h, p, g, n, x.element_size(), init)))
+    # y: float32 within 1e-5, bf16 within two bf16 steps of max|plain|
+    rows = time_cases(torch, timer, smi, cases, LM_PATH_TOL)
+
+    # -- mamba2-2.7b at full width and depth: 8 requests -----------------
+    cfg = get_config("mamba2_2p7b")
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    L = cfg.n_layers
+    done, launches = serve_requests(
+        torch, cfg, params, prompts, NEW_TOKENS, {"ssd_scan": ssd_scan}, smi,
+        init_s, lambda prefills, steps: {"ssd_scan": L * prefills})
+    by_rid = {r.rid: r for r in done}
+    for r in (by_rid[0], by_rid[5]):            # prompts of 17 and 255
+        teacher_force(torch, cfg, params, r, smi,
+                      spread_factor=SSM_SPREAD_FACTOR)
+    del params
+    teacher_force_f32(torch, M, cfg, seed, by_rid[5], smi)
+
+    # -- zamba2-1.2b at full width: 4 requests ----------------------------
+    zcfg = get_config("zamba2_1p2b")
+    t0 = time.perf_counter()
+    params = M.init(zcfg, torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sites = zcfg.n_layers // zcfg.attn_every
+    zprompts = [rng.integers(0, zcfg.vocab_size, size=n).astype(np.int32)
+                for n in PROMPT_LENS[:ZAMBA_REQUESTS]]
+    counters = {"ssd_scan": ssd_scan, "flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_mlp": fused_mlp}
+    zdone, _ = serve_requests(
+        torch, zcfg, params, zprompts, ZAMBA_NEW_TOKENS, counters, smi,
+        init_s,
+        lambda prefills, steps: {"ssd_scan": zcfg.n_layers * prefills,
+                                 "flash_attention": sites * prefills,
+                                 "decode_attention": sites * steps,
+                                 "fused_mlp": sites * (prefills + steps)})
+    zby_rid = {r.rid: r for r in zdone}       # the prompt of 128
+    teacher_force(torch, zcfg, params, zby_rid[3], smi,
+                  spread_factor=SSM_SPREAD_FACTOR)
+    del params
+    teacher_force_f32(torch, M, zcfg, seed, zby_rid[3], smi)
+
+    return kernel_entries(rows, launches)
 
 
 if __name__ == "__main__":

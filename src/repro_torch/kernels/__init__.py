@@ -3,7 +3,8 @@
 ``stream_group`` — the fused dataflow group kernel (replaces
 ``repro.core.fusion.lower_group_pallas``); ``expr`` — the expression
 recorder that turns stage bodies into C; ``flash_attention``,
-``decode_attention``, ``fused_mlp`` — the LM kernels (replace the Pallas
-kernels of the same names), with their plain versions in ``ref`` and
-the ``impl=`` dispatch in ``ops``; ``build`` — nvcc + ctypes.
+``decode_attention``, ``fused_mlp``, ``ssd_scan`` — the LM kernels
+(replace the Pallas kernels of the same names), with their plain
+versions in ``ref`` and the ``impl=`` dispatch in ``ops``; ``build`` —
+nvcc + ctypes.
 """

@@ -6,7 +6,7 @@ Every op takes ``impl=``:
 - ``"ref"``  — the plain PyTorch version (:mod:`repro_torch.kernels.ref`),
   on whatever device the tensors are;
 - ``"auto"`` — the kernel for CUDA tensors, the plain version for CPU
-  tensors, for all three ops, prefill attention included.
+  tensors, for every op, prefill attention included.
 
 ``"auto"`` departs from the reference for prefill attention: there
 ``models/layers.py`` resolves ``"auto"`` with ``auto_native=False``, so
@@ -15,18 +15,22 @@ when asked by name, because that kernel is wrong at ragged causal
 lengths (ROADMAP §C).  The port's kernel is right at every length, so
 ``"auto"`` takes it.  Models call only these wrappers, so the kernel
 choice is a config knob (``ModelConfig.attn_impl``).
+
+``ssd`` departs from the reference too: its Pallas route refuses
+``init_state``; the port's kernel starts from it, on both routes.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.device import DeviceUnavailableError, NotPortedError
+from repro_torch.device import DeviceUnavailableError
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import (decode_attention as
                                                   _decode_kernel)
 from repro_torch.kernels.flash_attention import (flash_attention as
                                                  _flash_kernel)
 from repro_torch.kernels.fused_mlp import fused_mlp as _mlp_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
 __all__ = ["attention", "decode_attention", "mlp", "ssd", "rmsnorm",
            "IMPLS"]
@@ -78,7 +82,16 @@ def mlp(x, w_norm, w_gate, w_up, w_down, eps: float = 1e-6,
     return y.reshape(*lead, x.shape[-1])
 
 
-def ssd(*args, **kwargs):
-    """The Mamba2 SSD scan comes with the SSM slice."""
-    raise NotPortedError("ops.ssd (the Mamba2 SSD scan, kernels/ssd_scan.py)"
-                         " is not ported yet")
+def ssd(x, dt, A, B, C, chunk: int = 64, impl: str = "auto",
+        init_state=None):
+    """Mamba2 SSD scan; see :func:`ref.ssd_scan_ref` for the contract.
+
+    Any length: the plain version pads a ragged sequence up to a chunk
+    multiple with dt = 0 steps (a no-op on y and on the final state) and
+    crops y; the kernel masks the ragged chunk the same way.  Both start
+    from ``init_state`` (zeros when None).
+    """
+    if _use_kernel(impl, x):
+        return _ssd_kernel(x, dt, A, B, C, chunk=chunk,
+                           init_state=init_state)
+    return _ref.ssd_ref(x, dt, A, B, C, chunk=chunk, init_state=init_state)

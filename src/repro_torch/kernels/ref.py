@@ -15,7 +15,7 @@ import math
 import torch
 
 __all__ = ["rmsnorm_ref", "flash_attention_ref", "decode_attention_ref",
-           "fused_mlp_ref"]
+           "fused_mlp_ref", "ssd_scan_ref", "ssd_sequential_ref", "ssd_ref"]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -90,3 +90,119 @@ def fused_mlp_ref(x: torch.Tensor, w_norm: torch.Tensor,
     u = h @ w_up.to(torch.float32)
     a = torch.nn.functional.silu(g) * u
     return (a @ w_down.to(torch.float32)).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) scan
+# ----------------------------------------------------------------------
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """segsum(x)[..., i, j] = sum_{k=j+1..i} x[..., k]  (-inf for j > i)."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    ii = torch.arange(L, device=x.device)
+    mask = ii[:, None] >= ii[None, :]
+    return torch.where(mask, diff, -torch.inf)
+
+
+def _heads(t: torch.Tensor, rep: int) -> torch.Tensor:
+    """Broadcast (b, s, g, n) groups to (b, s, h, n) heads."""
+    return torch.repeat_interleave(t, rep, dim=2) if rep > 1 else t
+
+
+def _init(init_state, b, h, p, n, device) -> torch.Tensor:
+    if init_state is None:
+        return torch.zeros((b, h, p, n), dtype=torch.float32, device=device)
+    return init_state.to(torch.float32)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int = 64,
+                 init_state: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Mamba2, arXiv:2405.21060 Listing 1).
+
+    x: (b, s, h, p); dt: (b, s, h) positive steps (already softplus'ed);
+    A: (h,) negative decay rates; B, C: (b, s, g, n), the g groups
+    broadcast to the heads; ``s`` a multiple of ``chunk``.  Returns
+    (y (b, s, h, p) in x's type, final_state (b, h, p, n) float32).
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc = s // chunk
+    rep = h // g
+    f32 = torch.float32
+    xc = x.reshape(b, nc, chunk, h, p).to(f32)
+    dtc = dt.reshape(b, nc, chunk, h).to(f32)
+    Bc = _heads(B, rep).reshape(b, nc, chunk, h, n).to(f32)
+    Cc = _heads(C, rep).reshape(b, nc, chunk, h, n).to(f32)
+    dA = (dtc * A.to(f32)).movedim(-1, -2)                  # (b,c,h,l)
+    dA_cum = torch.cumsum(dA, dim=-1)
+
+    # 1. within-chunk (the "quadratic attention-like" part)
+    Ldec = torch.exp(_segsum(dA))                           # (b,c,h,l,l)
+    cb = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)
+    dtx = dtc[..., None] * xc                               # (b,c,l,h,p)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", cb * Ldec, dtx)
+
+    # 2. chunk-final states
+    decay_states = torch.exp(dA_cum[..., -1:] - dA_cum)     # (b,c,h,l)
+    states = torch.einsum("bclhn,bchl,bclhp->bchpn", Bc, decay_states, dtx)
+
+    # 3. cross-chunk recurrence, emitting the state before each chunk
+    chunk_decay = torch.exp(dA_cum[..., -1])                # (b,c,h)
+    carry = _init(init_state, b, h, p, n, x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                  # (b,c,h,p,n)
+
+    # 4. state -> output within chunk
+    state_decay = torch.exp(dA_cum)                         # (b,c,h,l)
+    y_off = torch.einsum("bclhn,bchpn,bchl->bclhp", Cc, prev_states,
+                         state_decay)
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), carry
+
+
+def ssd_sequential_ref(x, dt, A, B, C, init_state=None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token recurrence, the gold model the chunked scan must
+    match: h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t;  y_t = C_t h_t."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    f32 = torch.float32
+    Bh, Ch = _heads(B, rep).to(f32), _heads(C, rep).to(f32)
+    xf, dtf, Af = x.to(f32), dt.to(f32), A.to(f32)
+    state = _init(init_state, b, h, p, n, x.device)
+    ys = []
+    for t in range(s):
+        dec = torch.exp(dtf[:, t] * Af)                     # (b,h)
+        upd = torch.einsum("bhn,bhp,bh->bhpn", Bh[:, t], xf[:, t], dtf[:, t])
+        state = state * dec[..., None, None] + upd
+        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], state))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, h, p))
+    return y.to(x.dtype), state
+
+
+def ssd_ref(x, dt, A, B, C, chunk: int = 64, init_state=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the ``ssd_scan`` kernel: :func:`ssd_scan_ref`
+    at any length.  A ragged sequence is padded up to a multiple of
+    ``chunk`` with dt = 0 steps (decay exp(0) = 1, zero input), a no-op
+    on both outputs and the final state, and y is cropped after, as
+    ``repro.kernels.ops.ssd`` does."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+    y, final = ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                            init_state=init_state)
+    return (y[:, :s] if pad else y), final

@@ -2,7 +2,9 @@
 ``repro.launch.serve``).
 
 ``python -m repro_torch.launch.serve --arch granite_3_2b [--full]
---batch 4 --prompt-len 32 --gen-len 32 [--device cpu]``
+--batch 4 --prompt-len 32 --gen-len 32 [--device cpu]``; ``--arch``
+takes the dense ``granite_3_2b``, the SSM ``mamba2_2p7b`` and the hybrid
+``zamba2_1p2b`` (the other configs raise ``NotPortedError``).
 
 Builds random parameters from ``--seed`` and a cache in the config's
 type, prefills ``--batch`` random prompts at once and decodes

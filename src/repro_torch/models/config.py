@@ -4,8 +4,8 @@ One :class:`ModelConfig` per assigned architecture lives in
 ``repro_torch/configs/<id>.py``; :class:`ShapeConfig` describes the four
 assigned input shapes.  The fields are the reference's, unchanged, so a
 config means the same model in both packages; the port serves the
-``dense`` family and refuses the rest with ``NotPortedError``
-(:mod:`repro_torch.models.model`).
+``dense``, ``ssm`` and ``hybrid`` families and refuses the rest with
+``NotPortedError`` (:mod:`repro_torch.models.model`).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Model building blocks for the dense family (the port of
-``repro.models.layers``).
+"""Model building blocks for the dense, SSM and hybrid families (the
+port of ``repro.models.layers``).
 
 Parameters are declared with :class:`ParamDef` (shape, logical axes,
 init law) and made by :func:`init_tree` from one ``torch.Generator`` on
@@ -7,8 +7,8 @@ the target device.  The blocks are plain functions on tensors; the LM
 kernels are reached through :mod:`repro_torch.kernels.ops` only.
 
 Not here: the reference's ``shard_act`` / ``activation_rules`` (a no-op
-without a mesh, and the port has no mesh yet), MLA, MoE, Mamba2 and the
-chunked XLA attention, which come with later slices.
+without a mesh, and the port has no mesh yet), MLA, MoE and the chunked
+XLA attention, which come with later slices.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["ParamDef", "init_tree", "rmsnorm", "rope", "embed_tokens",
            "unembed", "attn_defs", "attention_block", "mlp_defs",
-           "mlp_block", "decode_attn_cache"]
+           "mlp_block", "decode_attn_cache", "mamba2_defs", "mamba2_block",
+           "mamba2_decode_step"]
 
 
 # ----------------------------------------------------------------------
@@ -34,7 +35,7 @@ __all__ = ["ParamDef", "init_tree", "rmsnorm", "rope", "embed_tokens",
 class ParamDef:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"        # normal | zeros | ones
+    init: str = "normal"        # normal | zeros | ones | ssm_a | dt_bias
     scale: float | None = None  # stddev override (default: 1/sqrt(fan_in))
 
     def __post_init__(self):
@@ -69,9 +70,15 @@ def _init_one(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init in ("ssm_a", "dt_bias"):     # kept in float32 whatever dtype
+        u = torch.rand(d.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        if d.init == "ssm_a":               # A = -uniform[1, 16)
+            return -(u * 15.0 + 1.0)
+        u = u * (1e-1 - 1e-3) + 1e-3        # softplus^-1(uniform[1e-3, 1e-1])
+        return torch.log(torch.expm1(u))
     if d.init != "normal":
-        raise NotPortedError(f"init law {d.init!r} (SSM parameters) is not "
-                             f"ported yet")
+        raise ValueError(f"unknown init law {d.init!r}")
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     std = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
@@ -243,3 +250,122 @@ def decode_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ----------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ----------------------------------------------------------------------
+def mamba2_defs(cfg: ModelConfig) -> dict:
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * g * n
+    return {
+        "ln": ParamDef((d,), ("embed",), "ones"),
+        "in_proj": ParamDef((d, 2 * di + 2 * g * n + H),
+                            ("embed", "ssm_inner")),
+        "conv_w": ParamDef((cfg.conv_width, conv_ch), (None, "ssm_inner"),
+                           scale=0.5),
+        "conv_b": ParamDef((conv_ch,), ("ssm_inner",), "zeros"),
+        "A": ParamDef((H,), (None,), "ssm_a"),
+        "D": ParamDef((H,), (None,), "ones"),
+        "dt_bias": ParamDef((H,), (None,), "dt_bias"),
+        "out_ln": ParamDef((di,), ("ssm_inner",), "ones"),
+        "out_proj": ParamDef((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv by shifted adds.  x: (B, S, C); w: (W, C).
+
+    state: (B, W-1, C) trailing context from the previous segment, taken
+    in x's type.  Returns (y, new_state), new_state in x's type.
+    """
+    W = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], W - 1, x.shape[-1]))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)        # (B, S+W-1, C)
+    S = x.shape[1]
+    y = b
+    for i in range(W):
+        y = y + xp[:, i:i + S] * w[i]
+    new_state = xp[:, -(W - 1):] if W > 1 else state
+    return y, new_state
+
+
+def _ssm_in(p: dict, cfg: ModelConfig, x: torch.Tensor,
+            conv_state: torch.Tensor | None):
+    """The block's input half: norm, in_proj, the causal conv and the
+    split into z, xs, B, C and the softplus'ed float32 dt."""
+    B, S, _ = x.shape
+    di, g, n, H, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
+                      cfg.ssm_heads, cfg.ssm_head_dim)
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    zxbcdt = h @ p["in_proj"]
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * g * n]
+    dt_raw = zxbcdt[..., -H:]
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc = torch.nn.functional.silu(xbc)
+    xs = xbc[..., :di].reshape(B, S, H, P)
+    Bm = xbc[..., di:di + g * n].reshape(B, S, g, n)
+    Cm = xbc[..., di + g * n:].reshape(B, S, g, n)
+    dt = torch.nn.functional.softplus(dt_raw.to(torch.float32)
+                                      + p["dt_bias"].to(torch.float32))
+    return z, xs, Bm, Cm, dt, new_conv
+
+
+def _ssm_out(p: dict, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
+             z: torch.Tensor) -> torch.Tensor:
+    y = y.reshape(*x.shape[:2], cfg.d_inner)
+    y = rmsnorm(y * torch.nn.functional.silu(z), p["out_ln"], cfg.norm_eps)
+    return x + y @ p["out_proj"]
+
+
+def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 conv_state: torch.Tensor | None = None,
+                 ssm_state: torch.Tensor | None = None,
+                 return_state: bool = False):
+    """Mamba2 block (SSD).  x: (B, S, d) -> (B, S, d).
+
+    The scan goes through :func:`ops.ssd` (the ``ssd_scan`` kernel on the
+    card).  With ``return_state`` also returns the conv state (B, W-1,
+    conv_ch) and the float32 SSM state (B, H, P, N) after the segment.
+    """
+    z, xs, Bm, Cm, dt, new_conv = _ssm_in(p, cfg, x, conv_state)
+    y, final_state = ops.ssd(xs, dt, p["A"], Bm, Cm, chunk=cfg.ssm_chunk,
+                             impl=cfg.attn_impl, init_state=ssm_state)
+    y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
+    out = _ssm_out(p, cfg, x, y, z)
+    if return_state:
+        return out, new_conv, final_state
+    return out
+
+
+def mamba2_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """Single-token recurrent step.  x: (B, 1, d).
+
+    conv_state: (B, W-1, conv_ch), in any float type (read in x's type);
+    ssm_state: (B, H, P, N) float32.  Both are updated IN PLACE, as
+    ``attention_block`` writes the KV cache, where the reference returns
+    new arrays; returns (x + out, conv_state, ssm_state).  Plain PyTorch:
+    the reference composes this step in XLA, not in a Pallas kernel.
+    """
+    B = x.shape[0]
+    g, H = cfg.ssm_groups, cfg.ssm_heads
+    z, xs, Bm, Cm, dt, new_conv = _ssm_in(p, cfg, x, conv_state)
+    xs, Bm, Cm, dt = xs[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0]
+    rep = H // g
+    if rep > 1:
+        Bm = torch.repeat_interleave(Bm, rep, dim=1)      # (B, H, n)
+        Cm = torch.repeat_interleave(Cm, rep, dim=1)
+    f32 = torch.float32
+    dec = torch.exp(dt * p["A"].to(f32))                  # (B, H)
+    upd = torch.einsum("bhn,bhp,bh->bhpn", Bm.to(f32), xs.to(f32), dt)
+    ssm_state.mul_(dec[..., None, None]).add_(upd)
+    y = torch.einsum("bhn,bhpn->bhp", Cm.to(f32), ssm_state)
+    y = y.to(x.dtype) + xs * p["D"].to(x.dtype)[None, :, None]
+    conv_state.copy_(new_conv)
+    return _ssm_out(p, cfg, x, y[:, None], z), conv_state, ssm_state

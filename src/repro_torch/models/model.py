@@ -1,5 +1,5 @@
-"""The dense LM: parameters, cache, prefill and decode (the port of
-``repro.models.model``).
+"""The dense, SSM and hybrid LMs: parameters, cache, prefill and decode
+(the port of ``repro.models.model``).
 
 Public API (plain functions over dicts of tensors):
   param_defs(cfg)                          declarative parameter tree
@@ -11,10 +11,12 @@ Public API (plain functions over dicts of tensors):
 
 The parameters keep the reference's layout: every block parameter is
 stacked on a leading layer axis, and the layers run as a Python loop
-over it (the reference's ``_scan_or_loop``).  This slice ports the
-``dense`` family's serving path; every other family, MLA, MoE, encoder
-and vision inputs, and the training path (``loss_fn``) raise
-:class:`~repro_torch.device.NotPortedError`.
+over it (the reference's ``_scan_or_loop`` unrolled, so the hybrid's
+shared-attention sites are static).  The serving paths of the ``dense``,
+``ssm`` (mamba2) and ``hybrid`` (zamba2) families are ported; the other
+families, MLA, MoE, encoder and vision inputs, and the training path
+(``loss_fn``) raise :class:`~repro_torch.device.NotPortedError`.  Caches
+are updated in place.
 """
 from __future__ import annotations
 
@@ -42,9 +44,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise :class:`NotPortedError` for what this slice does not run."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotPortedError(f"{cfg.name}: the {cfg.family!r} family is not "
-                             f"ported yet (this slice serves 'dense')")
+                             f"ported yet (the port serves 'dense', 'ssm' "
+                             f"and 'hybrid')")
     if cfg.use_mla:
         raise NotPortedError(f"{cfg.name}: MLA attention is not ported yet")
     if cfg.n_experts > 0:
@@ -64,17 +67,25 @@ def _stack(defs: Any, n: int) -> Any:
     return {k: _stack(v, n) for k, v in defs.items()}
 
 
+def _block_defs(cfg: ModelConfig) -> dict:
+    if cfg.family in ("ssm", "hybrid"):
+        return {"mamba": L.mamba2_defs(cfg)}
+    return {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
+
+
 def param_defs(cfg: ModelConfig) -> dict:
     check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     defs: dict[str, Any] = {
         "embed": L.ParamDef((V, d), ("vocab", "embed"), scale=0.02),
         "final_ln": L.ParamDef((d,), ("embed",), "ones"),
-        "blocks": _stack({"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)},
-                         cfg.n_layers),
+        "blocks": _stack(_block_defs(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = L.ParamDef((d, V), ("embed", "vocab"))
+    if cfg.family == "hybrid":
+        defs["shared_attn"] = L.attn_defs(cfg)
+        defs["shared_mlp"] = L.mlp_defs(cfg)
     return defs
 
 
@@ -105,7 +116,8 @@ def _from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def from_jax_params(cfg: ModelConfig, params_np: Mapping,
                     device=None) -> dict:
     """The reference's parameter tree (``jax.tree.map(np.asarray,
-    repro.models.model.init(...))``) as the port's, bit for bit.
+    repro.models.model.init(...))``) as the port's, bit for bit and in
+    each leaf's own type (the SSM's A and dt_bias stay float32).
 
     bfloat16 arrays are read through an int16 view by their dtype's name,
     so this needs neither JAX nor ``ml_dtypes``.
@@ -137,12 +149,47 @@ def _layer(tree: Any, i: int) -> Any:
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
-def _run_blocks(params, cfg, x, pos, cache=None, index=None):
+def _run_blocks(params, cfg, x, pos, cache=None, index=None,
+                decode=False):
+    if cfg.family in ("ssm", "hybrid"):
+        return _iterate_ssm(params, cfg, x, pos, cache, index, decode)
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         cache_l = None if cache is None else _layer(cache["attn"], i)
         x, _ = L.attention_block(p["attn"], cfg, x, pos, cache_l, index)
         x = L.mlp_block(p["mlp"], cfg, x)
+    return x
+
+
+def _maybe_shared_attn(cfg, params, x, pos, i, attn_cache, cache_index):
+    """The hybrid's shared attention + MLP, at layers ``i`` with
+    ``i % attn_every == attn_every - 1``; site ``i // attn_every`` of
+    the cache."""
+    k = cfg.attn_every
+    if i % k != k - 1:
+        return x
+    x, _ = L.attention_block(params["shared_attn"], cfg, x, pos,
+                             _layer(attn_cache, i // k), cache_index)
+    return L.mlp_block(params["shared_mlp"], cfg, x)
+
+
+def _iterate_ssm(params, cfg, x, pos, cache, cache_index, decode):
+    """The layer loop of the ssm and hybrid families.  A decode step
+    takes the recurrent step, which updates each layer's conv and SSM
+    state in place; a prompt runs the chunked scan from zero state and
+    writes the states it ends with into the cache."""
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)["mamba"]
+        if decode:
+            x, _, _ = L.mamba2_decode_step(p, cfg, x, cache["conv"][i],
+                                           cache["ssm"][i])
+        else:
+            x, conv, ssm = L.mamba2_block(p, cfg, x, return_state=True)
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(ssm)
+        if cfg.family == "hybrid":
+            x = _maybe_shared_attn(cfg, params, x, pos, i, cache["attn"],
+                                   cache_index)
     return x
 
 
@@ -167,14 +214,34 @@ def loss_fn(params, cfg, batch):
 # ----------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """{"index": 0, "attn": {"k", "v"} (layers, batch, Hkv, max_len, D)}."""
+    """The decode cache; every leaf but ``index`` has the batch on axis 1.
+
+    dense: {"index", "attn": {"k", "v"} (layers, batch, Hkv, max_len, D)};
+    ssm: {"index", "conv" (layers, batch, W-1, conv_ch) in ``dtype``,
+    "ssm" (layers, batch, H, P, N) float32}; hybrid: the ssm cache plus
+    "attn" for its ``n_layers // attn_every`` shared-attention sites.
+    """
     check_ported(cfg)
     dev = resolve_device(device)
-    per_layer = L.decode_attn_cache(cfg, cfg.n_layers * batch, max_len,
-                                    dtype, dev)
-    return {"index": torch.zeros((), dtype=torch.int32, device=dev),
-            "attn": {k: c.view(cfg.n_layers, batch, *c.shape[1:])
-                     for k, c in per_layer.items()}}
+    cache: dict[str, Any] = {
+        "index": torch.zeros((), dtype=torch.int32, device=dev)}
+    n_attn = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        cache["conv"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
+            device=dev)
+        cache["ssm"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+             cfg.ssm_state), dtype=torch.float32, device=dev)
+        if cfg.family == "ssm":
+            return cache
+        n_attn = cfg.n_layers // cfg.attn_every
+    per_layer = L.decode_attn_cache(cfg, n_attn * batch, max_len, dtype,
+                                    dev)
+    cache["attn"] = {k: c.view(n_attn, batch, *c.shape[1:])
+                     for k, c in per_layer.items()}
+    return cache
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -203,7 +270,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     x = L.embed_tokens(params["embed"], token[:, None]).to(
         torch_dtype(cfg.dtype))
     pos = idx[None] if idx.dim() == 0 else idx[:, None]
-    x = _run_blocks(params, cfg, x, pos, cache, idx)
+    x = _run_blocks(params, cfg, x, pos, cache, idx, decode=True)
     cache = {**cache, "index": idx + 1}
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return L.unembed(x, _head(params, cfg))[:, 0], cache

@@ -98,9 +98,21 @@ class ContinuousBatcher:
             self.prefills += 1
 
     def _copy_slot(self, src_cache: dict, slot: int) -> None:
-        """Copy a B = 1 cache into slot ``slot`` of the pool cache."""
-        for name, pool in self.cache["attn"].items():
-            pool[:, slot:slot + 1] = src_cache["attn"][name]
+        """Copy a B = 1 cache into slot ``slot`` of the pool cache.
+
+        Every leaf but ``index`` (the KV cache, and the conv and SSM
+        states of the ssm and hybrid families) has the batch on axis 1;
+        copying them all is what resets the slot's state on admission.
+        """
+        def copy(pool, one):
+            if isinstance(pool, dict):
+                for name in pool:
+                    copy(pool[name], one[name])
+            else:
+                pool[:, slot:slot + 1] = one
+
+        copy({k: v for k, v in self.cache.items() if k != "index"},
+             src_cache)
 
     # ------------------------------------------------------------------
     def _decode_step(self, tokens: np.ndarray, lengths: np.ndarray):

@@ -23,8 +23,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from repro_torch.device import (DeviceUnavailableError,  # noqa: E402
-                                NotPortedError)
+from repro_torch.device import DeviceUnavailableError  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -241,8 +240,13 @@ def test_ops_dispatch_on_cpu():
         ops.attention(q, k, k, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.mlp(x, x[0, 0], w, w, w.T, impl="triton")
-    with pytest.raises(NotPortedError, match="ssd"):
-        ops.ssd(x, x, x, x, x)
+    xs = x[..., None].expand(2, 3, 16, 4)       # ssd: (b, s, h, p)
+    dt = torch.full((2, 3, 16), 0.1)
+    A = -torch.ones(16)
+    bc = x[:, :, None, :4]                      # (b, s, g=1, n=4)
+    y, fs = ops.ssd(xs, dt, A, bc, bc, chunk=4)   # the plain version
+    want = TR.ssd_ref(xs, dt, A, bc, bc, chunk=4)
+    assert torch.equal(y, want[0]) and torch.equal(fs, want[1])
 
 
 def test_wrappers_refuse_mixed_and_foreign_devices():

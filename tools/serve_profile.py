@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where a decode step's time goes: granite-3-2b served by the port on one
-NVIDIA GPU.
+"""Where a decode step's time goes: an LM served by the port on one
+NVIDIA GPU (``--arch``: granite-3-2b by default, or mamba2-2.7b or
+zamba2-1.2b, at full width and depth).
 
 Fills the 4 slots of ``repro_torch.runtime.batcher.ContinuousBatcher``
 (512 positions) with prompts of 17, 64, 100 and 128 tokens, runs 5 warm
@@ -16,8 +17,9 @@ activities) and reports per decode step:
 
 Prints one JSON line with the card's ``nvidia-smi`` name and power limit
 and writes the full kernel table to ``chiprun_out/serve_profile.json``.
+For another ``--arch`` the file is ``serve_profile_<arch>.json``.
 
-Run:  python3 tools/serve_profile.py [--seed 0]
+Run:  python3 tools/serve_profile.py [--arch granite_3_2b] [--seed 0]
 """
 from __future__ import annotations
 
@@ -48,6 +50,8 @@ def _device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="granite_3_2b",
+                    help="granite_3_2b, mamba2_2p7b or zamba2_1p2b")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -63,7 +67,7 @@ def main() -> int:
     from repro_torch.runtime.batcher import ContinuousBatcher, Request
 
     smi, _ = card_line()
-    cfg = get_config("granite_3_2b")
+    cfg = get_config(args.arch)
     params = M.init(cfg, torch.Generator(device="cuda").manual_seed(
         args.seed), device="cuda")
     rng = np.random.default_rng(args.seed)
@@ -98,8 +102,10 @@ def main() -> int:
         "launches_per_step": sum(r["launches_per_step"] for r in rows),
         "top": rows[:8], "card": smi}
     print(json.dumps(summary), flush=True)
-    OUT.parent.mkdir(exist_ok=True)
-    OUT.write_text(json.dumps({**summary, "kernels": rows}, indent=1))
+    out = (OUT if args.arch == "granite_3_2b"
+           else OUT.with_name(f"serve_profile_{args.arch}.json"))
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({**summary, "kernels": rows}, indent=1))
     return 0
 
 
