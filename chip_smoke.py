@@ -50,7 +50,17 @@ no result line) on any error:
    it and serves 4 requests on zamba2-1.2b at full width (38 Mamba2
    layers, 6 shared-attention sites with 32/32 heads), checking every
    kernel's launch count, and teacher-forces one request both ways;
-7. prints the ``kernels`` line.
+7. the ``stream_pipeline`` kernel (built in phase 2), the paper's claim
+   in isolation: a chain of pointwise stages over a float32 plane fused
+   into one pass against the same kernel run once per stage
+   (``stream_pipeline_staged``, one read and one write per stage), at
+   1080x1920, 2160x3840 and 4320x7680 (each plane past the 50 MB L2),
+   for a chain of 1 stage (``tanh``), 4 (the JAX test's) and 16; fused
+   and staged each held against the plain version (max abs error <=
+   1e-6 * max|plain|), launched exactly once and once per stage; timed
+   with the plain version and, for one stage, ``torch.tanh``; one JSON
+   line per case, plus a misaligned view checked once;
+8. prints the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -163,6 +173,7 @@ def main() -> int:
     from repro_torch.frontend.lib import GAUSS3, tables
     from repro_torch.kernels import build
     from repro_torch.kernels.stream_group import stream_group, stream_group_ref
+    from repro_torch.kernels.stream_pipeline import PipelineKernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -187,10 +198,15 @@ def main() -> int:
     kernels = [k for a in [*apps.values(), qs_app] for k in a.kernels]
     t0 = time.perf_counter()
     lm_sources = [build.CudaSource(name) for name in LM_KERNELS]
+    chains = pipeline_chains(torch)          # fused, and one per stage
+    sp_sources = {PipelineKernel(c).source for c in chains.values()} | {
+        PipelineKernel((fn,)).source for c in chains.values() for fn in c}
     build.build_libraries([("sg", k.source) for k in kernels]
-                          + [(src.name, src.source) for src in lm_sources])
+                          + [(src.name, src.source) for src in lm_sources]
+                          + [("sp", src) for src in sorted(sp_sources)])
     print(f"compiled {len(apps) + 1} apps in {compile_s:.2f} s; built "
-          f"{len(kernels)} group kernels and {len(lm_sources)} LM kernels "
+          f"{len(kernels)} group kernels, {len(lm_sources)} LM kernels and "
+          f"{len(sp_sources)} pipeline chains "
           f"in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
@@ -297,6 +313,10 @@ def main() -> int:
 
     # -- phase 6: SSM and hybrid serving, mamba2-2.7b and zamba2-1.2b ----
     lm_entries += ssm_serving(torch, timer, smi, args.seed)
+
+    # -- phase 7: stream_pipeline, fused against staged ------------------
+    lm_entries += pipeline_phase(torch, timer, smi, power_limit, args.seed,
+                                 chains)
 
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
@@ -795,6 +815,140 @@ def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     teacher_force_f32(torch, M, zcfg, seed, zby_rid[3], smi)
 
     return kernel_entries(rows, launches)
+
+
+# ----------------------------------------------------------------------
+# phase 7: stream_pipeline, fused against staged
+# ----------------------------------------------------------------------
+PIPELINE_SOURCE = "src/repro_torch/csrc/stream_pipeline.cuh"
+PIPELINE_REPLACES = "src/repro/kernels/stream_pipeline.py:34"
+# full HD (the apps' plane), 4K UHD and 8K UHD: 16.6, 66 and 265 MB moved
+PIPELINE_PLANES = ((1080, 1920), (2160, 3840), (4320, 7680))
+
+
+def pipeline_chains(torch) -> dict:
+    """Stage count -> chain: ``tanh``; the JAX test's chain
+    (tests/test_kernels.py), run on |x|; that chain four times."""
+    c4 = (torch.tanh, lambda v: v * 2.0, torch.abs, torch.sqrt)
+    return {1: (torch.tanh,), 4: c4, 16: c4 * 4}
+
+
+def pipeline_close(torch, name, got, want) -> float:
+    """Max abs error, NaN where the plain version has NaN; fails unless
+    within TOL * max|want|."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    same_nan = torch.equal(torch.isnan(got), nan)
+    diff = (got - want).abs().masked_fill(nan, 0.0)
+    err = float(diff.max())
+    scale = float(want.abs().masked_fill(nan, 0.0).max())
+    check(same_nan and err <= TOL * scale,
+          f"{name}: vs plain max abs err {err:.3e} > {TOL} * {scale:.3e} "
+          f"(NaN where the plain version has NaN: {same_nan})")
+    return err
+
+
+def pipeline_phase(torch, timer, smi: str, power_limit: float, seed: int,
+                   chains: dict) -> list[dict]:
+    """Phase 7; returns the ``stream_pipeline`` entries of the kernels
+    line."""
+    import gc
+
+    import repro_torch.kernels.stream_pipeline as sp
+
+    gc.collect()                       # phase 6's models are gone
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    entries = []
+    for Hp, Wp in PIPELINE_PLANES:
+        x = torch.randn(Hp, Wp, device="cuda", generator=gen)
+        xa = x.abs()
+        for stages, fns in chains.items():
+            xin = x if stages == 1 else xa
+            label = f"{Hp}x{Wp},{stages}"
+            # the main path: the entry point a user calls, counter from 0
+            sp.stream_pipeline.launches = 0
+            out = sp.stream_pipeline(xin, fns)
+            torch.cuda.synchronize()
+            launches = sp.stream_pipeline.launches
+            check(launches == 1, f"stream_pipeline[{label}]: {launches} "
+                  f"launches, expected 1")
+            sp.stream_pipeline.launches = 0
+            staged = sp.stream_pipeline_staged(xin, fns)
+            torch.cuda.synchronize()
+            staged_launches = sp.stream_pipeline.launches
+            check(staged_launches == stages,
+                  f"stream_pipeline_staged[{label}]: {staged_launches} "
+                  f"launches, expected {stages}")
+            check(tuple(out.shape) == (Hp, Wp) and out.is_cuda
+                  and out.dtype == torch.float32,
+                  f"stream_pipeline[{label}]: output {tuple(out.shape)} "
+                  f"{out.dtype}")
+            ref = sp.stream_pipeline_ref(xin, fns)
+            err = pipeline_close(torch, f"stream_pipeline[{label}]", out, ref)
+            staged_err = pipeline_close(
+                torch, f"stream_pipeline_staged[{label}]", staged, ref)
+            library = None
+            if stages == 1:            # one PyTorch call computes it
+                pipeline_close(torch, f"torch.tanh[{label}]",
+                               torch.tanh(xin), ref)
+                library = timer(lambda: torch.tanh(xin))
+            del out, staged, ref
+            n_bytes = 2 * 4 * Hp * Wp
+            ops = sp.PipelineKernel(fns).ops_per_element() * Hp * Wp
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / FP32_OPS_PER_S * 1e3
+            row = {"kernel": "stream_pipeline", "plane": [Hp, Wp],
+                   "stages": stages,
+                   "ms": timer(lambda: sp.stream_pipeline(xin, fns)),
+                   "staged_ms": timer(
+                       lambda: sp.stream_pipeline_staged(xin, fns)),
+                   "plain_ms": timer(lambda: sp.stream_pipeline_ref(xin, fns)),
+                   "library_ms": library, "bytes": n_bytes,
+                   "staged_bytes": stages * n_bytes, "ops": ops,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations",
+                   "max_abs_err": err, "staged_max_abs_err": staged_err,
+                   "launches": launches, "staged_launches": staged_launches}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["staged_over_fused"] = row["staged_ms"] / row["ms"]
+            if power_limit < FULL_POWER_W:
+                row["bound_ms_power_scaled"] = (row["bound_ms"]
+                                                * FULL_POWER_W / power_limit)
+            row["card"] = smi
+            print(json.dumps(row), flush=True)
+            check(row["bound_share"] <= 1.05,
+                  f"stream_pipeline[{label}]: {row['ms']:.5f} ms is under "
+                  f"its bound {row['bound_ms']:.5f} ms: the timing is wrong")
+            entries.append({
+                "name": f"stream_pipeline[{label}]", "route": "cuda",
+                "source": PIPELINE_SOURCE, "replaces": PIPELINE_REPLACES,
+                "launches": launches, "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": library})
+        del x, xa
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # a view whose data is not 16-byte aligned takes the scalar loads
+    Hp, Wp = PIPELINE_PLANES[0]
+    fns = chains[4]
+    flat = torch.randn(Hp * Wp + 1, device="cuda", generator=gen).abs()
+    xm = flat[1:].view(Hp, Wp)
+    check(xm.is_contiguous() and xm.data_ptr() % 16 != 0,
+          "the misaligned case is aligned")
+    ref = sp.stream_pipeline_ref(xm, fns)
+    err = pipeline_close(torch, "stream_pipeline[misaligned]",
+                         sp.stream_pipeline(xm, fns), ref)
+    staged_err = pipeline_close(torch, "stream_pipeline_staged[misaligned]",
+                                sp.stream_pipeline_staged(xm, fns), ref)
+    print(json.dumps({"kernel": "stream_pipeline", "case": "misaligned view",
+                      "plane": [Hp, Wp], "stages": 4,
+                      "data_ptr_mod_16": xm.data_ptr() % 16,
+                      "max_abs_err": err, "staged_max_abs_err": staged_err}),
+          flush=True)
+    return entries
 
 
 if __name__ == "__main__":

@@ -26,14 +26,19 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["Expr", "Patches", "RecordError", "record", "emit_c",
-           "evaluate", "count_ops"]
+__all__ = ["Expr", "Patches", "RecordError", "RECORD_ERRORS", "record",
+           "emit_c", "evaluate", "count_ops"]
 
 F, B = "f", "b"            # value kinds: float32, bool
 
 
 class RecordError(TypeError):
     """A stage body did something the recorder cannot express in C."""
+
+
+#: errors a stage body may raise when it meets a recorder stand-in
+RECORD_ERRORS = (RecordError, TypeError, ValueError, AttributeError,
+                 IndexError, NotImplementedError, RuntimeError)
 
 
 class Expr:

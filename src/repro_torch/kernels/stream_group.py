@@ -31,14 +31,10 @@ from repro_torch.core.fusion import lower_group_torch
 from repro_torch.core.graph import Channel, GraphError, Stage, as_dtype
 from repro_torch.core.schedule import FusionGroup
 from repro_torch.kernels import build
-from repro_torch.kernels.expr import (Expr, Patches, RecordError, count_ops,
-                                      emit_c, record)
+from repro_torch.kernels.expr import (RECORD_ERRORS, Expr, Patches,
+                                      count_ops, emit_c, record)
 
 __all__ = ["GroupKernel", "stream_group", "stream_group_ref"]
-
-#: errors a stage body may raise when it meets a recorder stand-in
-_RECORD_ERRORS = (RecordError, TypeError, ValueError, AttributeError,
-                  IndexError, NotImplementedError, RuntimeError)
 
 
 def stream_group_ref(group: FusionGroup, inputs: Sequence[torch.Tensor],
@@ -276,7 +272,7 @@ def _record_stage(st: Stage) -> Expr:
             backend="cuda_stream", missing=(st.kind,))
     try:
         return record(st.fn, args)
-    except _RECORD_ERRORS as e:
+    except RECORD_ERRORS as e:
         raise UnsupportedBackendError(
             f"stage {st.name!r}: its body cannot be recorded for the group "
             f"kernel ({type(e).__name__}: {e})", backend="cuda_stream",

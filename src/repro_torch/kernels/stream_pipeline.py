@@ -1,0 +1,228 @@
+"""The fused pointwise stage chain: the Hopper kernel and its wrapper.
+
+Replaces the TPU kernel ``stream_pipeline`` / ``_kernel``
+(``src/repro/kernels/stream_pipeline.py``): a chain of pointwise stage
+functions over a 2-D plane in one pass, one read and one write of the
+plane for the whole chain.  ``stream_pipeline_staged`` is the baseline
+without dataflow, one read and one write per stage.
+
+The kernel's fixed part is hand-written in ``csrc/stream_pipeline.cuh``
+(16-byte loads, the chain in registers, a grid-stride walk over the flat
+plane); per chain, :class:`PipelineKernel` records every stage once with
+:mod:`repro_torch.kernels.expr` and emits the chain as C.  What bounds it
+on the card: the bytes, 8 per element.
+
+For pointwise stages the result depends on neither the tile nor the
+padding, so the TPU kernel's pad to whole tiles and its crop, two copies
+that exist for its block shapes, are not done: the kernel masks the
+ragged tail itself.  A CUDA tensor launches the kernel (each launch adds
+one to ``stream_pipeline.launches``) or the call raises; a CPU tensor
+takes the plain version after the chain is recorded, so a chain the
+card cannot run fails on the CPU too.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.backends.spec import UnsupportedBackendError
+from repro_torch.device import NotPortedError
+from repro_torch.kernels import build
+from repro_torch.kernels.expr import (B, F, RECORD_ERRORS, Expr, count_ops,
+                                      emit_c, record)
+from repro_torch.kernels.launch import call_device, sm_count, stream_of
+
+__all__ = ["PipelineKernel", "stream_pipeline", "stream_pipeline_staged",
+           "stream_pipeline_ref"]
+
+#: threads per block (``sp::kThreads``)
+THREADS = 256
+#: the grid's cap, in blocks per SM: 8 x 256 threads fill an SM
+BLOCKS_PER_SM = 8
+
+
+class PipelineKernel:
+    """One chain's generated CUDA source and its launcher.
+
+    Construction records each stage once on one float32 input and emits
+    the source; it needs no card and no nvcc.  A stage whose value is a
+    bool (a comparison) becomes float32 1.0 / 0.0 at the stage boundary,
+    as JAX promotes it in the next stage's arithmetic and in the final
+    ``astype``.  A stage the recorder cannot express raises
+    :class:`~repro_torch.backends.spec.UnsupportedBackendError` naming
+    its index.  The library is built at the first launch.
+    """
+
+    def __init__(self, fns: Sequence[Callable]):
+        self.fns = tuple(fns)
+        v = Expr("in", (0, 0, 0), F)
+        for i, fn in enumerate(self.fns):
+            try:
+                v = record(fn, [v])
+            except RECORD_ERRORS as e:
+                raise UnsupportedBackendError(
+                    f"stage {i} of the chain ({fn!r}) cannot be recorded "
+                    f"for the pipeline kernel ({type(e).__name__}: {e})",
+                    backend="cuda_pipeline",
+                    missing=(f"recordable:stage{i}",)) from e
+            if v.kind == B:
+                v = Expr("where", (v, Expr("const", (1.0,), F),
+                                   Expr("const", (0.0,), F)), F)
+        self.expr = v
+        self.source = self._generate()
+        self._fn = None
+        self._lib = None
+
+    def ops_per_element(self) -> int:
+        """Arithmetic operations per plane element over the chain."""
+        return count_ops(self.expr)
+
+    def _generate(self) -> str:
+        body, result = emit_c(self.expr, lambda k, dy, dx: "v")
+        return "\n".join([
+            f"// Generated fused pointwise chain of {len(self.fns)} stages",
+            '#include "stream_pipeline.cuh"',
+            "",
+            "namespace {",
+            "struct Chain {",
+            "  __device__ __forceinline__ float operator()(const float v) "
+            "const {",
+            *[f"    {ln}" for ln in body],
+            f"    return {result};",
+            "  }",
+            "};",
+            "}  // namespace",
+            "",
+            'extern "C" int sp_launch(const void* in, void* out, long long n,'
+            " int vec, int grid, void* stream) {",
+            "  return sp::launch<Chain>(in, out, n, vec, grid, stream);",
+            "}",
+            "",
+            'extern "C" const char* sp_error_string(int e) {',
+            "  return cudaGetErrorString((cudaError_t)e);",
+            "}",
+            "",
+        ])
+
+    def launcher(self):
+        """The library's ``sp_launch``, built and loaded on first use."""
+        if self._fn is None:
+            lib = build.load_library("sp", self.source)
+            fn = lib.sp_launch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            lib.sp_error_string.argtypes = [ctypes.c_int]
+            lib.sp_error_string.restype = ctypes.c_char_p
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def launch(self, x: torch.Tensor) -> torch.Tensor:
+        """Run the chain over the contiguous float32 CUDA tensor ``x`` on
+        the current stream; returns a new tensor of its shape."""
+        if (x.dtype != torch.float32 or not x.is_contiguous()
+                or x.device.type != "cuda"):
+            raise ValueError(f"stream_pipeline launch: expected a contiguous "
+                             f"float32 CUDA tensor, got {x.dtype} on "
+                             f"{x.device} contiguous={x.is_contiguous()}")
+        out = torch.empty_like(x)
+        n = x.numel()
+        vec = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        work = n // 4 if vec else n
+        grid = max(1, min(-(-work // THREADS),
+                          BLOCKS_PER_SM * sm_count(x.device.index)))
+        fn = self.launcher()
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), out.data_ptr(), n, int(vec), grid,
+                    stream_of(x.device))
+        if rc != 0:
+            msg = self._lib.sp_error_string(rc).decode()
+            raise RuntimeError(f"stream_pipeline launch failed ({rc}): "
+                               f"{msg}")
+        return out
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel(fns: tuple[Callable, ...]) -> PipelineKernel:
+    """The memo: each chain is recorded and loaded once, not per call."""
+    return PipelineKernel(fns)
+
+
+def _checked(x: torch.Tensor, fns: Sequence[Callable]
+             ) -> tuple[torch.Tensor, PipelineKernel]:
+    """x made contiguous and the chain's kernel, or the typed error."""
+    if x.dim() != 2:
+        raise ValueError(f"stream_pipeline: x must be 2-D (H, W), got "
+                         f"shape {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise NotPortedError(f"stream_pipeline: x is {x.dtype}; the kernel "
+                             f"streams float32 planes only (other float "
+                             f"types are not ported yet)")
+    call_device("stream_pipeline", x)
+    return x.contiguous(), _kernel(tuple(fns))
+
+
+def _run(kernel: PipelineKernel, x: torch.Tensor) -> torch.Tensor:
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    out = kernel.launch(x)
+    stream_pipeline.launches += 1
+    return out
+
+
+def stream_pipeline(x: torch.Tensor, fns: Sequence[Callable],
+                    tile: tuple[int, int] = (256, 512)) -> torch.Tensor:
+    """Fused execution of a pointwise stage chain over x: (H, W) float32.
+
+    Each fn maps a tensor to a tensor elementwise with the operations
+    :mod:`repro_torch.kernels.expr` records (arithmetic, comparisons,
+    ``torch.sqrt/exp/log/abs/tanh/sin/cos/sign``,
+    ``maximum/minimum/clamp/where``).  A non-contiguous x is made
+    contiguous first.  ``tile`` is checked and kept for the reference's
+    signature only: on the card the launch shape is the card's own (a
+    grid-stride walk over the flat plane), and the result of a pointwise
+    chain does not depend on it.  There is no ``interpret`` keyword: a
+    CPU tensor takes the plain version.
+    """
+    if (len(tile) != 2 or not all(isinstance(t, int) and t > 0
+                                  for t in tile)):
+        raise ValueError(f"stream_pipeline: tile must be two positive "
+                         f"ints, got {tile!r}")
+    x, kernel = _checked(x, fns)
+    if x.device.type == "cpu":
+        return stream_pipeline_ref(x, kernel.fns)
+    return _run(kernel, x)
+
+
+stream_pipeline.launches = 0
+
+
+def stream_pipeline_staged(x: torch.Tensor, fns: Sequence[Callable]
+                           ) -> torch.Tensor:
+    """The baseline without dataflow: each stage materializes to device
+    memory.  On the card the kernel runs once per stage, as a chain of
+    one: one read and one write of the plane per stage, each launch
+    counted in ``stream_pipeline.launches``.  Fused and staged runs then
+    differ only in those round trips (an eager torch chain would launch
+    once per torch op, not per stage).  A CPU tensor takes the plain
+    version after every stage is recorded."""
+    x, chain = _checked(x, fns)       # errors name the stage's index
+    if x.device.type == "cpu":
+        return stream_pipeline_ref(x, chain.fns)
+    for fn in chain.fns:
+        x = _run(_kernel((fn,)), x)
+    return x
+
+
+def stream_pipeline_ref(x: torch.Tensor, fns: Sequence[Callable]
+                        ) -> torch.Tensor:
+    """Plain PyTorch version: the chain over the whole tensor, then
+    converted to x's type."""
+    v = x
+    for fn in fns:
+        v = fn(v)
+    return v.to(x.dtype)

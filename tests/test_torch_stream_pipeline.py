@@ -1,0 +1,251 @@
+"""The fused pointwise stage chain of the port against the JAX package,
+and the Hopper kernel against its plain version.
+
+On the CPU, ``stream_pipeline`` and ``stream_pipeline_staged`` run the
+plain version (after recording the chain); both are held against
+``repro.kernels.stream_pipeline`` (the Pallas kernel in interpret mode,
+as ``tests/test_kernels.py`` runs it, and its staged baseline) within
+1e-5 * max|ref| + 1e-5 * |ref|.  The recorded chain, evaluated with
+torch, equals the plain chain bit for bit; the CUDA source generates
+without nvcc; what the kernel does not take raises a typed error.
+
+Tests marked ``gpu`` build the kernel with nvcc and hold it against the
+plain version on the card within 1e-6 * max|plain| (0 expected with
+``-fmad=false``); they skip without a card.  The JAX parity tests skip
+where JAX is missing.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from repro_torch.backends import UnsupportedBackendError  # noqa: E402
+from repro_torch.device import NotPortedError  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.expr import evaluate  # noqa: E402
+from repro_torch.kernels.stream_pipeline import (  # noqa: E402
+    PipelineKernel, stream_pipeline, stream_pipeline_ref,
+    stream_pipeline_staged)
+
+try:                                 # the card's machine has no JAX
+    import jax.numpy as jnp
+    from repro.kernels.stream_pipeline import stream_pipeline as j_fused
+    from repro.kernels.stream_pipeline import \
+        stream_pipeline_staged as j_staged
+except ImportError:
+    jnp = None
+
+RTOL = 1e-5                          # relative to max|ref| and to |ref|
+CARD_TOL = 1e-6                      # kernel vs plain, relative to max|plain|
+
+
+def _c4(tanh, abs_, sqrt):
+    """The JAX test's chain (``tests/test_kernels.py``), in one framework."""
+    return (tanh, lambda v: v * 2.0, abs_, sqrt)
+
+
+# chain name -> (torch fns, whether the input is made non-negative)
+CHAINS = {
+    "c4": (_c4(torch.tanh, torch.abs, torch.sqrt), True),
+    "bool_mid": ((lambda v: v > 0.5, lambda v: v * 2.0), False),
+}
+# (H, W, tile of the JAX call)
+SHAPES = [(100, 300, (32, 128)), (1, 1, (256, 512)), (8, 128, (256, 512)),
+          (257, 513, (256, 512))]
+
+
+def _jax_fns(name):
+    if name == "c4":
+        return _c4(jnp.tanh, jnp.abs, jnp.sqrt)
+    return CHAINS[name][0]           # operators only: the same lambdas
+
+
+def _input(name, H, W, seed=0):
+    x = np.random.default_rng(seed).normal(size=(H, W)).astype(np.float32)
+    return np.abs(x) if CHAINS[name][1] else x
+
+
+def _needs_jax():
+    if jnp is None:
+        pytest.skip("needs JAX and the repro package")
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    try:
+        build.find_nvcc()
+    except build.KernelBuildError as e:
+        pytest.skip(str(e))
+
+
+def _close(got, want, rtol=RTOL):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
+
+
+def _card_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    err = float((got - want).abs()[~nan].max())
+    assert err <= CARD_TOL * float(want.abs()[~nan].max())
+
+
+# ----------------------------------------------------------------------
+# parity with the JAX package (CPU)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(CHAINS))
+@pytest.mark.parametrize("H,W,tile", SHAPES)
+def test_matches_jax_fused_and_staged(name, H, W, tile):
+    _needs_jax()
+    x = _input(name, H, W)
+    fns = CHAINS[name][0]
+    jfns = _jax_fns(name)
+    want = np.asarray(j_fused(jnp.asarray(x), jfns, tile=tile,
+                              interpret=True))
+    want_staged = np.asarray(j_staged(jnp.asarray(x), jfns))
+    got = stream_pipeline(torch.from_numpy(x), fns, tile=tile)
+    got_staged = stream_pipeline_staged(torch.from_numpy(x), fns)
+    assert got.dtype == torch.float32 and got_staged.dtype == torch.float32
+    _close(got.numpy(), want)
+    _close(got_staged.numpy(), want_staged.astype(np.float32))
+
+
+# ----------------------------------------------------------------------
+# the recorder and the generated source (CPU)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(CHAINS) + ["c16"])
+def test_recorded_chain_equals_plain_chain(name):
+    fns = CHAINS["c4"][0] * 4 if name == "c16" else CHAINS[name][0]
+    x = torch.from_numpy(_input("c4" if name == "c16" else name, 37, 150, 5))
+    kernel = PipelineKernel(fns)
+    got = evaluate(kernel.expr, lambda k, dy, dx: x)
+    want = stream_pipeline_ref(x, fns)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert kernel.ops_per_element() == {"c4": 4, "c16": 16,
+                                        "bool_mid": 3}[name]
+
+
+def test_source_generates_without_nvcc(monkeypatch):
+    def no_nvcc(names=()):
+        raise build.KernelBuildError("nvcc is not here")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    fns = CHAINS["c4"][0]
+    src = PipelineKernel(fns).source
+    assert src.count('extern "C" int sp_launch(') == 1
+    assert '#include "stream_pipeline.cuh"' in src
+    assert "(0x1.0000000000000p+1f)" in src      # v * 2.0 as a float32
+    path = build.library_path("sp", src)
+    assert path == build.library_path("sp", PipelineKernel(fns).source)
+    a = PipelineKernel((lambda v: v * 3.0,)).source
+    b = PipelineKernel((lambda v: v * 3.0,)).source
+    assert build.library_path("sp", a) == build.library_path("sp", b)
+    assert build.library_path("sp", a) != path
+
+
+def test_included_headers_reach_the_group_helpers():
+    src = PipelineKernel((torch.sign,)).source
+    names = [p.name for p in build.included_headers(src)]
+    assert names == ["stream_pipeline.cuh", "stream_group.cuh"]
+    assert "sg::sign(" in src
+
+
+# ----------------------------------------------------------------------
+# what the kernel does not take (CPU)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("fn", [stream_pipeline, stream_pipeline_staged])
+def test_typed_errors(fn):
+    fns = CHAINS["c4"][0]
+    with pytest.raises(ValueError, match="2-D"):
+        fn(torch.ones(2, 3, 4), fns)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(NotPortedError, match=str(dtype)):
+            fn(torch.ones(4, 8, dtype=dtype), fns)
+    x = torch.ones(4, 8)
+    for bad in (lambda v: v if v > 0 else -v,    # Python control flow
+                lambda v: v.mean(),               # outside the op set
+                lambda v: ~v):                    # logic on a bool input
+        chain = (lambda v: v > 0.5, bad)
+        with pytest.raises(UnsupportedBackendError, match="stage 1"):
+            fn(x, chain)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fn(torch.ones(4, 8, device="meta"), fns)
+
+
+def test_tile_is_checked():
+    x = torch.ones(4, 8)
+    fns = CHAINS["c4"][0]
+    for tile in ((0, 128), (8,), (8, 1.5)):
+        with pytest.raises(ValueError, match="tile"):
+            stream_pipeline(x, fns, tile=tile)
+    assert torch.equal(stream_pipeline(x, fns, tile=(8, 128)),
+                       stream_pipeline(x, fns))
+
+
+def test_cpu_path_counts_no_launch_and_takes_views():
+    fns = CHAINS["c4"][0]
+    x = torch.from_numpy(_input("c4", 40, 64, 2))
+    before = stream_pipeline.launches
+    view = x.t()                       # non-contiguous (64, 40)
+    out = stream_pipeline(view, fns)
+    staged = stream_pipeline_staged(view, fns)
+    assert stream_pipeline.launches == before
+    assert out.is_contiguous() and tuple(out.shape) == (64, 40)
+    assert torch.equal(out, stream_pipeline_ref(view.contiguous(), fns))
+    assert torch.equal(staged, out)
+
+
+# ----------------------------------------------------------------------
+# on the card
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(1080, 1920), (257, 513), (1, 1)])
+def test_kernel_matches_plain_version_on_card(H, W):
+    _needs_card()
+    fns = CHAINS["c4"][0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(H, W, device="cuda", generator=gen).abs()
+    before = stream_pipeline.launches
+    out = stream_pipeline(x, fns)
+    torch.cuda.synchronize()
+    assert stream_pipeline.launches == before + 1
+    _card_close(out, stream_pipeline_ref(x, fns))
+
+
+@pytest.mark.gpu
+def test_misaligned_view_on_card():
+    _needs_card()
+    H, W = 257, 513
+    fns = CHAINS["c4"][0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flat = torch.randn(H * W + 1, device="cuda", generator=gen).abs()
+    x = flat[1:].view(H, W)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out = stream_pipeline(x, fns)
+    torch.cuda.synchronize()
+    _card_close(out, stream_pipeline_ref(x, fns))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CHAINS))
+def test_staged_launches_once_per_stage_on_card(name):
+    _needs_card()
+    fns = CHAINS[name][0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(300, 700, device="cuda", generator=gen)
+    if CHAINS[name][1]:
+        x = x.abs()
+    before = stream_pipeline.launches
+    out = stream_pipeline_staged(x, fns)
+    torch.cuda.synchronize()
+    assert stream_pipeline.launches == before + len(fns)
+    _card_close(out, stream_pipeline_ref(x, fns))
