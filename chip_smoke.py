@@ -18,7 +18,8 @@ no result line) on any error:
    library yardstick ``F.conv2d`` (TF32 off) for the single
    linear-stencil apps and ``torch.square`` for ``square``; prints the byte and operation bounds; one JSON
    line per app.  Two apps also run with ``valid_rows=(5, 1070)``
-   against the plain version;
+   and, compiled anew, on a ragged 1079x1917 plane (odd width: the
+   scalar loads and stores) against the plain version;
 4. runs the README quickstart (``@fe.dataflow_fn`` sharpen, 512x1024)
    through the port, checks it against the graph's reference semantics
    on the card;
@@ -29,10 +30,12 @@ no result line) on any error:
    path's shapes, in float32 (max abs error <= 1e-5 * max|plain|) and
    in the path's types (<= 8e-3 * max|plain|, two bfloat16 steps);
    times kernel, plain version and the library yardstick
-   (``F.scaled_dot_product_attention``; the MLP has none); serves 8
+   (``F.scaled_dot_product_attention``; the MLP has none), flash also
+   at S = 2048; serves 8
    requests through ``ContinuousBatcher`` (4 slots, 512 positions, 32
    new tokens each), checks the tokens and the launch counts (flash 40
-   per prefill, decode attention 40 per decode step, MLP 40 per prefill
+   per prefill, every one on its tensor-core route, decode attention 40
+   per decode step, MLP 40 per prefill
    and per decode step; a fused MLP call's two launches count as one),
    and teacher-forces two requests through ``prefill`` /
    ``decode_step`` with the kernels and with ``impl="ref"``, logits
@@ -49,7 +52,9 @@ no result line) on any error:
    versions) and one in float32 (within 1e-4 * max|logits|); then frees
    it and serves 4 requests on zamba2-1.2b at full width (38 Mamba2
    layers, 6 shared-attention sites with 32/32 heads), checking every
-   kernel's launch count, and teacher-forces one request both ways;
+   kernel's launch count (flash on its tensor-core route), and
+   teacher-forces one request both ways; the float32 run takes flash
+   attention's CUDA-core route, which is then timed at its shape;
 7. the ``stream_pipeline`` kernel (built in phase 2), the paper's claim
    in isolation: a chain of pointwise stages over a float32 plane fused
    into one pass against the same kernel run once per stage
@@ -60,7 +65,8 @@ no result line) on any error:
    1e-6 * max|plain|), launched exactly once and once per stage; timed
    with the plain version and, for one stage, ``torch.tanh``; one JSON
    line per case, plus a misaligned view checked once;
-8. prints the ``kernels`` line.
+8. prints the ``kernels`` line; each flash route has its own entries
+   (``flash_attention.tc[...]``, ``flash_attention.simt[...]``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -93,6 +99,7 @@ REPLACES = "src/repro/core/fusion.py:96"
 LINEAR_STENCILS = {"mean_filter": "MEAN5", "gaussian_blur": "GAUSS5",
                    "jacobi": "JACOBI3", "laplace": "LAPLACE3"}
 VALID_ROWS_APPS = ("unsharp_mask", "optical_flow_lk")
+RAGGED_PLANE = (1079, 1917)      # odd width: scalar loads and stores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -187,6 +194,8 @@ def main() -> int:
     # -- phase 2: compile and build --------------------------------------
     t0 = time.perf_counter()
     apps = {name: compile_app(name, H, W) for name in APPS}
+    ragged = {name: compile_app(name, *RAGGED_PLANE)
+              for name in VALID_ROWS_APPS}
 
     @fe.dataflow_fn
     def sharpen(img):
@@ -195,7 +204,8 @@ def main() -> int:
 
     qs_app = sharpen.compile(fe.spec((QS_H, QS_W)))
     compile_s = time.perf_counter() - t0
-    kernels = [k for a in [*apps.values(), qs_app] for k in a.kernels]
+    kernels = [k for a in [*apps.values(), *ragged.values(), qs_app]
+               for k in a.kernels]
     t0 = time.perf_counter()
     lm_sources = [build.CudaSource(name) for name in LM_KERNELS]
     chains = pipeline_chains(torch)          # fused, and one per stage
@@ -204,7 +214,8 @@ def main() -> int:
     build.build_libraries([("sg", k.source) for k in kernels]
                           + [(src.name, src.source) for src in lm_sources]
                           + [("sp", src) for src in sorted(sp_sources)])
-    print(f"compiled {len(apps) + 1} apps in {compile_s:.2f} s; built "
+    print(f"compiled {len(apps) + len(ragged) + 1} apps in {compile_s:.2f} "
+          f"s; built "
           f"{len(kernels)} group kernels, {len(lm_sources)} LM kernels and "
           f"{len(sp_sources)} pipeline chains "
           f"in {time.perf_counter() - t0:.2f} s "
@@ -294,6 +305,23 @@ def main() -> int:
             print(json.dumps({"app": name, "valid_rows": list(rows),
                               "max_abs_err": abs_err, "max_rel_err": rel}),
                   flush=True)
+    for name, app in ragged.items():
+        ins = {c.name: torch.randn(c.shape, device="cuda", generator=gen)
+               for c in app.schedule.graph.graph_inputs}
+        stream_group.launches = 0
+        out = app(**ins)
+        torch.cuda.synchronize()
+        check(stream_group.launches == len(app.schedule.groups),
+              f"{name} {RAGGED_PLANE}: {stream_group.launches} launches")
+        (kernel,) = app.kernels
+        kin = [ins[c.name] for c in kernel.group.inputs]
+        outs = [out[c.name] for c in kernel.group.outputs]
+        abs_err, rel = rel_err(outs, stream_group_ref(kernel.group, kin))
+        check(rel <= TOL, f"{name} {RAGGED_PLANE}: rel err {rel:.3e}")
+        print(json.dumps({"app": name, "plane": list(RAGGED_PLANE),
+                          "tile": list(kernel.tile),
+                          "max_abs_err": abs_err, "max_rel_err": rel}),
+              flush=True)
 
     # -- phase 4: the README quickstart through @fe.dataflow_fn ----------
     x = torch.randn(QS_H, QS_W, device="cuda", generator=gen)
@@ -381,10 +409,10 @@ def kernel_entries(rows, launches) -> list[dict]:
     for row in rows:
         row["launches"] = launches[row["kernel"]]
         print(json.dumps(row), flush=True)
+        base = row["kernel"].split(".")[0]       # flash_attention.tc
         entries.append({
             "name": f"{row['kernel']}[{row['shape']}]", "route": "cuda",
-            "source": LM_KERNELS[row["kernel"]][0],
-            "replaces": LM_KERNELS[row["kernel"]][1],
+            "source": LM_KERNELS[base][0], "replaces": LM_KERNELS[base][1],
             "launches": row["launches"], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -392,12 +420,36 @@ def kernel_entries(rows, launches) -> list[dict]:
     return entries
 
 
+ROUTES = ("tc", "simt")          # flash_attention's routes, each counted
+
+
+def reset_counts(counters) -> None:
+    """Every launch count of ``counters`` (name -> wrapper) to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        for r in ROUTES:
+            if hasattr(fn, f"{r}_launches"):
+                setattr(fn, f"{r}_launches", 0)
+
+
+def read_counts(counters) -> dict:
+    """name -> launches, and ``name.route`` -> the route's launches."""
+    out = {}
+    for name, fn in counters.items():
+        out[name] = fn.launches
+        for r in ROUTES:
+            if hasattr(fn, f"{r}_launches"):
+                out[f"{name}.{r}"] = getattr(fn, f"{r}_launches")
+    return out
+
+
 def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
                    init_s, expected) -> tuple[list, dict]:
     """Serves ``prompts`` through a ``ContinuousBatcher`` of N_SLOTS x
     MAX_LEN after a short warm-up, with every launch counter of
-    ``counters`` at 0 just before; checks the tokens and that the counts
-    equal ``expected(prefills, decode_steps)``; prints the ``serving``
+    ``counters`` at 0 just before (each route's too); checks the tokens
+    and that the counts equal ``expected(prefills, decode_steps)``;
+    prints the ``serving``
     line.  Returns (finished requests, launch counts)."""
     from repro_torch.runtime.batcher import ContinuousBatcher, Request
 
@@ -434,13 +486,12 @@ def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
     for i, p in enumerate(prompts):
         batcher.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     done = batcher.run_to_completion()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     steps = batcher.decode_steps
     check(sorted(r.rid for r in done) == list(range(len(prompts))),
           f"{cfg.name}: {len(done)} of {len(prompts)} requests finished")
@@ -449,7 +500,7 @@ def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
               and all(0 <= t < cfg.vocab_size for t in r.tokens),
               f"{cfg.name}: request {r.rid} gave {len(r.tokens)} tokens")
     want = expected(batcher.prefills, steps)
-    check(launches == want and all(launches.values()),
+    check(launches == want and all(launches[n] for n in counters),
           f"{cfg.name} serving launches {launches}, expected {want}")
     prefill_ms = [a.elapsed_time(b) / n for a, b, n in
                   batcher.prefill_events]
@@ -545,7 +596,8 @@ LM_LOGIT_TOL = 5e-2
 PROMPT_LENS = (17, 64, 100, 128, 200, 255, 31, 90)
 NEW_TOKENS = 32
 N_SLOTS, MAX_LEN = 4, 512
-FLASH_S = (100, 128, 255)
+FLASH_S = (100, 128, 255, 511)   # served prompts; 511: the batcher's longest
+FLASH_LONG_S = 2048              # timed too: where the tensor cores show
 DECODE_LENS = (17, 130, 301, 511)
 MLP_T = (4, 255)
 
@@ -578,17 +630,19 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
         return lm_bound(n_bytes, n_ops, BF16_OPS_PER_S)
 
     # -- kernels against their plain versions, then timed ----------------
-    cases = []                     # (kernel, label, kernel fn, plain fn,
-    for S in FLASH_S:              #  library fn, bound)
+    # (kernel, label, kernel fn, plain fn, library fn, bound)
+    cases = []
+    for S in (*FLASH_S, FLASH_LONG_S):
         q, k, v = (randn(1, S, h, D).transpose(1, 2)
                    for h in (Hq, Hkv, Hkv))          # the model's views
-        compare(f"flash_attention[S={S}] f32",
-                flash_attention(q, k, v, causal=True),
-                R.flash_attention_ref(q, k, v, causal=True), LM_F32_TOL)
+        if S in FLASH_S:
+            compare(f"flash_attention[S={S}] f32",
+                    flash_attention(q, k, v, causal=True),
+                    R.flash_attention_ref(q, k, v, causal=True), LM_F32_TOL)
         qb, kb, vb = (t.to(bf16) for t in (q, k, v))
         pairs = S * (S + 1) // 2
         cases.append((
-            "flash_attention", f"S={S}",
+            "flash_attention.tc", f"S={S}",
             lambda qb=qb, kb=kb, vb=vb: flash_attention(qb, kb, vb,
                                                         causal=True),
             lambda qb=qb, kb=kb, vb=vb: R.flash_attention_ref(qb, kb, vb,
@@ -645,6 +699,8 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     done, launches = serve_requests(
         torch, cfg, params, prompts, NEW_TOKENS, counters, smi, init_s,
         lambda prefills, steps: {"flash_attention": L * prefills,
+                                 "flash_attention.tc": L * prefills,
+                                 "flash_attention.simt": 0,
                                  "decode_attention": L * steps,
                                  "fused_mlp": L * (prefills + steps)})
 
@@ -728,6 +784,7 @@ def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     import gc
 
     import numpy as np
+    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.decode_attention import decode_attention
@@ -806,15 +863,41 @@ def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
         init_s,
         lambda prefills, steps: {"ssd_scan": zcfg.n_layers * prefills,
                                  "flash_attention": sites * prefills,
+                                 "flash_attention.tc": sites * prefills,
+                                 "flash_attention.simt": 0,
                                  "decode_attention": sites * steps,
                                  "fused_mlp": sites * (prefills + steps)})
     zby_rid = {r.rid: r for r in zdone}       # the prompt of 128
     teacher_force(torch, zcfg, params, zby_rid[3], smi,
                   spread_factor=SSM_SPREAD_FACTOR)
     del params
+    # float32 runs flash attention's CUDA-core route: one prefill
+    flash = {"flash_attention": flash_attention}
+    reset_counts(flash)
     teacher_force_f32(torch, M, zcfg, seed, zby_rid[3], smi)
+    f32_launches = read_counts(flash)
+    check(f32_launches == {"flash_attention": sites,
+                           "flash_attention.tc": 0,
+                           "flash_attention.simt": sites},
+          f"zamba2 float32 flash launches {f32_launches}")
+    S, Hq, D = len(zby_rid[3].prompt), zcfg.n_heads, zcfg.hd
+    q, k, v = (torch.randn(1, S, h, D, device="cuda", generator=gen)
+               .transpose(1, 2) for h in (Hq, zcfg.n_kv_heads,
+                                          zcfg.n_kv_heads))
+    compare_close(torch, f"flash_attention.simt[zamba2 S={S} f32]",
+                  flash_attention(q, k, v, causal=True),
+                  R.flash_attention_ref(q, k, v, causal=True), LM_F32_TOL)
+    simt_rows = time_cases(torch, timer, smi, [(
+        "flash_attention.simt", f"zamba2 S={S} f32",
+        lambda: flash_attention(q, k, v, causal=True),
+        lambda: R.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        lm_bound(4 * S * D * (2 * Hq + 2 * zcfg.n_kv_heads),
+                 4 * Hq * D * S * (S + 1) // 2, FP32_OPS_PER_S))],
+        LM_PATH_TOL)
 
-    return kernel_entries(rows, launches)
+    return (kernel_entries(rows, launches)
+            + kernel_entries(simt_rows, f32_launches))
 
 
 # ----------------------------------------------------------------------

@@ -22,8 +22,8 @@ Port of :mod:`repro.core.schedule`, unchanged in logic.  Given a
 
 The one change from the reference is the budget: the TPU kernel
 double-buffers every channel in VMEM, the CUDA kernel holds one
-halo window per buffered channel in shared memory
-(:meth:`FusionGroup.smem_bytes`).
+halo window per channel with a halo in shared memory and keeps
+halo-free channels in registers (:meth:`FusionGroup.smem_bytes`).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from repro_torch.core.simulate import TaskTiming, analytic_latency
 from repro_torch.core.transform import Pass, PassPipeline, default_pipeline
 from repro_torch.obs.tracer import maybe_span
 
-__all__ = ["FusionGroup", "Schedule", "build_schedule"]
+__all__ = ["FusionGroup", "Schedule", "build_schedule", "pad4"]
 
 #: stage kinds that can be fused into one streaming kernel
 FUSIBLE_KINDS = frozenset({"point", "pointN", "stencil", "split"})
@@ -85,19 +85,24 @@ class FusionGroup:
     def buffered_channels(self) -> list[Channel]:
         """Channels that own a shared-memory halo window in the kernel.
 
-        Group inputs and every stage output except split arms (which
-        alias their source's window) and direct outputs.
+        Group inputs and stage outputs with a halo, except split arms
+        (which alias their source's window).  A halo-free channel is
+        read only at offset (0, 0), by stages over the tile's centre, so
+        the kernel keeps it in registers (a halo-free group input is
+        read straight from device memory).
         """
-        out = list(self.inputs)
+        out = [ch for ch in self.inputs if self.halo.get(ch, (0, 0)) != (0, 0)]
         for st in self.stages:
             if st.kind == "split":
                 continue
-            out.extend(ch for ch in st.outputs if not self.is_direct(ch))
+            out.extend(ch for ch in st.outputs
+                       if self.halo.get(ch, (0, 0)) != (0, 0))
         return out
 
     def smem_bytes(self, tile: tuple[int, int] | None = None) -> int:
         """Shared memory one thread block holds for a candidate tile:
-        a ``(th + 2hy, tw + 2hx)`` window per buffered channel."""
+        a ``(th + 2hy, tw + 2 pad4(hx))`` window per buffered channel
+        (columns padded to 16-byte rows, :func:`pad4`)."""
         tile = tile or self.tile
         if tile is None:
             raise GraphError("no tile selected for group")
@@ -105,8 +110,15 @@ class FusionGroup:
         total = 0
         for ch in self.buffered_channels():
             hy, hx = self.halo.get(ch, (0, 0))
-            total += (th + 2 * hy) * (tw + 2 * hx) * _itemsize(ch)
+            total += (th + 2 * hy) * (tw + 2 * pad4(hx)) * _itemsize(ch)
         return total
+
+
+def pad4(hx: int) -> int:
+    """A window's column margin in the group kernel: the halo rounded up
+    to 4 floats, so every window row starts 16-byte aligned in device
+    and shared memory (``sg::pad4`` in ``csrc/stream_group.cuh``)."""
+    return (hx + 3) & ~3
 
 
 def _itemsize(ch: Channel) -> int:

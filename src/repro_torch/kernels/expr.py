@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 __all__ = ["Expr", "Patches", "RecordError", "RECORD_ERRORS", "record",
-           "emit_c", "evaluate", "count_ops"]
+           "emit_c", "evaluate", "count_ops", "leaves"]
 
 F, B = "f", "b"            # value kinds: float32, bool
 
@@ -343,6 +343,16 @@ def emit_c(root: Expr, leaf: Callable[[int, int, int], str]
     if root.kind == B:            # a bool stage output stored as float
         result = f"({result} ? 1.0f : 0.0f)"
     return lines, result
+
+
+def leaves(root: Expr) -> list[tuple[int, int, int]]:
+    """The distinct ``(k, dy, dx)`` input taps ``root`` reads, in
+    dependency order."""
+    out: list[tuple[int, int, int]] = []
+    for e in _topo([root]):
+        if e.op == "in" and e.args not in out:
+            out.append(e.args)
+    return out
 
 
 def count_ops(root: Expr) -> int:

@@ -22,6 +22,7 @@ torch.set_num_threads(1)
 from repro_torch.backends import UnsupportedBackendError   # noqa: E402
 from repro_torch.core import apps as tapps                  # noqa: E402
 from repro_torch.core.compiler import compile_graph         # noqa: E402
+from repro_torch.core.schedule import pad4                  # noqa: E402
 from repro_torch.core.graph import DataflowGraph, extract_patches  # noqa: E402
 from repro_torch.kernels import build                       # noqa: E402
 from repro_torch.kernels.expr import (Expr, Patches, RecordError,  # noqa: E402
@@ -78,11 +79,17 @@ def test_source_generates_without_nvcc(name, monkeypatch):
     (kernel,) = app.kernels
     src = kernel.source
     g = kernel.group
-    n_args = len(g.inputs) + len(g.outputs) + 3
+    n_args = len(g.inputs) + len(g.outputs) + 4   # r0, r1, vec, stream
     sig = re.search(r'extern "C" int sg_launch\(([^)]*)\)', src).group(1)
     assert len(sig.split(",")) == n_args
-    assert src.count("sg::load_window<") == len(g.inputs)
-    assert src.count("__syncthreads();") >= 1
+    # a window for each group input with a halo; the halo-free ones are
+    # read straight from device memory in the centre pass
+    windowed = [c for c in g.inputs if g.halo.get(c, (0, 0)) != (0, 0)]
+    assert src.count("sg::load_window<") == len(windowed)
+    assert (src.count("sg::load4<") + src.count("sg::load4_flat<")
+            == len(g.inputs) - len(windowed))
+    assert src.count("__syncthreads();") == kernel.barriers
+    assert kernel.barriers >= (1 if kernel.smem_bytes else 0)
     assert f"SMEM_BYTES = {kernel.smem_bytes};" in src
     assert kernel.smem_bytes <= 232448
     assert "powf" not in src             # integer powers are multiplies
@@ -164,6 +171,90 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
 
 
 # ----------------------------------------------------------------------
+# the generated kernel's shape: registers for halo-free channels, barriers
+# only where a pass reads another thread's window, 16-byte accesses
+# ----------------------------------------------------------------------
+def _pr15_smem_bytes(g) -> int:
+    """Shared memory of the kernel before halo-free channels moved to
+    registers: a (th+2hy) x (tw+2hx) window for every group input and
+    every stage output but split arms and direct outputs."""
+    th, tw = g.tile
+    chans = list(g.inputs) + [c for st in g.stages if st.kind != "split"
+                              for c in st.outputs if not g.is_direct(c)]
+    return sum((th + 2 * g.halo.get(c, (0, 0))[0])
+               * (tw + 2 * g.halo.get(c, (0, 0))[1]) * 4 for c in chans)
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (37, 61)])
+def test_square_streams_without_shared_memory(shape):
+    """No halo, no window: the plane streams flat, 16-byte chunks at any
+    width (a chunk may span two rows)."""
+    (kernel,) = tapps.compile_app("square", *shape, device="cpu").kernels
+    src = kernel.source
+    assert kernel.smem_bytes == 0 and kernel.group.buffered_channels() == []
+    assert "__shared__" not in src and "__syncthreads" not in src
+    assert "sg::load_window<" not in src and kernel.barriers == 0
+    assert kernel.flat and "sg::kFlatThreads" in src
+    assert src.count("sg::load4_flat<") == 1
+    assert src.count("sg::store4_flat<") == 1
+    assert "sg_kernel<true>" in src and "sg_kernel<false>" in src
+
+
+# barriers: one after the input windows are copied (the first stencils read
+# them), one before the centre pass (its 5x5 stencils read the windows the
+# pointwise stages wrote); the pointwise stages between read windows of
+# their own halo, written element for element by the same thread
+@pytest.mark.parametrize("name,barriers", [("optical_flow_lk", 2),
+                                           ("harris", 2), ("shi_tomasi", 2)])
+def test_deep_groups_keep_halo_free_channels_in_registers(name, barriers):
+    (kernel,) = tapps.compile_app(name, 1080, 1920, device="cpu").kernels
+    g = kernel.group
+    halo = {c: g.halo.get(c, (0, 0)) for c in g.halo}
+    halo_free = [c for st in g.stages if st.kind != "split"
+                 for c in st.outputs if halo.get(c, (0, 0)) == (0, 0)
+                 and c in g.internal]
+    assert halo_free                       # 5 or 3 such intermediates
+    assert not set(halo_free) & set(g.buffered_channels())
+    assert all(halo[c] != (0, 0) for c in g.buffered_channels())
+    # smem drops by the halo-free windows, and grows only by the columns
+    # that round each remaining window's margin up to 4 floats
+    th, tw = g.tile
+    freed = len(halo_free) * th * tw * 4
+    padding = sum((th + 2 * halo[c][0]) * 2 * (pad4(halo[c][1]) - halo[c][1])
+                  * 4 for c in g.buffered_channels())
+    assert kernel.smem_bytes == _pr15_smem_bytes(g) - freed + padding
+    assert kernel.smem_bytes < _pr15_smem_bytes(g)
+    assert kernel.barriers == barriers
+    assert kernel.source.count("__syncthreads();") == barriers
+
+
+def test_odd_width_plane_generates_the_scalar_path():
+    (odd,) = tapps.compile_app("unsharp_mask", 37, 61, device="cpu").kernels
+    (even,) = tapps.compile_app("unsharp_mask", 64, 160,
+                                device="cpu").kernels
+    # W % 4 != 0: rows are not 16-byte aligned, only the scalar instance
+    assert "sg_kernel<false>" in odd.source
+    assert "sg_kernel<true>" not in odd.source
+    assert "(void)vec;" in odd.source
+    # W % 4 == 0: the float4 instance where the wrapper finds the pointers
+    # aligned, the scalar one otherwise
+    assert "if (vec) {" in even.source
+    assert "sg_kernel<true>" in even.source and "sg_kernel<false>" in even.source
+
+
+def test_window_margins_are_rounded_to_16_bytes():
+    for h in range(9):
+        assert pad4(h) % 4 == 0 and h <= pad4(h) < h + 4
+    (kernel,) = tapps.compile_app("filter_chain", 1080, 1920,
+                                  device="cpu").kernels
+    g = kernel.group
+    th, tw = g.tile
+    assert kernel.smem_bytes == sum(
+        (th + 2 * g.halo[c][0]) * (tw + 2 * pad4(g.halo[c][1])) * 4
+        for c in g.buffered_channels())
+
+
+# ----------------------------------------------------------------------
 # on the card
 # ----------------------------------------------------------------------
 @pytest.mark.gpu
@@ -195,3 +286,42 @@ def test_app_on_card_counts_one_launch_per_group():
     torch.cuda.synchronize()
     assert stream_group.launches - before == len(app.schedule.groups)
     assert all(v.is_cuda and torch.isfinite(v).all() for v in out.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", APP_NAMES)
+def test_kernel_matches_plain_version_on_ragged_plane_on_card(name):
+    """1079x1917: an odd width (no 16-byte rows: the scalar instance, or
+    flat chunks across rows for square) and partial tiles on both edges;
+    max abs error 0 expected."""
+    _needs_card()
+    app = tapps.compile_app(name, 1079, 1917)
+    (kernel,) = app.kernels
+    assert kernel.flat or "sg_kernel<true>" not in kernel.source
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn(1079, 1917, device="cuda", generator=gen)
+          for _ in kernel.group.inputs]
+    out = stream_group(kernel, xs)
+    ref = stream_group_ref(kernel.group, xs)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        scale = float(r.abs().max().clamp_min(1e-30))
+        assert float((o - r).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["square", "unsharp_mask", "sobel_luma"])
+def test_misaligned_inputs_take_the_scalar_instance_on_card(name):
+    _needs_card()
+    (kernel,) = tapps.compile_app(name, 64, 160).kernels
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    xs = []
+    for _ in kernel.group.inputs:
+        flat = torch.randn(64 * 160 + 1, device="cuda", generator=gen)
+        xs.append(flat[1:].view(64, 160))      # data 4 bytes past 16
+    assert all(x.is_contiguous() and x.data_ptr() % 16 for x in xs)
+    out = stream_group(kernel, xs)
+    ref = stream_group_ref(kernel.group, xs)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)

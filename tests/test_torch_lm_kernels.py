@@ -28,6 +28,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import route as flash_route  # noqa: E402
 from repro_torch.kernels.fused_mlp import (BLOCK_F, SMEM_LIMIT,  # noqa: E402
                                            MlpPlan, fused_mlp, plan,
                                            smem_bytes)
@@ -135,6 +136,134 @@ def test_flash_plain_matches_oracle_with_fewer_queries_than_keys():
                                   jnp.asarray(v), causal=True, scale=0.2)
     _close(flash_attention(_t(q), _t(k), _t(v), causal=True, scale=0.2),
            want)
+
+
+# ----------------------------------------------------------------------
+# flash attention's routes, and the tensor-core route's rounding points
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("q_dtype,kv_dtype,dk,dv,want", [
+    (torch.bfloat16, torch.bfloat16, 64, 64, "tc"),      # the serving path
+    (torch.bfloat16, torch.bfloat16, 96, 64, "tc"),      # Dv != Dk
+    (torch.bfloat16, torch.bfloat16, 256, 16, "tc"),
+    (torch.bfloat16, torch.bfloat16, 72, 64, "simt"),    # not a 16 multiple
+    (torch.bfloat16, torch.bfloat16, 64, 8, "simt"),
+    (torch.float32, torch.float32, 64, 64, "simt"),      # float32 parity
+    (torch.bfloat16, torch.float32, 64, 64, "simt"),     # mixed types
+    (torch.float32, torch.bfloat16, 64, 64, "simt"),
+])
+def test_flash_route_by_dtype_and_head_dim(q_dtype, kv_dtype, dk, dv, want):
+    assert flash_route(q_dtype, kv_dtype, dk, dv) == want
+
+
+def test_flash_on_cpu_counts_no_route():
+    q = torch.randn(1, 2, 8, 16, dtype=torch.bfloat16)
+    counts = (flash_attention.launches, flash_attention.tc_launches,
+              flash_attention.simt_launches)
+    flash_attention(q, q, q)
+    assert counts == (flash_attention.launches, flash_attention.tc_launches,
+                      flash_attention.simt_launches)
+
+
+TC_TILE = 64                          # keys per tile of the tensor-core route
+
+
+def _tc_route_emulation(q, k, v, bias=None, causal=True, scale=None,
+                        out_dtype=None):
+    """The tensor-core route's arithmetic on the CPU, at its rounding
+    points: logits in float32 from the bf16 operands, in log2 units, by
+    64-key tiles; P = 2^(x - m) rounded to bf16 for the PV product; O and
+    l (the sum of the rounded P) accumulated in float32; the tiles dealt
+    to two key groups merged at the end when Sk <= 512, as the kernel
+    does; the output rounded to bf16 (or to ``out_dtype``).  A row with
+    no unmasked key gives 0."""
+    f32 = torch.float32
+    B, Hq, Sq, Dk = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    kf = k.to(f32).repeat_interleave(rep, 1)
+    vf = v.to(f32).repeat_interleave(rep, 1)
+    scale = scale if scale is not None else 1.0 / np.sqrt(Dk)
+    log2e = np.float32(1.4426950408889634)
+    x = (q.to(f32) @ kf.transpose(-1, -2)) * (np.float32(scale) * log2e)
+    if bias is not None:
+        x = x + bias[:, None, None, :].to(f32) * log2e
+    rows = torch.arange(Sq)[:, None] + (Sk - Sq)
+    keys = torch.arange(Sk)[None, :]
+    if causal:
+        x = torch.where(keys <= rows, x, torch.tensor(-1e30))
+    groups = 2 if Sk <= 8 * TC_TILE else 1
+    n_tiles = -(-Sk // TC_TILE)
+    states = []
+    for grp in range(groups):
+        m = torch.full((B, Hq, Sq), -1e30)
+        l = torch.zeros(B, Hq, Sq)
+        o = torch.zeros(B, Hq, Sq, v.shape[-1])
+        for j in range(grp, n_tiles, groups):
+            t = slice(j * TC_TILE, (j + 1) * TC_TILE)
+            mn = torch.maximum(m, x[..., t].amax(-1))
+            mu = torch.where(mn > -5e29, mn, torch.tensor(float("inf")))
+            alpha = torch.exp2(m - mn)
+            pb = torch.exp2(x[..., t] - mu[..., None]).to(
+                torch.bfloat16).to(f32)
+            l = l * alpha + pb.sum(-1)
+            o = o * alpha[..., None] + pb @ vf[:, :, t]
+            m = mn
+        states.append((m, l, o))
+    m, l, o = states[0]
+    for m1, l1, o1 in states[1:]:
+        mn = torch.maximum(m, m1)
+        a0, a1 = torch.exp2(m - mn), torch.exp2(m1 - mn)
+        l, o, m = l * a0 + l1 * a1, o * a0[..., None] + o1 * a1[..., None], mn
+    return (o / l.clamp_min(1e-30)[..., None]).to(out_dtype or q.dtype)
+
+
+@pytest.mark.parametrize("S", [100, 255, 2048])
+def test_tc_route_rounding_holds_the_bf16_budget(S):
+    """Rounding P to bf16 (the one rounding point the TPU kernel does not
+    have) keeps the route within 8e-3 * max|plain| of the float32 oracle,
+    the path's tolerance (chip_smoke.py).  Before the output's own bf16
+    rounding (one step of which can take most of that budget on its own)
+    the route is within a quarter of it."""
+    rng = np.random.default_rng(S)
+    B, Hq, Hkv, D = 1, 4, 2, 64
+
+    def bf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+    q, k, v = bf(B, Hq, S, D), bf(B, Hkv, S, D), bf(B, Hkv, S, D)
+    want = TR.flash_attention_ref(q, k, v, causal=True).float()
+    got = _tc_route_emulation(q, k, v, causal=True).float()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 8e-3 * scale
+    f32 = [t.float() for t in (q, k, v)]
+    want = TR.flash_attention_ref(*f32, causal=True)
+    got = _tc_route_emulation(q, k, v, causal=True, out_dtype=torch.float32)
+    assert float((got - want).abs().max()) <= 2e-3 * scale
+
+
+def test_tc_route_emulation_masks_like_the_kernel():
+    """Sq < Sk with Dk != Dv and a bias; rows whose keys are all masked
+    (by the causal offset when Sq > Sk) give 0."""
+    rng = np.random.default_rng(9)
+
+    def bf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+    q, k, v = bf(2, 4, 37, 96), bf(2, 2, 90, 96), bf(2, 2, 90, 64)
+    bias = torch.from_numpy(_pad_bias(2, 90, [90, 70]))
+    for causal in (True, False):
+        want = TR.flash_attention_ref(q, k, v, bias=bias, causal=causal)
+        got = _tc_route_emulation(q, k, v, bias=bias, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 8e-3 * float(want.float().abs().max())
+    q = bf(1, 2, 40, 96)                      # Sq > Sk: rows 0-9 see none
+    got = _tc_route_emulation(q, k[:1, :, :30], v[:1, :, :30], causal=True)
+    assert float(got[:, :, :10].abs().max()) == 0.0
+    want = TR.flash_attention_ref(q, k[:1, :, :30], v[:1, :, :30],
+                                  causal=True)
+    assert torch.isnan(want[:, :, :10]).all()     # the oracle's NaN
+    err = float((got[:, :, 10:].float() - want[:, :, 10:].float()).abs().max())
+    assert err <= 8e-3 * float(want[:, :, 10:].float().abs().max())
 
 
 # ----------------------------------------------------------------------
@@ -401,3 +530,63 @@ def test_kernels_take_ragged_and_general_shapes_on_card(dtype):
             rand(f, d, std=f ** -0.5)
         _card_close(fused_mlp(x, wn, wg, wu, wd),
                     TR.fused_mlp_ref(x, wn, wg, wu, wd), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 17, 100, 128, 200, 255, 300, 511, 2048])
+def test_flash_tc_route_matches_plain_on_card(S):
+    """granite-3-2b's prefill shapes (32/8 heads of 64, the model's
+    head-major views), one and two key groups, on the tensor cores."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    q, k, v = (torch.randn(1, S, h, 64, device="cuda", generator=gen)
+               .to(torch.bfloat16).transpose(1, 2) for h in (32, 8, 8))
+    before = (flash_attention.tc_launches, flash_attention.simt_launches)
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.tc_launches,
+            flash_attention.simt_launches) == (before[0] + 1, before[1])
+    _card_close(out, TR.flash_attention_ref(q, k, v, causal=True),
+                torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_flash_tc_route_general_shapes_on_card():
+    """Sq < Sk with Dk = 96, Dv = 64 and a bias, causal or not; rows whose
+    keys are all masked (by the causal offset when Sq > Sk, or by the
+    bias) give 0."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+    q, k, v = rand(2, 4, 37, 96), rand(2, 2, 90, 96), rand(2, 2, 90, 64)
+    bias = torch.where(torch.rand(2, 90, device="cuda", generator=gen)
+                       < 0.8, 0.0, -1e30)
+    bias[:, -1] = 0.0
+    before = flash_attention.tc_launches
+    for causal in (True, False):
+        _card_close(flash_attention(q, k, v, bias=bias, causal=causal),
+                    TR.flash_attention_ref(q, k, v, bias=bias, causal=causal),
+                    torch.bfloat16)
+    # two key groups with every tile in flight, two with the ring
+    # refilled, one key group
+    for Sk in (90, 300, 600):
+        k2, v2 = rand(2, 2, Sk, 96), rand(2, 2, Sk, 64)
+        q2 = rand(2, 4, Sk + 10, 96)         # rows 0-9 see no key
+        out = flash_attention(q2, k2, v2, causal=True)
+        want = TR.flash_attention_ref(q2, k2, v2, causal=True)
+        torch.cuda.synchronize()
+        assert float(out[:, :, :10].abs().max()) == 0.0
+        _card_close(out[:, :, 10:], want[:, :, 10:], torch.bfloat16)
+        dead = torch.zeros(2, Sk, device="cuda")
+        dead[1] = -1e30                      # batch 1 sees no key
+        out = flash_attention(k2.repeat(1, 2, 1, 1), k2, v2, bias=dead,
+                              causal=False)
+        torch.cuda.synchronize()
+        assert float(out[1].abs().max()) == 0.0
+        _card_close(out[:1], TR.flash_attention_ref(
+            k2.repeat(1, 2, 1, 1)[:1], k2[:1], v2[:1], causal=False),
+            torch.bfloat16)
+    assert flash_attention.tc_launches == before + 8
