@@ -30,13 +30,16 @@ no result line) on any error:
    path's shapes, in float32 (max abs error <= 1e-5 * max|plain|) and
    in the path's types (<= 8e-3 * max|plain|, two bfloat16 steps);
    times kernel, plain version and the library yardstick
-   (``F.scaled_dot_product_attention``; the MLP has none), flash also
-   at S = 2048; serves 8
+   (``F.scaled_dot_product_attention``; the MLP has none, and the bf16
+   cuBLAS composition is printed beside it), flash also at S = 2048,
+   the MLP at T = 4, 17, 100, 255 and both sides of its route split;
+   serves 8
    requests through ``ContinuousBatcher`` (4 slots, 512 positions, 32
    new tokens each), checks the tokens and the launch counts (flash 40
    per prefill, every one on its tensor-core route, decode attention 40
-   per decode step, MLP 40 per prefill
-   and per decode step; a fused MLP call's two launches count as one),
+   per decode step, MLP 40 per prefill on its tensor-core route and 40
+   per decode step on its decode route; a fused MLP call's launches
+   count as one),
    and teacher-forces two requests through ``prefill`` /
    ``decode_step`` with the kernels and with ``impl="ref"``, logits
    within 5e-2 * max|logits|;
@@ -52,9 +55,10 @@ no result line) on any error:
    versions) and one in float32 (within 1e-4 * max|logits|); then frees
    it and serves 4 requests on zamba2-1.2b at full width (38 Mamba2
    layers, 6 shared-attention sites with 32/32 heads), checking every
-   kernel's launch count (flash on its tensor-core route), and
+   kernel's launch count (flash and the MLP on their bf16 routes), and
    teacher-forces one request both ways; the float32 run takes flash
-   attention's CUDA-core route, which is then timed at its shape;
+   attention's and the MLP's CUDA-core routes, and flash's is then
+   timed at its shape;
 7. the ``stream_pipeline`` kernel (built in phase 2), the paper's claim
    in isolation: a chain of pointwise stages over a float32 plane fused
    into one pass against the same kernel run once per stage
@@ -64,9 +68,11 @@ no result line) on any error:
    and staged each held against the plain version (max abs error <=
    1e-6 * max|plain|), launched exactly once and once per stage; timed
    with the plain version and, for one stage, ``torch.tanh``; one JSON
-   line per case, plus a misaligned view checked once;
-8. prints the ``kernels`` line; each flash route has its own entries
-   (``flash_attention.tc[...]``, ``flash_attention.simt[...]``).
+   line per case; then C1 against ``torch.tanh`` in turns (8 rounds,
+   the kernel first in even rounds) at each plane, and a misaligned
+   view checked once;
+8. prints the ``kernels`` line; each route of flash and the MLP has its
+   own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -148,6 +154,25 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def in_turns(timer, fns: dict, rounds: int) -> dict:
+    """Times each of ``fns`` (label -> call) once a round, the order
+    rotated by one each round (for two: the first label first in even
+    rounds); returns label -> the rounds' times in ms."""
+    labels = list(fns)
+    times = {k: [] for k in labels}
+    for r in range(rounds):
+        k = r % len(labels)
+        for label in labels[k:] + labels[:k]:
+            times[label].append(timer(fns[label]))
+    return times
+
+
+def turns_summary(times: dict) -> dict:
+    """Median, min and max of each label's rounds, in ms."""
+    return {f"{k}_ms": {"median": statistics.median(t), "min": min(t),
+                        "max": max(t)} for k, t in times.items()}
 
 
 def bounds(kernel, n_bytes: int) -> dict:
@@ -420,7 +445,9 @@ def kernel_entries(rows, launches) -> list[dict]:
     return entries
 
 
-ROUTES = ("tc", "simt")          # flash_attention's routes, each counted
+# the routes of flash_attention (tc, simt) and fused_mlp (stream, tc,
+# simt), each counted
+ROUTES = ("tc", "simt", "stream")
 
 
 def reset_counts(counters) -> None:
@@ -599,7 +626,7 @@ N_SLOTS, MAX_LEN = 4, 512
 FLASH_S = (100, 128, 255, 511)   # served prompts; 511: the batcher's longest
 FLASH_LONG_S = 2048              # timed too: where the tensor cores show
 DECODE_LENS = (17, 130, 301, 511)
-MLP_T = (4, 255)
+MLP_T = (4, 17, 100, 255)        # decode, and served prompt lengths
 
 
 def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
@@ -610,7 +637,8 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.fused_mlp import STREAM_MAX_T, fused_mlp
+    from repro_torch.kernels.fused_mlp import route as mlp_route
     from repro_torch.models import model as M
 
     cfg = get_config("granite_3_2b")
@@ -668,20 +696,33 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
             enable_gqa=True)[:, :, 0],
         bound(2 * N_SLOTS * Hq * D * 2 + live * Hkv * D * 4 * 2
               + N_SLOTS * MAX_LEN * 4, 4 * Hq * D * live)))
-    for T in MLP_T:
-        ws = [randn(d), randn(d, f, std=d ** -0.5),
-              randn(d, f, std=d ** -0.5), randn(f, d, std=f ** -0.5)]
+    ws = [randn(d), randn(d, f, std=d ** -0.5),
+          randn(d, f, std=d ** -0.5), randn(f, d, std=f ** -0.5)]
+    wb = [w.to(bf16) for w in ws]
+    cublas = {}                 # the bf16 cuBLAS composition, a yardstick
+    # the served lengths and the two sides of the route split
+    for T in sorted({*MLP_T, STREAM_MAX_T, STREAM_MAX_T + 1}):
         x = randn(T, d)
         compare(f"fused_mlp[T={T}] f32", fused_mlp(x, *ws),
                 R.fused_mlp_ref(x, *ws), LM_F32_TOL)
-        xb, wb = x.to(bf16), [w.to(bf16) for w in ws]
+        xb = x.to(bf16)
+        cublas[f"T={T}"] = (
+            lambda xb=xb: (F.silu((h := F.rms_norm(xb, (d,), wb[0], 1e-6))
+                                  @ wb[1]) * (h @ wb[2])) @ wb[3],
+            lambda xb=xb: R.fused_mlp_ref(xb, *wb))
         cases.append((
-            "fused_mlp", f"T={T}",
-            lambda xb=xb, wb=wb: fused_mlp(xb, *wb),
-            lambda xb=xb, wb=wb: R.fused_mlp_ref(xb, *wb), None,
+            f"fused_mlp.{mlp_route(bf16, T, d, f)}", f"T={T}",
+            lambda xb=xb: fused_mlp(xb, *wb),
+            lambda xb=xb: R.fused_mlp_ref(xb, *wb), None,
             bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)))
 
     rows = time_cases(torch, timer, smi, cases, LM_PATH_TOL)
+    for row in rows:            # composes three GEMMs: not a library call
+        if row["kernel"].startswith("fused_mlp"):
+            fn, plain = cublas[row["shape"]]
+            compare(f"cuBLAS composition [{row['shape']}]", fn(), plain(),
+                    LM_PATH_TOL)
+            row["cublas_bf16_ms"] = timer(fn)
 
     # -- the slice end to end: 8 requests through the batcher ------------
     t0 = time.perf_counter()
@@ -702,7 +743,10 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
                                  "flash_attention.tc": L * prefills,
                                  "flash_attention.simt": 0,
                                  "decode_attention": L * steps,
-                                 "fused_mlp": L * (prefills + steps)})
+                                 "fused_mlp": L * (prefills + steps),
+                                 "fused_mlp.tc": L * prefills,
+                                 "fused_mlp.stream": L * steps,
+                                 "fused_mlp.simt": 0})
 
     # -- teacher forcing: the kernels against impl="ref" -----------------
     by_rid = {r.rid: r for r in done}
@@ -866,20 +910,29 @@ def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
                                  "flash_attention.tc": sites * prefills,
                                  "flash_attention.simt": 0,
                                  "decode_attention": sites * steps,
-                                 "fused_mlp": sites * (prefills + steps)})
+                                 "fused_mlp": sites * (prefills + steps),
+                                 "fused_mlp.tc": sites * prefills,
+                                 "fused_mlp.stream": sites * steps,
+                                 "fused_mlp.simt": 0})
     zby_rid = {r.rid: r for r in zdone}       # the prompt of 128
     teacher_force(torch, zcfg, params, zby_rid[3], smi,
                   spread_factor=SSM_SPREAD_FACTOR)
     del params
-    # float32 runs flash attention's CUDA-core route: one prefill
-    flash = {"flash_attention": flash_attention}
-    reset_counts(flash)
+    # float32 runs flash attention's and the MLP's CUDA-core routes: one
+    # prefill, and the MLP at every step
+    f32_counters = {"flash_attention": flash_attention,
+                    "fused_mlp": fused_mlp}
+    reset_counts(f32_counters)
     teacher_force_f32(torch, M, zcfg, seed, zby_rid[3], smi)
-    f32_launches = read_counts(flash)
+    f32_launches = read_counts(f32_counters)
+    mlp_calls = sites * len(zby_rid[3].tokens)   # the prefill + each step
     check(f32_launches == {"flash_attention": sites,
                            "flash_attention.tc": 0,
-                           "flash_attention.simt": sites},
-          f"zamba2 float32 flash launches {f32_launches}")
+                           "flash_attention.simt": sites,
+                           "fused_mlp": mlp_calls, "fused_mlp.tc": 0,
+                           "fused_mlp.stream": 0,
+                           "fused_mlp.simt": mlp_calls},
+          f"zamba2 float32 launches {f32_launches}")
     S, Hq, D = len(zby_rid[3].prompt), zcfg.n_heads, zcfg.hd
     q, k, v = (torch.randn(1, S, h, D, device="cuda", generator=gen)
                .transpose(1, 2) for h in (Hq, zcfg.n_kv_heads,
@@ -907,6 +960,7 @@ PIPELINE_SOURCE = "src/repro_torch/csrc/stream_pipeline.cuh"
 PIPELINE_REPLACES = "src/repro/kernels/stream_pipeline.py:34"
 # full HD (the apps' plane), 4K UHD and 8K UHD: 16.6, 66 and 265 MB moved
 PIPELINE_PLANES = ((1080, 1920), (2160, 3840), (4320, 7680))
+PIPELINE_TURNS = 8               # rounds of C1 against torch.tanh
 
 
 def pipeline_chains(torch) -> dict:
@@ -942,6 +996,7 @@ def pipeline_phase(torch, timer, smi: str, power_limit: float, seed: int,
     gc.collect()                       # phase 6's models are gone
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    props = torch.cuda.get_device_properties(0)
     entries = []
     for Hp, Wp in PIPELINE_PLANES:
         x = torch.randn(Hp, Wp, device="cuda", generator=gen)
@@ -978,11 +1033,14 @@ def pipeline_phase(torch, timer, smi: str, power_limit: float, seed: int,
                 library = timer(lambda: torch.tanh(xin))
             del out, staged, ref
             n_bytes = 2 * 4 * Hp * Wp
-            ops = sp.PipelineKernel(fns).ops_per_element() * Hp * Wp
+            kernel = sp.PipelineKernel(fns)
+            ops = kernel.ops_per_element() * Hp * Wp
             bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / FP32_OPS_PER_S * 1e3
             row = {"kernel": "stream_pipeline", "plane": [Hp, Wp],
-                   "stages": stages,
+                   "stages": stages, "unroll": sp.unroll(
+                       kernel.cost_per_element(), Hp * Wp,
+                       props.multi_processor_count, props.L2_cache_size),
                    "ms": timer(lambda: sp.stream_pipeline(xin, fns)),
                    "staged_ms": timer(
                        lambda: sp.stream_pipeline_staged(xin, fns)),
@@ -1013,6 +1071,22 @@ def pipeline_phase(torch, timer, smi: str, power_limit: float, seed: int,
         del x, xa
         gc.collect()
         torch.cuda.empty_cache()
+
+    # C1 against torch.tanh in turns: the two are within a few percent,
+    # closer than sequential timing resolves
+    for Hp, Wp in PIPELINE_PLANES:
+        x = torch.randn(Hp, Wp, device="cuda", generator=gen)
+        times = in_turns(timer, {
+            "kernel": lambda x=x: sp.stream_pipeline(x, chains[1]),
+            "library": lambda x=x: torch.tanh(x)}, PIPELINE_TURNS)
+        print(json.dumps({
+            "kernel": "stream_pipeline", "case": "C1 in turns",
+            "plane": [Hp, Wp], "rounds": PIPELINE_TURNS,
+            **turns_summary(times),
+            "kernel_faster_rounds": sum(a < b for a, b in zip(
+                times["kernel"], times["library"])), "card": smi}),
+            flush=True)
+        del x
 
     # a view whose data is not 16-byte aligned takes the scalar loads
     Hp, Wp = PIPELINE_PLANES[0]

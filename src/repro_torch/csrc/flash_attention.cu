@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "lm_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -240,7 +241,8 @@ int launch_d(const void* q, const void* k, const void* v, const float* bias,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace tcore;
+
 constexpr int kWarps = 4;        // warps of a key group, 16 query rows each
 constexpr int BQ = 16 * kWarps;  // query rows per block
 constexpr int BK = 64;           // keys per tile
@@ -256,66 +258,11 @@ template <int DK, int DV, int STAGES>
 constexpr int kSmemBytes =
     (BQ * kLd<DK> + STAGES * BK * (kLd<DK> + kLd<DV>)) * (int)sizeof(bf16);
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-fills when !valid (the
-// source address is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 // 2^x on the special-function unit (2 ulp; ftz: 2^-126 and below give 0).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one register of two bf16 (round to nearest even), lo in
-// the low half; also returns the rounded values' sum.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi,
-                                              float* rounded_sum) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  *rounded_sum += __low2float(h) + __high2float(h);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Copies rows [r0, r0 + ROWS) of a (., D) bf16 matrix, D <= DMAX, with
@@ -335,14 +282,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
       cp_async16(dst + r * LD + c, s, valid);
     }
   }
-}
-
-// Waits until at most n of this thread's copy groups are pending (n <= 3).
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  if (n <= 0) cp_async_wait<0>();
-  else if (n == 1) cp_async_wait<1>();
-  else if (n == 2) cp_async_wait<2>();
-  else cp_async_wait<3>();
 }
 
 // One block: BQ query rows of one (batch, query head).  KSPLIT key groups

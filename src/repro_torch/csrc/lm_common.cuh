@@ -1,7 +1,10 @@
 // Shared pieces of the LM kernels (flash_attention.cu, decode_attention.cu,
-// fused_mlp.cu): element-type conversions, warp reductions, the masking
-// constant and the dynamic shared-memory opt-in.  Every kernel computes in
-// float32 on the CUDA cores; operands may be float32 or bfloat16.
+// fused_mlp.cu, ssd_scan.cu): element-type conversions, warp reductions,
+// the masking constant and the dynamic shared-memory opt-in.  Operands may
+// be float32 or bfloat16; sums are float32 everywhere.  The bf16 routes of
+// flash_attention.cu and fused_mlp.cu multiply on the tensor cores (their
+// helpers are in tensor_core.cuh); everything else computes on the CUDA
+// cores.
 #pragma once
 
 #include <cuda_bf16.h>

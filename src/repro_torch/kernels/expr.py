@@ -355,9 +355,12 @@ def leaves(root: Expr) -> list[tuple[int, int, int]]:
     return out
 
 
-def count_ops(root: Expr) -> int:
-    """Arithmetic operations per output element (leaves excluded)."""
-    return sum(1 for e in _topo([root]) if e.op not in ("in", "const"))
+def count_ops(root: Expr, cost: dict[str, int] | None = None) -> int:
+    """Arithmetic operations per output element (leaves excluded), each
+    weighted by ``cost`` (op name -> weight, 1 where absent) if given."""
+    cost = cost or {}
+    return sum(cost.get(e.op, 1) for e in _topo([root])
+               if e.op not in ("in", "const"))
 
 
 # ----------------------------------------------------------------------

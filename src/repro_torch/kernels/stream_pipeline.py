@@ -7,10 +7,11 @@ plane for the whole chain.  ``stream_pipeline_staged`` is the baseline
 without dataflow, one read and one write per stage.
 
 The kernel's fixed part is hand-written in ``csrc/stream_pipeline.cuh``
-(16-byte loads, the chain in registers, a grid-stride walk over the flat
-plane); per chain, :class:`PipelineKernel` records every stage once with
-:mod:`repro_torch.kernels.expr` and emits the chain as C.  What bounds it
-on the card: the bytes, 8 per element.
+(16-byte loads, 1, 2 or 4 issued a thread before the chain runs on
+them in registers, as :func:`unroll` picks, and a grid sized from the
+plane); per chain, :class:`PipelineKernel` records every stage once
+with :mod:`repro_torch.kernels.expr` and emits the chain as C.  What
+bounds it on the card: the bytes, 8 per element.
 
 For pointwise stages the result depends on neither the tile nor the
 padding, so the TPU kernel's pad to whole tiles and its crop, two copies
@@ -36,12 +37,42 @@ from repro_torch.kernels.expr import (B, F, RECORD_ERRORS, Expr, count_ops,
 from repro_torch.kernels.launch import call_device, sm_count, stream_of
 
 __all__ = ["PipelineKernel", "stream_pipeline", "stream_pipeline_staged",
-           "stream_pipeline_ref"]
+           "stream_pipeline_ref", "unroll", "HEAVY_COST"]
 
-#: threads per block (``sp::kThreads``)
-THREADS = 256
-#: the grid's cap, in blocks per SM: 8 x 256 threads fill an SM
-BLOCKS_PER_SM = 8
+#: threads of a block (csrc/stream_pipeline.cuh's kThreads)
+_THREADS = 256
+#: rough instructions an element of one recorded operation, without fast
+#: math: the accurate transcendentals a few tens, IEEE sqrt and division
+#: about ten, the rest one
+_COST = {"tanh": 16, "exp": 16, "log": 16, "sin": 16, "cos": 16, "pow": 16,
+         "sqrt": 8, "div": 8}
+#: A chain that costs more than this an element is heavy.  Measured
+#: (PERF.md): C4, ``tanh, *2, abs, sqrt`` (cost 26), streams like one
+#: ``tanh``; C8, that chain twice (52), loses 12 % at 1080x1920 with the
+#: light chains' 4 float4 a thread and runs best with every warp.
+HEAVY_COST = 32
+
+
+def unroll(cost: int, n: int, n_sm: int, l2_bytes: int) -> int:
+    """The float4 values a thread takes (1, 2 or 4) for a chain of
+    ``cost`` over n float32 values on a card of ``n_sm`` SMs and an L2
+    of ``l2_bytes``.  A heavy chain takes 2 (two independent chains a
+    thread) unless that leaves part of one wave of blocks empty, then 1.
+    A light chain takes 2 when 4 would leave the wave half empty, 4
+    while the plane fits in the L2, 1 past it.  Each choice was the
+    fastest, or within 1 % of it, at every chain (1-16 stages) and plane
+    (1080x1920 to 4320x7680) timed in ``tools/pipeline_variants.py``
+    (PERF.md); between those planes the bands' edges are not measured.
+    """
+    wave = n_sm * 2048 // _THREADS          # blocks resident at once
+
+    def blocks(u: int) -> int:
+        return -(-n // (4 * _THREADS * u))
+    if cost > HEAVY_COST:
+        return 1 if blocks(2) < wave else 2
+    if blocks(4) < wave:
+        return 2
+    return 4 if 4 * n <= l2_bytes else 1
 
 
 class PipelineKernel:
@@ -80,6 +111,10 @@ class PipelineKernel:
         """Arithmetic operations per plane element over the chain."""
         return count_ops(self.expr)
 
+    def cost_per_element(self) -> int:
+        """Rough instructions per plane element over the chain."""
+        return count_ops(self.expr, _COST)
+
     def _generate(self) -> str:
         body, result = emit_c(self.expr, lambda k, dy, dx: "v")
         return "\n".join([
@@ -97,8 +132,8 @@ class PipelineKernel:
             "}  // namespace",
             "",
             'extern "C" int sp_launch(const void* in, void* out, long long n,'
-            " int vec, int grid, void* stream) {",
-            "  return sp::launch<Chain>(in, out, n, vec, grid, stream);",
+            " int vec, int unroll, void* stream) {",
+            "  return sp::launch<Chain>(in, out, n, vec, unroll, stream);",
             "}",
             "",
             'extern "C" const char* sp_error_string(int e) {',
@@ -121,9 +156,10 @@ class PipelineKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
-    def launch(self, x: torch.Tensor) -> torch.Tensor:
+    def launch(self, x: torch.Tensor, unroll: int) -> torch.Tensor:
         """Run the chain over the contiguous float32 CUDA tensor ``x`` on
-        the current stream; returns a new tensor of its shape."""
+        the current stream, ``unroll`` (1, 2 or 4) vectors a thread;
+        returns a new tensor of its shape."""
         if (x.dtype != torch.float32 or not x.is_contiguous()
                 or x.device.type != "cuda"):
             raise ValueError(f"stream_pipeline launch: expected a contiguous "
@@ -132,12 +168,9 @@ class PipelineKernel:
         out = torch.empty_like(x)
         n = x.numel()
         vec = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-        work = n // 4 if vec else n
-        grid = max(1, min(-(-work // THREADS),
-                          BLOCKS_PER_SM * sm_count(x.device.index)))
         fn = self.launcher()
         with torch.cuda.device(x.device):
-            rc = fn(x.data_ptr(), out.data_ptr(), n, int(vec), grid,
+            rc = fn(x.data_ptr(), out.data_ptr(), n, int(vec), unroll,
                     stream_of(x.device))
         if rc != 0:
             msg = self._lib.sp_error_string(rc).decode()
@@ -169,7 +202,10 @@ def _checked(x: torch.Tensor, fns: Sequence[Callable]
 def _run(kernel: PipelineKernel, x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return torch.empty_like(x)
-    out = kernel.launch(x)
+    i = x.device.index or 0
+    u = unroll(kernel.cost_per_element(), x.numel(), sm_count(i),
+               torch.cuda.get_device_properties(i).L2_cache_size)
+    out = kernel.launch(x, u)
     stream_pipeline.launches += 1
     return out
 
@@ -184,8 +220,8 @@ def stream_pipeline(x: torch.Tensor, fns: Sequence[Callable],
     ``maximum/minimum/clamp/where``).  A non-contiguous x is made
     contiguous first.  ``tile`` is checked and kept for the reference's
     signature only: on the card the launch shape is the card's own (a
-    grid-stride walk over the flat plane), and the result of a pointwise
-    chain does not depend on it.  There is no ``interpret`` keyword: a
+    grid sized from the flat plane), and the result of a pointwise chain
+    does not depend on it.  There is no ``interpret`` keyword: a
     CPU tensor takes the plain version.
     """
     if (len(tile) != 2 or not all(isinstance(t, int) and t > 0

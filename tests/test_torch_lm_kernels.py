@@ -30,8 +30,11 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import route as flash_route  # noqa: E402
 from repro_torch.kernels.fused_mlp import (BLOCK_F, SMEM_LIMIT,  # noqa: E402
-                                           MlpPlan, fused_mlp, plan,
-                                           smem_bytes)
+                                           STREAM_MAX_T, MlpPlan, TcPlan,
+                                           fused_mlp, plan, smem_bytes,
+                                           stream_smem_bytes, tc_plan,
+                                           tc_smem_bytes)
+from repro_torch.kernels.fused_mlp import route as mlp_route  # noqa: E402
 
 try:                                 # the card's machine has no JAX
     import jax.numpy as jnp
@@ -329,6 +332,9 @@ def test_mlp_plain_keeps_the_norm_in_float32():
 
 
 def test_mlp_plan_fills_one_wave_within_shared_memory():
+    """The CUDA-core route's plan (float32, and bf16 shapes the other
+    routes refuse), the tensor-core route's plan at granite's width, and
+    the decode route's shared memory."""
     for T in (1, 4, 5, 17, 255, 512):
         p = plan(T, 2048, 8192, 132)
         rows, splits = -(-T // p.block_t), p.nsplit
@@ -337,10 +343,95 @@ def test_mlp_plan_fills_one_wave_within_shared_memory():
         assert rows * splits <= 132
         assert splits * p.steps_per_split * BLOCK_F >= 8192
         assert (splits - 1) * p.steps_per_split * BLOCK_F < 8192
-    assert plan(4, 2048, 8192, 132) == MlpPlan(4, 128, 1)      # decode
-    assert plan(255, 2048, 8192, 132) == MlpPlan(16, 8, 16)   # prefill
+    assert plan(4, 2048, 8192, 132) == MlpPlan(4, 128, 1)      # f32 decode
+    assert plan(255, 2048, 8192, 132) == MlpPlan(16, 8, 16)   # f32 prefill
     with pytest.raises(ValueError, match="shared memory"):
         plan(4, 60000, 128, 132)
+    for T in (9, 17, 64, 100, 128, 129, 255, 511, 2048):
+        p = tc_plan(T, 8192, 132)
+        rows = -(-T // (64 * p.mt))
+        assert p.mt == (1 if T <= 128 else 2)
+        assert p.fs % 64 == 0 and 64 <= p.fs <= 512
+        assert tc_smem_bytes(p.mt, p.fs) <= SMEM_LIMIT
+        assert p.nsplit * p.fs >= 8192 > (p.nsplit - 1) * p.fs
+        widest = tc_smem_bytes(p.mt, p.fs + 64) > SMEM_LIMIT or p.fs == 512
+        assert rows * p.nsplit <= 132 or widest    # one wave if it can
+    assert tc_plan(17, 8192, 132) == TcPlan(1, 64, 128)
+    assert tc_plan(100, 8192, 132) == TcPlan(1, 128, 64)
+    assert tc_plan(255, 8192, 132) == TcPlan(2, 128, 64)
+    assert tc_plan(2048, 8192, 132).fs == 448               # shared memory
+    assert tc_plan(200, 200, 132) == TcPlan(2, 64, 4)       # ragged d_ff
+    for tp in (1, 2, 4, 8):
+        assert stream_smem_bytes(tp, 2048) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype,T,d,f,aligned,want", [
+    (torch.bfloat16, 4, 2048, 8192, True, "stream"),     # granite decode
+    (torch.bfloat16, 1, 2048, 8192, True, "stream"),
+    (torch.bfloat16, STREAM_MAX_T, 2048, 8192, True, "stream"),
+    (torch.bfloat16, STREAM_MAX_T + 1, 2048, 8192, True, "tc"),
+    (torch.bfloat16, 17, 2048, 8192, True, "tc"),        # shortest prompt
+    (torch.bfloat16, 255, 2048, 8192, True, "tc"),
+    (torch.bfloat16, 4, 96, 200, True, "stream"),        # multiples of 8
+    (torch.bfloat16, 40, 96, 200, True, "tc"),
+    (torch.bfloat16, 4, 100, 200, True, "simt"),         # d % 8 != 0
+    (torch.bfloat16, 40, 96, 204, True, "simt"),         # d_ff % 8 != 0
+    (torch.bfloat16, 4, 2048, 8192, False, "simt"),      # misaligned
+    (torch.bfloat16, 4, 60000, 128, True, "tc"),         # xn past smem
+    (torch.float32, 4, 2048, 8192, True, "simt"),        # float32 parity
+    (torch.float32, 255, 2048, 8192, True, "simt"),
+])
+def test_mlp_route_by_dtype_t_and_multiples_of_8(dtype, T, d, f, aligned,
+                                                 want):
+    assert mlp_route(dtype, T, d, f, aligned) == want
+
+
+def test_mlp_on_cpu_counts_no_route():
+    x = torch.randn(4, 16, dtype=torch.bfloat16)
+    w = torch.randn(16, 24, dtype=torch.bfloat16)
+    counts = (fused_mlp.launches, fused_mlp.stream_launches,
+              fused_mlp.tc_launches, fused_mlp.simt_launches)
+    fused_mlp(x, x[0], w, w, w.T.contiguous())
+    assert counts == (fused_mlp.launches, fused_mlp.stream_launches,
+                      fused_mlp.tc_launches, fused_mlp.simt_launches)
+
+
+def _mlp_tc_emulation(x, w_norm, w_gate, w_up, w_down, eps=1e-6):
+    """The tensor-core route's arithmetic on the CPU, at its rounding
+    points: xn = x * rstd * w_norm in float32, rounded to bf16; g and u
+    from the bf16 operands with float32 sums; a = silu(g) * u rounded to
+    bf16; a @ Wd with float32 sums, returned in float32 (before the
+    output's own rounding)."""
+    f32, bf = torch.float32, torch.bfloat16
+    xf = x.to(f32)
+    rstd = 1.0 / torch.sqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    xn = (xf * rstd * w_norm.to(f32)).to(bf).to(f32)
+    g, u = xn @ w_gate.to(f32), xn @ w_up.to(f32)
+    a = (torch.nn.functional.silu(g) * u).to(bf).to(f32)
+    return a @ w_down.to(f32)
+
+
+@pytest.mark.parametrize("T", [4, 255])
+def test_mlp_tc_route_rounding_holds_the_bf16_budget(T):
+    """Rounding xn and a to bf16 (the tensor-core route's two rounding
+    points the float32 plain version does not have) keeps the route, at
+    granite's width, within half of the path's 8e-3 * max|plain| budget
+    before the output's own bf16 rounding, and within the budget after."""
+    rng = np.random.default_rng(T)
+    d, f = 2048, 8192
+
+    def bf(shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(
+            np.float32)).to(torch.bfloat16)
+    x, wn = bf((T, d)), bf((d,))
+    wg, wu, wd = bf((d, f), d ** -0.5), bf((d, f), d ** -0.5), \
+        bf((f, d), f ** -0.5)
+    want = TR.fused_mlp_ref(*(t.float() for t in (x, wn, wg, wu, wd)))
+    got = _mlp_tc_emulation(x, wn, wg, wu, wd)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 4e-3 * scale
+    rounded = got.to(torch.bfloat16).float()
+    assert float((rounded - want).abs().max()) <= 8e-3 * scale
 
 
 # ----------------------------------------------------------------------
@@ -394,7 +485,12 @@ def test_kernel_sources_export_their_launchers():
         assert f"LM_ERROR_STRING({name})" in src
         assert "src/repro/kernels/" in src          # names the TPU kernel
         heads = [h.name for h in build.included_headers(src)]
-        assert heads == ["lm_common.cuh"]
+        # the bf16 routes share the tensor-core helpers
+        assert heads == (["lm_common.cuh"] if name == "decode_attention"
+                         else ["lm_common.cuh", "tensor_core.cuh"])
+    src = build.CudaSource("fused_mlp").source
+    for launcher in ("fused_mlp_stream_launch", "fused_mlp_tc_launch"):
+        assert f'extern "C" int {launcher}(' in src
 
 
 def test_library_digest_follows_only_included_headers(tmp_path, monkeypatch):
@@ -476,25 +572,50 @@ def test_decode_kernel_matches_plain_on_card(q_dtype):
     _card_close(out, TR.decode_attention_ref(q, k, v, bias=bias), q_dtype)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("T", [4, 255])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mlp_kernel_matches_plain_on_card(T, dtype):
-    _needs_card()
-    gen = torch.Generator(device="cuda").manual_seed(T)
+MLP_CARD_T = (1, 4, 16, 17, 64, 255)   # decode, the split, served prompts
+
+
+def _granite_mlp(T, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     d, f = 2048, 8192
 
     def rand(*shape, std=1.0):
         return (torch.randn(*shape, device="cuda", generator=gen)
                 * std).to(dtype)
-    x, wn = rand(T, d), rand(d)
-    wg, wu, wd = rand(d, f, std=d ** -0.5), rand(d, f, std=d ** -0.5), \
-        rand(f, d, std=f ** -0.5)
-    before = fused_mlp.launches
-    out = fused_mlp(x, wn, wg, wu, wd)
+    return (rand(T, d), rand(d), rand(d, f, std=d ** -0.5),
+            rand(d, f, std=d ** -0.5), rand(f, d, std=f ** -0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", MLP_CARD_T)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_kernel_matches_plain_on_card(T, dtype):
+    """The route the wrapper picks, counted once in its own count."""
+    _needs_card()
+    args = _granite_mlp(T, dtype, T)
+    which = mlp_route(dtype, T, 2048, 8192)
+    before = (fused_mlp.launches, getattr(fused_mlp, f"{which}_launches"))
+    out = fused_mlp(*args)
     torch.cuda.synchronize()
-    assert fused_mlp.launches == before + 1
-    _card_close(out, TR.fused_mlp_ref(x, wn, wg, wu, wd), dtype)
+    assert (fused_mlp.launches, getattr(fused_mlp, f"{which}_launches")) \
+        == (before[0] + 1, before[1] + 1)
+    _card_close(out, TR.fused_mlp_ref(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", MLP_CARD_T)
+@pytest.mark.parametrize("which", ["stream", "tc", "simt"])
+def test_mlp_each_route_matches_plain_on_card(T, which):
+    """Every bf16 route at granite's width, whichever T the split gives
+    it (the decode route takes T <= STREAM_MAX_T only)."""
+    _needs_card()
+    if which == "stream" and T > STREAM_MAX_T:
+        pytest.skip("the decode route takes T <= STREAM_MAX_T")
+    from repro_torch.kernels.fused_mlp import launch_route
+    args = _granite_mlp(T, torch.bfloat16, 100 + T)
+    out = launch_route(which, *args, 1e-6)
+    torch.cuda.synchronize()
+    _card_close(out, TR.fused_mlp_ref(*args), torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -523,13 +644,24 @@ def test_kernels_take_ragged_and_general_shapes_on_card(dtype):
             rand(3, Hkv, 300, 128)
         _card_close(decode_attention(q, k, v), TR.decode_attention_ref(
             q, k, v), dtype)
-    for T in (5, 40):
+    for T in (5, 40):     # bf16: the decode and the tensor-core route
         d, f = 96, 200
         x, wn = rand(T, d), rand(d)
         wg, wu, wd = rand(d, f, std=d ** -0.5), rand(d, f, std=d ** -0.5), \
             rand(f, d, std=f ** -0.5)
         _card_close(fused_mlp(x, wn, wg, wu, wd),
                     TR.fused_mlp_ref(x, wn, wg, wu, wd), dtype)
+        # d not a multiple of 8, and a misaligned x: the CUDA-core route
+        before = fused_mlp.simt_launches
+        _card_close(fused_mlp(x[:, :92].contiguous(), wn[:92], wg[:92],
+                              wu[:92], wd[:, :92].contiguous()),
+                    TR.fused_mlp_ref(x[:, :92], wn[:92], wg[:92], wu[:92],
+                                     wd[:, :92]), dtype)
+        flat = rand(T * d + 1)
+        xm = flat[1:].view(T, d)
+        _card_close(fused_mlp(xm, wn, wg, wu, wd),
+                    TR.fused_mlp_ref(xm, wn, wg, wu, wd), dtype)
+        assert fused_mlp.simt_launches == before + 2
 
 
 @pytest.mark.gpu

@@ -27,8 +27,8 @@ from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.expr import evaluate  # noqa: E402
 from repro_torch.kernels.stream_pipeline import (  # noqa: E402
-    PipelineKernel, stream_pipeline, stream_pipeline_ref,
-    stream_pipeline_staged)
+    HEAVY_COST, PipelineKernel, stream_pipeline, stream_pipeline_ref,
+    stream_pipeline_staged, unroll)
 
 try:                                 # the card's machine has no JAX
     import jax.numpy as jnp
@@ -143,6 +143,7 @@ def test_source_generates_without_nvcc(monkeypatch):
     src = PipelineKernel(fns).source
     assert src.count('extern "C" int sp_launch(') == 1
     assert '#include "stream_pipeline.cuh"' in src
+    assert "sp::launch<Chain>(in, out, n, vec, unroll, stream)" in src
     assert "(0x1.0000000000000p+1f)" in src      # v * 2.0 as a float32
     path = build.library_path("sp", src)
     assert path == build.library_path("sp", PipelineKernel(fns).source)
@@ -150,6 +151,31 @@ def test_source_generates_without_nvcc(monkeypatch):
     b = PipelineKernel((lambda v: v * 3.0,)).source
     assert build.library_path("sp", a) == build.library_path("sp", b)
     assert build.library_path("sp", a) != path
+
+
+# (chain, its cost, the unroll at 1080x1920, 2160x3840 and 4320x7680 on
+# 132 SMs and a 50 MB L2: the fastest or within 1 % of it, PERF.md)
+UNROLL_CASES = [
+    ((torch.tanh,), 16, (2, 4, 1)),
+    (CHAINS["c4"][0], 26, (2, 4, 1)),
+    (CHAINS["c4"][0] * 2, 52, (1, 2, 2)),
+    (CHAINS["c4"][0] * 4, 104, (1, 2, 2)),
+    ((lambda v: v * 3.0 + 1.0,) * 10, 20, (2, 4, 1)),   # cheap ops
+]
+
+
+@pytest.mark.parametrize("case", range(len(UNROLL_CASES)))
+def test_unroll_by_chain_cost_and_plane(case):
+    fns, cost, want = UNROLL_CASES[case]
+    kernel = PipelineKernel(fns)
+    assert kernel.cost_per_element() == cost
+    assert (cost > HEAVY_COST) == (want[0] == 1)
+    got = tuple(unroll(cost, H * W, 132, 50 * 2**20)
+                for H, W in ((1080, 1920), (2160, 3840), (4320, 7680)))
+    assert got == want
+    # a plane too small to fill one wave at any unroll: 2 light, 1 heavy
+    assert unroll(cost, 4096, 132, 50 * 2**20) == (1 if cost > HEAVY_COST
+                                                   else 2)
 
 
 def test_included_headers_reach_the_group_helpers():
@@ -249,3 +275,42 @@ def test_staged_launches_once_per_stage_on_card(name):
     torch.cuda.synchronize()
     assert stream_pipeline.launches == before + len(fns)
     _card_close(out, stream_pipeline_ref(x, fns))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u", [1, 2, 4])
+def test_every_unroll_matches_plain_on_card(u):
+    """Each unroll the launcher can pick, on a ragged plane and on a
+    misaligned view of it (the scalar walk)."""
+    _needs_card()
+    fns = CHAINS["c4"][0]
+    kernel = PipelineKernel(fns)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flat = torch.randn(257 * 513 + 1, device="cuda", generator=gen).abs()
+    for x in (flat[:-1].view(257, 513), flat[1:].view(257, 513)):
+        out = kernel.launch(x, u)
+        torch.cuda.synchronize()
+        _card_close(out, stream_pipeline_ref(x, fns))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(1079, 1917), (3, 5)])
+def test_one_stage_ragged_and_misaligned_on_card(H, W):
+    """C1 (``tanh``) with n % 16 != 0: the last block's vectors run out
+    mid-block and the last n % 4 values take the scalar tail; then the
+    same plane as a view whose data is not 16-byte aligned (the scalar
+    walk)."""
+    _needs_card()
+    fns = (torch.tanh,)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flat = torch.randn(H * W + 1, device="cuda", generator=gen)
+    x = flat[:-1].view(H, W)
+    xm = flat[1:].view(H, W)
+    assert x.numel() % 16 != 0 and x.data_ptr() % 16 == 0
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
+    before = stream_pipeline.launches
+    out, outm = stream_pipeline(x, fns), stream_pipeline(xm, fns)
+    torch.cuda.synchronize()
+    assert stream_pipeline.launches == before + 2
+    _card_close(out, stream_pipeline_ref(x, fns))
+    _card_close(outm, stream_pipeline_ref(xm, fns))

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
 from pathlib import Path
 
@@ -26,7 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import LINEAR_STENCILS, Timer, card_line  # noqa: E402
+from chip_smoke import (LINEAR_STENCILS, Timer, card_line,  # noqa: E402
+                        in_turns, turns_summary)
 
 H, W = 1080, 1920
 REPS = 20
@@ -69,14 +69,10 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise RuntimeError(f"{name}: kernel differs from its plain version")
-        times = {"kernel": [], "library": []}
-        for r in range(args.rounds):
-            for label in ("kernel", "library")[:: 1 if r % 2 == 0 else -1]:
-                times[label].append(timer(fns[label]))
+        times = in_turns(timer, fns, args.rounds)
         print(json.dumps({
             "app": name, "plane": [H, W], "rounds": args.rounds,
-            **{f"{k}_ms": {"median": statistics.median(t), "min": min(t),
-                           "max": max(t)} for k, t in times.items()},
+            **turns_summary(times),
             "kernel_faster_rounds": sum(a < b for a, b in
                                         zip(times["kernel"],
                                             times["library"])),
