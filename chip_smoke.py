@@ -32,7 +32,10 @@ no result line) on any error:
    times kernel, plain version and the library yardstick
    (``F.scaled_dot_product_attention``; the MLP has none, and the bf16
    cuBLAS composition is printed beside it), flash also at S = 2048,
-   the MLP at T = 4, 17, 100, 255 and both sides of its route split;
+   decode attention at the served lengths (17/130/301/511: it skips the
+   masked keys) and with every position live, the MLP at T = 4, 17,
+   100, 255 and both sides of its route split; a row timed under its
+   bound (share above 1.05) fails, here and in phase 6;
    serves 8
    requests through ``ContinuousBatcher`` (4 slots, 512 positions, 32
    new tokens each), checks the tokens and the launch counts (flash 40
@@ -44,10 +47,14 @@ no result line) on any error:
    ``decode_step`` with the kernels and with ``impl="ref"``, logits
    within 5e-2 * max|logits|;
 6. SSM and hybrid serving: holds the ``ssd_scan`` kernel (built in
-   phase 2) against its plain version at mamba2-2.7b's shapes (s = 255,
-   ragged, and s = 2048, 16 chunks of carried state; bfloat16 x, B, C)
+   phase 2; three passes a call, counted as one launch) against its
+   plain version at mamba2-2.7b's shapes (s = 255, ragged, s = 2048, 16
+   chunks of carried state, and s = 128, one chunk; bfloat16 x, B, C)
    and zamba2-1.2b's (s = 200), and in float32 with g = 2 and an
-   ``init_state``; serves 8 requests on mamba2-2.7b at full width and
+   ``init_state``, its bound counting C B^T once per group and chunk
+   and each product at the rate of the 3xTF32 tensor-core passes it
+   takes;
+   serves 8 requests on mamba2-2.7b at full width and
    depth (64 layers, bf16, random weights from ``--seed``) through the
    4-slot batcher with ``ssd_scan`` launched exactly 64 times per
    prefill (and never at decode); teacher-forces two requests against
@@ -96,6 +103,7 @@ QS_H, QS_W = 512, 1024
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12          # H100 SXM, TF32 tensor cores, dense
 FULL_POWER_W = 700.0
 TOL = 1e-6                       # kernel vs plain, relative to max|plain|
 LIB_TOL = 1e-5                   # library call vs plain (conv2d reassociates)
@@ -411,7 +419,8 @@ def lm_bound(n_bytes, n_ops, ops_per_s) -> dict:
 def time_cases(torch, timer, smi, cases, tol) -> list[dict]:
     """Each (kernel, label, kernel fn, plain fn, library fn or None,
     bound) case: checked against the plain version (and the library
-    call against it) and timed; one row each."""
+    call against it) and timed; one row each.  A time under the bound
+    (share above 1.05) fails: the timing or the bound is wrong."""
     rows = []
     for name, label, kern, plain, library, bnd in cases:
         err = compare_close(torch, f"{name}[{label}]", kern(), plain(), tol)
@@ -423,6 +432,9 @@ def time_cases(torch, timer, smi, cases, tol) -> list[dict]:
                           plain(), tol)
             row["library_ms"] = timer(library)
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        check(row["bound_share"] <= 1.05,
+              f"{name}[{label}]: {row['ms']:.5f} ms is under its bound "
+              f"{row['bound_ms']:.5f} ms: the timing or the bound is wrong")
         rows.append(row)
     return rows
 
@@ -625,7 +637,10 @@ NEW_TOKENS = 32
 N_SLOTS, MAX_LEN = 4, 512
 FLASH_S = (100, 128, 255, 511)   # served prompts; 511: the batcher's longest
 FLASH_LONG_S = 2048              # timed too: where the tensor cores show
-DECODE_LENS = (17, 130, 301, 511)
+# the served lengths (the skip reads 963 of 2048 positions a head), and a
+# cache with every position live, so the skip cannot hide a slow full read
+DECODE_CASES = {f"{N_SLOTS}x{MAX_LEN}": (17, 130, 301, 511),
+                f"{N_SLOTS}x{MAX_LEN} all live": (511,) * N_SLOTS}
 MLP_T = (4, 17, 100, 255)        # decode, and served prompt lengths
 
 
@@ -678,24 +693,26 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
             lambda qb=qb, kb=kb, vb=vb: F.scaled_dot_product_attention(
                 qb, kb, vb, is_causal=True, enable_gqa=True),
             bound(2 * S * D * (2 * Hq + 2 * Hkv), 4 * Hq * D * pairs)))
-    lens = torch.tensor(DECODE_LENS, device="cuda")
-    keep = torch.arange(MAX_LEN, device="cuda")[None] <= lens[:, None]
-    bias = torch.where(keep, 0.0, -1e30)
     q = randn(N_SLOTS, Hq, D)
     k, v = randn(N_SLOTS, Hkv, MAX_LEN, D), randn(N_SLOTS, Hkv, MAX_LEN, D)
-    compare("decode_attention f32", decode_attention(q, k, v, bias=bias),
-            R.decode_attention_ref(q, k, v, bias=bias), LM_F32_TOL)
     qb = q.to(bf16)                # the path: bf16 query, f32 cache
-    live = sum(n + 1 for n in DECODE_LENS)   # positions the masks keep
-    cases.append((
-        "decode_attention", f"{N_SLOTS}x{MAX_LEN}",
-        lambda: decode_attention(qb, k, v, bias=bias),
-        lambda: R.decode_attention_ref(qb, k, v, bias=bias),
-        lambda: F.scaled_dot_product_attention(        # same types needed
-            qb.float()[:, :, None], k, v, attn_mask=bias[:, None, None],
-            enable_gqa=True)[:, :, 0],
-        bound(2 * N_SLOTS * Hq * D * 2 + live * Hkv * D * 4 * 2
-              + N_SLOTS * MAX_LEN * 4, 4 * Hq * D * live)))
+    for label, lens in DECODE_CASES.items():
+        lens = torch.tensor(lens, device="cuda")
+        keep = torch.arange(MAX_LEN, device="cuda")[None] <= lens[:, None]
+        bias = torch.where(keep, 0.0, -1e30)
+        compare(f"decode_attention[{label}] f32",
+                decode_attention(q, k, v, bias=bias),
+                R.decode_attention_ref(q, k, v, bias=bias), LM_F32_TOL)
+        live = int(keep.sum())         # positions the masks keep
+        cases.append((
+            "decode_attention", label,
+            lambda bias=bias: decode_attention(qb, k, v, bias=bias),
+            lambda bias=bias: R.decode_attention_ref(qb, k, v, bias=bias),
+            lambda bias=bias: F.scaled_dot_product_attention(  # same types
+                qb.float()[:, :, None], k, v, attn_mask=bias[:, None, None],
+                enable_gqa=True)[:, :, 0],
+            bound(2 * N_SLOTS * Hq * D * 2 + live * Hkv * D * 4 * 2
+                  + N_SLOTS * MAX_LEN * 4, 4 * Hq * D * live)))
     ws = [randn(d), randn(d, f, std=d ** -0.5),
           randn(d, f, std=d ** -0.5), randn(f, d, std=f ** -0.5)]
     wb = [w.to(bf16) for w in ws]
@@ -761,10 +778,11 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
 # ----------------------------------------------------------------------
 SSD_CHUNK = 128
 # (label, b, s, h, p, g, n, dtype name, init_state): mamba2-2.7b's prefill
-# shapes (ragged, and 16 chunks of carried state), zamba2-1.2b's, and a
-# float32 case with g = 2 and a start state
+# shapes (ragged, 16 chunks of carried state, one chunk), zamba2-1.2b's,
+# and a float32 case with g = 2 and a start state
 SSD_CASES = (("mamba2 s=255", 1, 255, 80, 64, 1, 128, "bfloat16", False),
              ("mamba2 s=2048", 1, 2048, 80, 64, 1, 128, "bfloat16", False),
+             ("mamba2 s=128", 1, 128, 80, 64, 1, 128, "bfloat16", False),
              ("zamba2 s=200", 1, 200, 64, 64, 1, 64, "bfloat16", False),
              ("f32 g=2 init s=300", 1, 300, 80, 64, 2, 128, "float32", True))
 ZAMBA_REQUESTS, ZAMBA_NEW_TOKENS = 4, 16
@@ -785,24 +803,35 @@ SSM_SPREAD_FACTOR = 2.0
 
 def ssd_bound(b, s, h, p, g, n, esize, init) -> dict:
     """Bytes: x, B, C and y in their type, dt, A, the start state and the
-    final state in float32, each once.  Operations: per head and chunk of
-    r rows, the lower triangles of C B^T (r(r+1)/2 x n) and of the masked
-    product with x dt (r(r+1)/2 x p), the carried state's contribution
-    (r x n x p; none for the first chunk without a start state) and the
-    state update (r x p x n), two each for a multiply-add; float32 on the
-    CUDA cores, as the function computes (the reference converts to
-    float32 too)."""
+    final state in float32, each once.  Operations: per batch, group and
+    chunk of r rows, the lower triangle of C B^T (r(r+1)/2 x n; the
+    heads of a group share it); per head and chunk, the lower triangle
+    of the masked product with x dt (r(r+1)/2 x p), the state update (r
+    x p x n) and the carried state's contribution (r x n x p; none for
+    the first chunk without a start state); two each for a multiply-add.
+    The kernel runs every product on the tensor cores in 3xTF32, 495 / 3
+    TFLOP/s, with one pass fewer for each operand that is exact in TF32
+    (bf16 B and C): in bf16, C B^T at 495 and the two state products at
+    495 / 2.  Each product counts at its own rate; the operations' time
+    is the sum."""
     n_bytes = (2 * b * s * h * p * esize + b * s * h * 4 + h * 4
                + 2 * b * s * g * n * esize + b * h * p * n * 4 * (2 if init
                                                                   else 1))
-    ops = 0
+    exact = esize == 2                 # bf16 B and C
+
+    def seconds(ops, exact_operands):
+        return ops / (TF32_OPS_PER_S / (3 - exact_operands))
+    ops = ops_s = 0
     for c0 in range(0, s, SSD_CHUNK):
         r = min(SSD_CHUNK, s - c0)
         tri = r * (r + 1) // 2
-        ops += 2 * tri * (n + p) + 2 * r * p * n
-        if c0 > 0 or init:
-            ops += 2 * r * n * p
-    return lm_bound(n_bytes, ops * b * h, FP32_OPS_PER_S)
+        cb = b * g * 2 * tri * n
+        masked = b * h * 2 * tri * p
+        state = b * h * 2 * r * p * n * (2 if c0 > 0 or init else 1)
+        ops += cb + masked + state
+        ops_s += (seconds(cb, 2 * exact) + seconds(masked, 0)
+                  + seconds(state, exact))
+    return lm_bound(n_bytes, ops, ops / ops_s)
 
 
 def teacher_force_f32(torch, M, cfg, seed, r, smi) -> None:

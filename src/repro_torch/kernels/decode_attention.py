@@ -4,43 +4,77 @@ Replaces the TPU kernel ``decode_attention`` / ``_kernel``
 (``src/repro/kernels/decode_attention.py``) with a hand-written CUDA
 kernel, ``csrc/decode_attention.cu``: one query token per sequence
 against an S-long KV cache, the ``G = Hq / Hkv`` query heads of a KV
-head as the rows of one block, an online softmax over 128-key tiles,
-and a (B, S) bias that carries each slot's length mask.
+head handled together, an online softmax over the keys, and a (B, S)
+bias that carries each slot's length mask.
 
 q and the cache may differ in type: the serving path's query is
 bfloat16 and the batcher's cache float32.  The kernel converts each
 operand to float32 as it loads it, so nothing is cast before the
 launch; the output has q's type, as on the TPU.
 
-What bounds it on the card: the cache's bytes, read once.  One block
-per (sequence, KV head), the TPU's grid, leaves most of the 132 SMs
-idle at a few slots; splitting S across blocks is the first redesign
-(PERF.md).  :func:`decode_attention` launches the kernel for CUDA
-tensors, adding one to ``decode_attention.launches``, and runs the
-plain version for CPU tensors.
+What bounds it on the card: the bytes of the live cache, read once
+(about a microsecond at the serving shapes).  So the kernel splits S
+across blocks (:func:`plan` picks the splits that fill two waves of
+the SMs, at most 8 a KV head), reads each key row with 16-byte loads,
+keeps the softmax state in registers, skips the keys the bias masks
+(bias <= NEG_INF / 2: their p is exactly 0 in the reference), and
+makes the splits of a KV head one thread-block cluster whose first
+block merges their states from distributed shared memory in split
+order, so the output is the same bits from run to run.
+:func:`decode_attention` launches the kernel for CUDA tensors, adding
+one to ``decode_attention.launches``, and runs the plain version for
+CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import call_device, dtype_code, stream_of
+from repro_torch.kernels.launch import (call_device, dtype_code, sm_count,
+                                        stream_of)
 from repro_torch.kernels.ref import decode_attention_ref
 
-__all__ = ["decode_attention", "MAX_HEAD_DIM", "MAX_GROUP"]
+__all__ = ["decode_attention", "DecodePlan", "plan", "MAX_HEAD_DIM",
+           "MAX_GROUP", "SPLIT_KEYS", "MAX_SPLITS"]
 
 #: the largest Dk or Dv the kernel takes
 MAX_HEAD_DIM = 128
 #: the most query heads per KV head
 MAX_GROUP = 16
+#: a split's keys are a multiple of this
+SPLIT_KEYS = 32
+#: the most splits of one KV head: a portable thread-block cluster
+MAX_SPLITS = 8
 
 _SOURCE = build.CudaSource("decode_attention")
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_float, ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How a launch cuts S: ``splits`` blocks (one cluster) of
+    ``keys_per_split`` keys per (sequence, KV head), ``blocks`` in all."""
+    keys_per_split: int
+    splits: int
+    blocks: int
+
+
+def plan(B: int, Hkv: int, S: int, n_sm: int) -> DecodePlan:
+    """The fewest splits (at most :data:`MAX_SPLITS`) that give the
+    B * Hkv heads two blocks an SM, each a multiple of
+    :data:`SPLIT_KEYS` keys long."""
+    heads = B * Hkv
+    want = min(MAX_SPLITS, max(1, -(-2 * n_sm // heads)))
+    kps = -(-S // want)
+    kps = -(-kps // SPLIT_KEYS) * SPLIT_KEYS
+    splits = -(-S // kps)
+    return DecodePlan(kps, splits, heads * splits)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,7 +129,9 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
                              f"got {tuple(bias.shape)}")
         bias = bias.to(torch.float32).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
-    dims = (ctypes.c_int * 6)(B, Hq, Hkv, S, Dk, Dv)
+    p = plan(B, Hkv, S, sm_count(q.device.index or 0))
+    dims = (ctypes.c_int * 9)(B, Hq, Hkv, S, Dk, Dv, p.keys_per_split,
+                              p.splits, int(_wide_loads(k, v)))
     strides = (ctypes.c_longlong * 11)(
         *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *out.stride()[:2],
         S if bias is None else bias.stride(0))
@@ -107,3 +143,12 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
                 stream_of(q.device))
     _SOURCE.check(rc)
     return out
+
+
+def _wide_loads(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether every K and V row starts on 16 bytes and holds whole
+    16-byte vectors: the kernel then reads them with 16-byte loads."""
+    per = 16 // k.element_size()
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % per == 0
+               and all(st % per == 0 for st in t.stride()[:3])
+               for t in (k, v))

@@ -26,6 +26,7 @@ torch.set_num_threads(1)
 from repro_torch.device import DeviceUnavailableError  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import route as flash_route  # noqa: E402
@@ -293,6 +294,176 @@ def test_decode_plain_matches_pallas_interpret(B, Hq, Hkv, S, D):
                                         bias=jnp.asarray(bias)))
 
 
+NEG_SKIP = -5e29                      # NEG_INF / 2: such keys are not read
+
+
+def _merge(states):
+    """Softmax states (m, l, acc) merged in order: the largest m, then
+    each state's l and acc weighted by exp(m_i - m)."""
+    m = states[0][0]
+    for st in states[1:]:
+        m = torch.maximum(m, st[0])
+    w = [torch.exp(st[0] - m) for st in states]
+    l = sum(st[1] * wi for st, wi in zip(states, w))
+    acc = sum(st[2] * wi[..., None] for st, wi in zip(states, w))
+    return m, l, acc
+
+
+def _decode_split_emulation(q, k, v, bias=None, scale=None, n_sm=132):
+    """The split kernel of ``csrc/decode_attention.cu`` on the CPU, in
+    float32.  S is cut as :func:`DA.plan` cuts it; in a split the keys
+    are dealt to the block's R row streams (R = 4 warps x 32 / LPR
+    rows), NB keys a stream at a time; a key whose bias is at or below
+    NEG_INF / 2 is never read (its K and V rows are replaced by zeros
+    before use, so a NaN there must not show); each stream keeps an
+    online softmax; the streams, then the splits in split order, are
+    merged.  A row with no live key gives 0."""
+    f32 = torch.float32
+    B, Hq, Dk = q.shape
+    Hkv, S, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / np.sqrt(Dk)
+    bias = (torch.zeros(B, S) if bias is None else bias).to(f32)
+    per = 16 // k.element_size()
+    lpr = next(n for n in (8, 16, 32) if n * per >= max(Dk, Dv))
+    R = 4 * (32 // lpr)
+    NB = 2 if G > 8 else 4 if (G > 4 or per == 8) else 8
+    pl = DA.plan(B, Hkv, S, n_sm)
+    qg = q.to(f32).reshape(B, Hkv, G, Dk)
+    kf, vf = k.to(f32), v.to(f32)
+    neg = torch.tensor(-1e30)
+    splits = []
+    for sp in range(pl.splits):
+        begin = sp * pl.keys_per_split
+        end = min(S, begin + pl.keys_per_split)
+        streams = []
+        for r in range(R):
+            m = torch.full((B, Hkv, G), -1e30)
+            l = torch.zeros(B, Hkv, G)
+            acc = torch.zeros(B, Hkv, G, Dv)
+            for k0 in range(begin, end, R * NB):
+                idx = [k0 + i * R + r for i in range(NB)]
+                idx = [j for j in idx if j < end]
+                if not idx:
+                    continue
+                bv = bias[:, idx]                            # (B, nb)
+                on = (bv > NEG_SKIP)[:, None, :, None]       # not read if off
+                kk = torch.where(on, kf[:, :, idx], 0.0)
+                vv = torch.where(on, vf[:, :, idx], 0.0)
+                s = torch.einsum("bhgd,bhkd->bhgk", qg, kk) * scale
+                s = torch.where(on[..., 0][:, :, None],
+                                s + bv[:, None, None, :], -torch.inf)
+                mx = torch.maximum(m, s.amax(-1))
+                live = mx > NEG_SKIP
+                alpha = torch.exp(m - mx)
+                p = torch.where(live[..., None], torch.exp(s - mx[..., None]),
+                                0.0)
+                l = alpha * l + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhgk,bhkd->bhgd", p, vv)
+                m = mx
+            streams.append((torch.maximum(m, neg), l, acc))
+        splits.append(_merge(streams))
+    m, l, acc = _merge(splits)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Hq, Dv).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,n_sm", [
+    (2, 4, 4, 300, 64, 132),              # G = 1, ragged S
+    (4, 8, 2, 512, 64, 4),                # G = 4, 8 splits of 64
+    (2, 16, 1, 200, 32, 132),             # G = 16, 7 splits, the last ragged
+    (1, 4, 1, 2048, 128, 132),            # MQA, D = 128, 8 splits of 256
+])
+def test_decode_split_emulation_matches_pallas_interpret(B, Hq, Hkv, S, D,
+                                                         n_sm):
+    """Split S, merge in split order, skip masked keys: the kernel's
+    algorithm against the Pallas kernel in interpret mode and the oracle,
+    within 1e-5 * max|ref| + 1e-5 * |ref|.  The masked keys hold NaN, so
+    a read of one would show."""
+    _needs_jax()
+    rng = np.random.default_rng(S + Hq)
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    lens = rng.integers(1, S, B)
+    bias = _pad_bias(B, S, lens)
+    want = j_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    bias=jnp.asarray(bias), interpret=True)
+    dead = (bias <= NEG_SKIP)[:, None, :, None]
+    kn, vn = np.where(dead, np.nan, k), np.where(dead, np.nan, v)
+    got = _decode_split_emulation(_t(q), _t(kn), _t(vn), _t(bias),
+                                  n_sm=n_sm)
+    _close(got, want)
+    _close(got, JR.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v),
+                                        bias=jnp.asarray(bias)))
+
+
+def test_decode_split_emulation_masks_like_the_kernel():
+    """A row whose keys are all masked gives 0, as the Pallas kernel does
+    (the oracle gives the mean of the values); a bias of -1e4 is not
+    skipped: a row whose keys all carry it is a plain softmax."""
+    _needs_jax()
+    rng = np.random.default_rng(5)
+    B, Hq, Hkv, S, D = 3, 8, 2, 160, 64
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    bias = _pad_bias(B, S, [100, S, S])
+    bias[1] = -1e30                          # no live key
+    bias[2] = -1e4                           # all moderately negative
+    want = np.asarray(j_decode(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), bias=jnp.asarray(bias),
+                               interpret=True))
+    got = _decode_split_emulation(_t(q), _t(k), _t(v), _t(bias), n_sm=8)
+    assert float(got[1].abs().max()) == 0.0 and not want[1].any()
+    _close(got, want)
+    plain = TR.decode_attention_ref(_t(q[2:]), _t(k[2:]), _t(v[2:]),
+                                    bias=_t(bias[2:]))
+    _close(got[2:], plain)                   # read, as the plain version
+    assert float(got[2].abs().max()) > 0.1
+
+
+def test_decode_split_emulation_holds_the_mixed_types():
+    """The serving path's bfloat16 query against a float32 cache, and a
+    bf16 cache (8 elements a 16-byte load), within the path's 8e-3."""
+    rng = np.random.default_rng(8)
+    B, Hq, Hkv, S, D = 4, 32, 8, 512, 64
+    q = _t(rng.standard_normal((B, Hq, D)).astype(np.float32))
+    k = _t(rng.standard_normal((B, Hkv, S, D)).astype(np.float32))
+    v = _t(rng.standard_normal((B, Hkv, S, D)).astype(np.float32))
+    bias = _t(_pad_bias(B, S, [18, 131, 302, 512]))
+    for qt, kvt in ((torch.bfloat16, torch.float32),
+                    (torch.bfloat16, torch.bfloat16),
+                    (torch.float32, torch.bfloat16)):
+        args = (q.to(qt), k.to(kvt), v.to(kvt), bias)
+        got = _decode_split_emulation(*args).float()
+        want = TR.decode_attention_ref(*args).float()
+        assert float((got - want).abs().max()) <= 8e-3 * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("B,Hkv,S,n_sm,want", [
+    (4, 8, 512, 132, (64, 8, 256)),       # the serving shapes
+    (4, 8, 2048, 132, (256, 8, 256)),
+    (1, 8, 512, 132, (64, 8, 64)),        # too few heads for two waves
+    (4, 8, 300, 132, (64, 5, 160)),       # ragged: the last split short
+    (64, 8, 512, 132, (512, 1, 512)),     # many heads: one split each
+    (2, 4, 9, 132, (32, 1, 8)),
+    (1, 1, 100_000, 132, (12512, 8, 8)),
+])
+def test_decode_plan_fills_two_waves(B, Hkv, S, n_sm, want):
+    pl = DA.plan(B, Hkv, S, n_sm)
+    assert (pl.keys_per_split, pl.splits, pl.blocks) == want
+    assert pl.splits * pl.keys_per_split >= S
+    assert pl.splits <= DA.MAX_SPLITS and pl.keys_per_split % 32 == 0
+    # two blocks an SM, unless shorter splits would not fit one cluster
+    kps = pl.keys_per_split
+    assert pl.blocks >= 2 * n_sm or kps == 32 or (
+        -(-S // (kps - 32)) > DA.MAX_SPLITS)
+
+
 # ----------------------------------------------------------------------
 # fused MLP
 # ----------------------------------------------------------------------
@@ -553,23 +724,62 @@ def test_flash_kernel_matches_plain_on_card(S, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lens", [
+    (17, 130, 301, 511),                 # the served lengths
+    (511, 511, 511, 511),                # every position live
+    (0, 3, 40, 100),                     # most of the cache masked
+])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_matches_plain_on_card(q_dtype):
+def test_decode_kernel_matches_plain_on_card(q_dtype, lens):
+    """granite-3-2b's decode shapes against a float32 cache.  The keys
+    the bias masks hold NaN: the kernel must not read them.  Two calls
+    give the same bits; each counts one launch."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     B, S = 4, 512
     q = torch.randn(B, 32, 64, device="cuda", generator=gen).to(q_dtype)
     k = torch.randn(B, 8, S, 64, device="cuda", generator=gen)
     v = torch.randn(B, 8, S, 64, device="cuda", generator=gen)
-    lens = torch.tensor([17, 130, 301, 511], device="cuda")
-    keep = torch.arange(S, device="cuda")[None] <= lens[:, None]
+    keep = (torch.arange(S, device="cuda")[None]
+            <= torch.tensor(lens, device="cuda")[:, None])
     bias = torch.where(keep, 0.0, -1e30)
+    want = TR.decode_attention_ref(q, k, v, bias=bias)
+    dead = ~keep[:, None, :, None]
+    k, v = k.masked_fill(dead, float("nan")), v.masked_fill(dead, float("nan"))
     before = decode_attention.launches
     out = decode_attention(q, k, v, bias=bias)
+    again = decode_attention(q, k, v, bias=bias)
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 1
+    assert decode_attention.launches == before + 2
     assert out.dtype == q_dtype
-    _card_close(out, TR.decode_attention_ref(q, k, v, bias=bias), q_dtype)
+    assert torch.equal(out, again)
+    _card_close(out, want, q_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_masks_like_the_pallas_kernel_on_card(kv_dtype):
+    """A row whose keys are all masked gives 0; a bias of -1e4 is read
+    like any other; the split plan at S = 2048 (8 splits of 256) and at
+    one KV head a sequence (G = 1: 8 splits of 64)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    for B, Hq, Hkv, S in ((3, 32, 8, 2048), (3, 1, 1, 512)):
+        q = rand(B, Hq, 64).to(torch.bfloat16)
+        k, v = rand(B, Hkv, S, 64).to(kv_dtype), rand(B, Hkv, S, 64).to(
+            kv_dtype)
+        bias = torch.zeros(B, S, device="cuda")
+        bias[0, S // 3:] = -1e30
+        bias[1] = -1e30                         # no live key
+        bias[2] = -1e4
+        out = decode_attention(q, k, v, bias=bias)
+        torch.cuda.synchronize()
+        assert float(out[1].float().abs().max()) == 0.0
+        want = TR.decode_attention_ref(q, k, v, bias=bias)
+        _card_close(out[0::2], want[0::2], torch.bfloat16)
 
 
 MLP_CARD_T = (1, 4, 16, 17, 64, 255)   # decode, the split, served prompts

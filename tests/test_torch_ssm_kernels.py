@@ -163,6 +163,180 @@ def test_chunked_scan_equals_sequential(s, h, init, seed):
 
 
 # ----------------------------------------------------------------------
+# the kernel's three passes, emulated on the CPU
+# ----------------------------------------------------------------------
+def _tf32(t):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product(eq, a, b, split):
+    """``einsum(eq, a, b)`` in float32; with ``split`` as the kernel's
+    tensor cores take it, 3xTF32: a = ah + al, b = bh + bl with each part
+    TF32, al bh + ah bl + ah bh (al bl dropped); with ``split`` = 1, the
+    plain TF32 product ah bh."""
+    if not split:
+        return torch.einsum(eq, a, b)
+    ah, bh = _tf32(a), _tf32(b)
+    if split == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _scan_passes_emulation(x, dt, A, B, C, chunk, init_state=None,
+                           split=3):
+    """The chunk-parallel passes of ``csrc/ssd_scan.cu`` on the CPU, in
+    float32, every product in 3xTF32 as the kernel's tensor cores take it
+    (``split`` = 0: plain float32 products).  Chunk pass: each chunk's cumsum of dt A (rows past s add
+    0), its own end state S_c = ((x dt) ⊙ exp(cs_last - cs))^T B, and
+    C B^T once per (batch, group, chunk), stored transposed.  State pass:
+    state_c = state_{c-1} exp(cs_last_c) + S_c, sequential over chunks
+    only, keeping each chunk's incoming state.  Output pass: y = (C B^T ⊙
+    exp(cs_i - cs_j), j <= i) (x dt) + exp(cs) ⊙ (C state_{c-1}^T),
+    rounded to x's type once."""
+    f32 = torch.float32
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    L, rep = chunk, h // g
+    nc = -(-s // L)
+    pad = nc * L - s
+
+    def rows(t):                                # zero rows past s
+        t = t.to(f32)
+        return torch.cat([t, t.new_zeros((b, pad, *t.shape[2:]))], 1)
+    xc = rows(x).reshape(b, nc, L, h, p)
+    dtc = rows(dt).reshape(b, nc, L, h)
+    Bc = rows(B).reshape(b, nc, L, g, n)
+    Cc = rows(C).reshape(b, nc, L, g, n)
+    heads = torch.arange(h) // rep              # head -> its group
+
+    # 1. chunk pass
+    cs = torch.cumsum(dtc * A.to(f32), dim=2)               # (b,c,l,h)
+    last = cs[:, :, -1]                                      # (b,c,h)
+    cbt = _product("bcjgn,bcign->bcgji", Bc, Cc, split)     # per group
+    xd = xc * dtc[..., None]
+    xdd = xd * torch.exp(last[:, :, None] - cs)[..., None]
+    own = _product("bclhp,bclhn->bchpn", xdd, Bc[:, :, :, heads], split)
+    # 2. state pass
+    state = (torch.zeros((b, h, p, n), dtype=f32) if init_state is None
+             else init_state.to(f32))
+    incoming = []
+    for c in range(nc):
+        incoming.append(state)
+        state = state * torch.exp(last[:, c])[..., None, None] + own[:, c]
+    prev = torch.stack(incoming, 1)                          # (b,c,h,p,n)
+    # 3. output pass
+    lower = torch.arange(L)[:, None] >= torch.arange(L)[None, :]  # i >= j
+    diff = cs.movedim(-1, 2)[..., :, None] - cs.movedim(-1, 2)[..., None, :]
+    dec = torch.where(lower, torch.exp(torch.where(lower, diff, 0.0)), 0.0)
+    m = cbt[:, :, heads].transpose(-1, -2) * dec             # (b,c,h,i,j)
+    y_off = _product("bcihn,bchpn->bcihp", Cc[:, :, :, heads], prev, split)
+    y = y_off * torch.exp(cs)[..., None] + _product(
+        "bchij,bcjhp->bcihp", m, xd, split)
+    return y.reshape(b, nc * L, h, p)[:, :s].to(x.dtype), state
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,init", [
+    (1, 128, 4, 16, 1, 32, 128, False),   # one chunk
+    (2, 256, 4, 16, 2, 32, 16, False),    # 16 chunks, g > 1
+    (1, 100, 6, 8, 3, 16, 32, False),     # ragged last chunk, g = 3
+    (2, 70, 4, 16, 2, 32, 32, True),      # init_state, ragged
+    (1, 255, 8, 64, 1, 128, 128, True),   # mamba2's widths, 2 chunks
+])
+def test_scan_passes_match_the_jax_scan(b, s, h, p, g, n, chunk, init):
+    """The three passes against the reference: its Pallas kernel in
+    interpret mode where it runs (whole chunks, no start state), its
+    padded Pallas route for a ragged length, its oracle for a start
+    state; within 1e-5 * max|ref| + 1e-5 * |ref|."""
+    _needs_jax()
+    arrays = _inputs(np.random.default_rng(s + h + g), b, s, h, p, g, n,
+                     init=init)
+    got = _scan_passes_emulation(*_t(arrays[:5]), chunk,
+                                 _t(arrays[5:])[0] if init else None)
+    if init:
+        want = JO.ssd(*_j(arrays[:5]), chunk=chunk, impl="ref",
+                      init_state=jnp.asarray(arrays[5]))
+    elif s % chunk:
+        want = JO.ssd(*_j(arrays), chunk=chunk, impl="pallas")
+    else:
+        want = j_ssd(*_j(arrays), chunk=chunk, interpret=True)
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    # and the plain version the card holds the kernel against
+    plain = TR.ssd_ref(*_t(arrays[:5]), chunk=chunk,
+                       init_state=_t(arrays[5:])[0] if init else None)
+    _close(got[0], plain[0])
+    _close(got[1], plain[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_3xtf32_products_hold_the_float32_budget(dtype):
+    """The kernel's products on the tensor cores in 3xTF32 keep y and the
+    final state within 1e-5 * max|plain| of the float32 plain version of
+    the same inputs, at mamba2-2.7b's widths over two chunks and a start
+    state; the plain TF32 product (one rounding of each float32 operand)
+    would not."""
+    rng = np.random.default_rng(12)
+    x, dt, A, B, C, i0 = _t(_inputs(rng, 1, 255, 4, 64, 1, 128, init=True))
+    x, B, C = (t.to(dtype) for t in (x, B, C))
+    yr, fr = TR.ssd_ref(x.float(), dt, A, B.float(), C.float(), chunk=128,
+                        init_state=i0)
+    errs = {}
+    for split in (3, 1):
+        y, fs = _scan_passes_emulation(x.float(), dt, A, B.float(),
+                                       C.float(), 128, i0, split=split)
+        errs[split] = (float((y - yr).abs().max() / yr.abs().max()),
+                       float((fs - fr).abs().max() / fr.abs().max()))
+    assert max(errs[3]) <= 1e-5, errs
+    assert max(errs[1]) > 1e-5, errs
+
+
+def test_scan_passes_keep_bf16_inputs_exact_until_y():
+    """bf16 x, B and C: every product runs on their exact float32 values,
+    so the final state matches the float32 plain version of the same
+    inputs within 1e-5 and only y rounds (to bf16, once)."""
+    rng = np.random.default_rng(11)
+    arrays = _t(_inputs(rng, 1, 200, 4, 16, 1, 32, init=True))
+    x, dt, A, B, C, i0 = arrays
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, B, C))
+    y, fs = _scan_passes_emulation(xb, dt, A, Bb, Cb, 64, i0)
+    yr, fr = TR.ssd_ref(xb.float(), dt, A, Bb.float(), Cb.float(), chunk=64,
+                        init_state=i0)
+    assert y.dtype == torch.bfloat16
+    _close(fs, fr)
+    assert float((y.float() - yr).abs().max()) <= 8e-3 * float(
+        yr.abs().max())
+
+
+def test_scan_plan_counts_blocks_and_scratch():
+    """The launch plan at the served shapes, without nvcc: two chunks of
+    mamba2's prefill of 255 give 326 chunk-pass blocks (6 C B^T tiles and
+    80 heads x 2 chunks x 2 P tiles), 640 state-pass blocks (one float4
+    of the 64 x 128 state a thread) and 320 output-pass blocks; two
+    blocks fit an SM in every pass; at s = 2048 the chunk states take
+    16 x 80 x 64 x 128 floats."""
+    pl = SK.plan(1, 255, 80, 64, 1, 128, 128)
+    assert (pl.chunks, pl.p_tiles, pl.cb_blocks) == (2, 2, 6)
+    assert (pl.chunk_blocks, pl.state_blocks, pl.output_blocks) == (
+        326, 640, 320)
+    assert pl.smem == (91136, 0, 90624)
+    assert 2 * max(pl.smem) <= SK.SMEM_LIMIT
+    pl = SK.plan(1, 2048, 80, 64, 1, 128, 128)
+    assert pl.chunks == 16 and pl.output_blocks == 2560
+    assert pl.scratch_floats == 16 * 128 * 128 + 16 * 80 * 64 * 128 + 16 * 80
+    assert 4 * pl.scratch_floats < 44e6
+    pl = SK.plan(2, 37, 6, 40, 3, 16, 16)     # small chunks, ragged P
+    assert (pl.chunks, pl.p_tiles, pl.cb_blocks) == (3, 2, 18)
+    assert pl.state_blocks == 12 and pl.output_blocks == 2 * 6 * 3 * 2
+    assert SK.smem_bytes(128, 128) == max(SK.plan(1, 1, 1, 1, 1, 128,
+                                                  128).smem)
+
+
+# ----------------------------------------------------------------------
 # the wrapper on the CPU
 # ----------------------------------------------------------------------
 def test_ops_ssd_and_the_wrapper_run_the_plain_version_on_cpu():
@@ -201,9 +375,9 @@ def test_the_launch_path_refuses_what_the_kernel_cannot_take():
     for args, match in bad:
         with pytest.raises(ValueError, match=match):
             SK._launch(*args)
-    assert SK.smem_bytes(128, 128) <= SK.SMEM_LIMIT < SK.smem_bytes(128, 132)
+    assert SK.smem_bytes(128, 352) <= SK.SMEM_LIMIT < SK.smem_bytes(128, 356)
     with pytest.raises(ValueError, match="shared memory"):
-        SK._launch(x, dt, A, *(torch.zeros(1, 8, 2, 132),) * 2, 128, None)
+        SK._launch(x, dt, A, *(torch.zeros(1, 8, 2, 356),) * 2, 128, None)
 
 
 def test_kernel_source_exports_its_launcher():
@@ -241,18 +415,25 @@ def _card_close(got, want, dtype):
 @pytest.mark.parametrize("b,s,h,p,g,n,init", [
     (1, 255, 80, 64, 1, 128, False),     # mamba2-2.7b, ragged
     (1, 256, 80, 64, 1, 128, True),      # mamba2-2.7b, two chunks
+    (1, 128, 80, 64, 1, 128, False),     # one chunk
+    (1, 2048, 80, 64, 1, 128, False),    # 16 chunks of carried state
     (1, 200, 64, 64, 1, 64, False),      # zamba2-1.2b
     (2, 300, 8, 64, 2, 128, True),       # g > 1, b > 1
     (1, 37, 6, 40, 3, 16, True),         # P not a multiple of 32
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain_on_card(b, s, h, p, g, n, init, dtype):
+    """y within 1e-5 (float32) or 8e-3 (bf16) and the final state within
+    1e-5 in both; two calls give the same bits; one launch counted a
+    call, whatever the passes."""
     _needs_card()
     x, dt, A, B, C, i0 = _card_inputs(b, s, h, p, g, n, dtype, init, s)
     before = ssd_scan.launches
     y, fs = ssd_scan(x, dt, A, B, C, chunk=128, init_state=i0)
+    y2, fs2 = ssd_scan(x, dt, A, B, C, chunk=128, init_state=i0)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
+    assert ssd_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(fs, fs2)
     assert y.dtype == dtype and tuple(y.shape) == (b, s, h, p)
     assert fs.dtype == torch.float32 and tuple(fs.shape) == (b, h, p, n)
     yr, fr = TR.ssd_ref(x, dt, A, B, C, chunk=128, init_state=i0)

@@ -25,6 +25,11 @@ prints one line per length: wall and device ms, and the device ms and
 share of the MLP kernels (names containing ``mlp_``); the table goes to
 ``serve_profile_prefill[_<arch>].json``.
 
+Both lines carry each LM kernel family's device ms, launches and share
+of the device time (``families``: the MLP's, the SSD scan's three
+passes, decode attention; the names of earlier builds too, so a run of
+an older tree reads the same way).
+
 Run:  python3 tools/serve_profile.py [--arch granite_3_2b] [--prefill]
       [--seed 0]
 """
@@ -47,6 +52,11 @@ PREFILL_LENS = (17, 100, 255)     # chip_smoke.py's shortest, middle, longest
 N_SLOTS, MAX_LEN = 4, 512
 WARM, STEPS = 5, 10
 OUT = ROOT / "chiprun_out" / "serve_profile.json"
+# kernel family -> substrings of its kernels' names
+FAMILIES = {"fused_mlp": ("mlp_",),
+            "ssd_scan": ("ssd_kernel", "chunk_pass", "state_pass",
+                         "output_pass"),
+            "decode_attention": ("decode_kernel", "decode_split_kernel")}
 
 
 def _device_us(evt) -> float:
@@ -107,13 +117,26 @@ def main() -> int:
         "device_ms_per_step": device_ms if rows else "not measured",
         "idle_share": 1 - device_ms / wall_ms if rows else "not measured",
         "launches_per_step": sum(r["launches_per_step"] for r in rows),
-        "top": rows[:8], "card": smi}
+        "families": families(rows), "top": rows[:8], "card": smi}
     print(json.dumps(summary), flush=True)
     out = (OUT if args.arch == "granite_3_2b"
            else OUT.with_name(f"serve_profile_{args.arch}.json"))
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({**summary, "kernels": rows}, indent=1))
     return 0
+
+
+def families(rows) -> dict:
+    """Each kernel family's device ms, launches and share of the device
+    time, per step."""
+    total = sum(r["ms_per_step"] for r in rows) or 1.0
+    out = {}
+    for fam, keys in FAMILIES.items():
+        mine = [r for r in rows if any(k in r["name"] for k in keys)]
+        ms = sum(r["ms_per_step"] for r in mine)
+        out[fam] = {"device_ms": ms, "launches": sum(
+            r["launches_per_step"] for r in mine), "share": ms / total}
+    return out
 
 
 def device_rows(torch, prof, steps: int) -> list[dict]:
@@ -161,7 +184,7 @@ def profile_prefills(torch, profile, activity, M, cfg, params, rng, smi,
             "mlp_launches": sum(r["launches_per_step"] for r in mlp),
             "mlp_share_of_device": mlp_ms / device_ms if rows else
             "not measured",
-            "top": rows[:6], "card": smi}
+            "families": families(rows), "top": rows[:6], "card": smi}
         print(json.dumps(summary), flush=True)
         tables.append({**summary, "kernels": rows})
     name = ("serve_profile_prefill.json" if arch == "granite_3_2b"
