@@ -78,8 +78,23 @@ no result line) on any error:
    line per case; then C1 against ``torch.tanh`` in turns (8 rounds,
    the kernel first in even rounds) at each plane, and a misaligned
    view checked once;
-8. prints the ``kernels`` line; each route of flash and the MLP has its
-   own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``).
+8. dataflow serving: 96 requests (32 each of ``square``,
+   ``unsharp_mask`` and ``optical_flow_lk`` at 1080x1920 float32,
+   frames from ``--seed``) submitted interleaved by 4 client threads to
+   one ``StreamEngine(max_batch=8, inflight=2, max_queue=64)`` on
+   ``cuda_stream``, after one warm-up pass of the same requests; checks
+   every result against the app's single-frame launch on the card (max
+   abs error 0) and its plain version (1e-6 * max|plain|), 96
+   completions, 3 cache misses and no hit, and one group-kernel launch
+   per group per batch; prints frames/s, p50/p99, each phase's mean,
+   the bucket launches, the pinned copy rates (64 MB, CUDA events) and
+   the transfer bound per frame, the same requests served one at a
+   time through ``app(**inputs)`` and ``.cpu()``, and for each app one
+   launch of B = 8 device-resident frames against 8 single-frame
+   launches and its bound (a time under it fails);
+9. prints the ``kernels`` line; each route of flash and the MLP has its
+   own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
+   each served app its ``stream_group_b8[...]``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -378,6 +393,9 @@ def main() -> int:
     # -- phase 7: stream_pipeline, fused against staged ------------------
     lm_entries += pipeline_phase(torch, timer, smi, power_limit, args.seed,
                                  chains)
+
+    # -- phase 8: dataflow serving through the StreamEngine --------------
+    lm_entries += serving_phase(torch, timer, smi, power_limit, args.seed)
 
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
@@ -1134,6 +1152,237 @@ def pipeline_phase(torch, timer, smi: str, power_limit: float, seed: int,
                       "data_ptr_mod_16": xm.data_ptr() % 16,
                       "max_abs_err": err, "staged_max_abs_err": staged_err}),
           flush=True)
+    return entries
+
+
+
+# ----------------------------------------------------------------------
+# phase 8: dataflow serving
+# ----------------------------------------------------------------------
+SERVE_APPS = ("square", "unsharp_mask", "optical_flow_lk")
+SERVE_PER_APP = 32
+SERVE_CLIENTS = 4
+SERVE_BATCH = 8
+COPY_BYTES = 64 * 2**20          # the copy-rate probe
+
+
+def copy_rates(torch) -> dict:
+    """Pinned host-to-device and device-to-host rates (bytes/s) of one
+    64 MB copy; the pageable ``.cpu()`` the engine reads back with (new
+    host memory each call), and a pageable copy into host memory that
+    was written before, by CUDA events (median of 5 after one warm
+    copy)."""
+    host = torch.empty(COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    touched = torch.zeros(COPY_BYTES, dtype=torch.uint8)
+
+    def rate(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) * 1e-3)
+        return COPY_BYTES / statistics.median(times)
+
+    return {"h2d_pinned": rate(lambda: dev.copy_(host, non_blocking=True)),
+            "d2h_pinned": rate(lambda: host.copy_(dev, non_blocking=True)),
+            "d2h_pageable": rate(lambda: dev.cpu()),
+            "d2h_pageable_reused": rate(lambda: touched.copy_(dev))}
+
+
+def serving_phase(torch, timer, smi: str, power_limit: float,
+                  seed: int) -> list[dict]:
+    """Phase 8; returns the ``stream_group_b8`` entries of the kernels
+    line."""
+    import gc
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.apps import build_app
+    from repro_torch.kernels.stream_group import stream_group, stream_group_ref
+    from repro_torch.runtime import PHASES, StreamEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 7's planes are gone
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 19)
+    graphs = {n: build_app(n, H, W) for n in SERVE_APPS}
+    reqs = [(n, {c.name: rng.standard_normal(c.shape, dtype=np.float32)
+                 for c in graphs[n].graph_inputs})
+            for _ in range(SERVE_PER_APP) for n in SERVE_APPS]
+
+    def serve(eng) -> tuple[list, float]:
+        """All requests, interleaved over the client threads; returns
+        the results in request order and the wall time."""
+        handles = [None] * len(reqs)
+
+        def client(k):
+            for i in range(k, len(reqs), SERVE_CLIENTS):
+                n, x = reqs[i]
+                handles[i] = eng.submit(graphs[n], x)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        results = [h.result(timeout=300) for h in handles]
+        return results, time.perf_counter() - t0
+
+    with StreamEngine(max_batch=SERVE_BATCH, inflight=2,
+                      max_queue=64) as eng:
+        serve(eng)                     # warm: pinned buffers, libraries
+        apps = {n: eng.cache.get(g, backend="cuda_stream", device=eng.device)
+                for n, g in graphs.items()}
+        warm = eng.report()            # flushes the warm pass's telemetry
+        eng.telemetry.reset()
+        batches0 = {n: a["batches"] for n, a in warm["apps"].items()}
+        buckets0 = dict(warm["buckets"])
+        # the main path: the engine a user calls, counter from 0
+        stream_group.launches = 0
+        results, wall_s = serve(eng)
+        torch.cuda.synchronize()
+        launches = stream_group.launches
+        rep = eng.report()
+    m = rep["measured"]
+    batches = {n: rep["apps"][n]["batches"] - batches0[n] for n in SERVE_APPS}
+    buckets = {w: n - buckets0.get(w, 0) for w, n in rep["buckets"].items()
+               if n - buckets0.get(w, 0)}
+    groups = {n: len(apps[n].schedule.groups) for n in SERVE_APPS}
+    check(m["completed"] == len(reqs),
+          f"serving: {m['completed']} of {len(reqs)} completed")
+    check(rep["cache"]["misses"] == len(SERVE_APPS)
+          and rep["cache"]["hits"] == 0,
+          f"serving: cache {rep['cache']}, expected 3 misses and no hit")
+    want = sum(batches[n] * groups[n] for n in SERVE_APPS)
+    check(launches == want and sum(buckets.values()) == sum(batches.values()),
+          f"serving: {launches} group-kernel launches for {batches} batches "
+          f"(groups {groups}; buckets {buckets}), expected {want}")
+    check(m["latency_p50_ms"] <= m["latency_p99_ms"],
+          f"serving: p50 {m['latency_p50_ms']} > p99 {m['latency_p99_ms']}")
+
+    # each result: equal to the single-frame launch, close to the plain
+    # version; the single-frame pass is the one-at-a-time yardstick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = [{k: v.cpu() for k, v in apps[n](**x).items()} for n, x in reqs]
+    single_s = time.perf_counter() - t0
+    worst = {n: 0.0 for n in SERVE_APPS}
+    for (n, x), got, one in zip(reqs, results, single):
+        (kernel,) = apps[n].kernels
+        plain = stream_group_ref(
+            kernel.group, [torch.from_numpy(x[c.name]).cuda()
+                           for c in kernel.group.inputs])
+        for c, ref in zip(kernel.group.outputs, plain):
+            g = torch.from_numpy(got[c.name])
+            check(torch.equal(g, one[c.name]),
+                  f"serving {n}: a result differs from the app's single-"
+                  f"frame launch")
+            ref = ref.cpu()
+            err = float((g - ref).abs().max())
+            check(err <= TOL * float(ref.abs().max()),
+                  f"serving {n}: result vs plain max abs err {err:.3e}")
+            worst[n] = max(worst[n], err)
+    del single
+
+    rates = copy_rates(torch)
+    plane = 4 * H * W
+    transfer = {n: (len(graphs[n].graph_inputs) * plane / rates["h2d_pinned"]
+                    + len(graphs[n].graph_outputs) * plane
+                    / rates["d2h_pinned"]) * 1e3 for n in SERVE_APPS}
+    mix_ms = sum(transfer.values()) / len(SERVE_APPS)
+    line = {"serving": "dataflow", "apps": list(SERVE_APPS),
+            "plane": [H, W], "requests": len(reqs),
+            "clients": SERVE_CLIENTS, "max_batch": SERVE_BATCH,
+            "inflight": 2, "frames_per_s": len(reqs) / wall_s,
+            "wall_s": wall_s, "throughput_rps": m["throughput_rps"],
+            "p50_ms": m["latency_p50_ms"], "p99_ms": m["latency_p99_ms"],
+            "phase_mean_ms": {p: m["phases"][p]["mean_ms"] for p in PHASES},
+            "service_ewma_ms": m["service_ewma_ms"],
+            "batch_size_mean": m["batch_size_mean"],
+            "batches": batches, "bucket_launches": buckets,
+            "group_launches": launches, "cache": rep["cache"],
+            "max_abs_err_vs_plain": worst, "card": smi}
+    print(json.dumps(line), flush=True)
+    print(json.dumps({
+        "serving": "transfer", "copy_bytes": COPY_BYTES,
+        **{f"{k}_GBps": v / 1e9 for k, v in rates.items()},
+        "transfer_bound_ms_per_frame": transfer,
+        "transfer_bound_frames_per_s_mix": 1e3 / mix_ms,
+        "served_over_bound": (wall_s / len(reqs)) / (mix_ms * 1e-3),
+        "card": smi}), flush=True)
+    print(json.dumps({
+        "serving": "one at a time", "requests": len(reqs),
+        "frames_per_s": len(reqs) / single_s, "wall_s": single_s,
+        "engine_over_single": single_s / wall_s, "card": smi}), flush=True)
+
+    # one launch of 8 device-resident frames per app, against 8
+    # single-frame launches and its bound
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    entries = []
+    for n in SERVE_APPS:
+        (kernel,) = apps[n].kernels
+        xs = [torch.randn(SERVE_BATCH, H, W, device="cuda", generator=gen)
+              for _ in kernel.group.inputs]
+        outs = stream_group(kernel, xs)
+        refs = stream_group_ref(kernel.group, xs)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(outs, refs)
+        check(rel <= TOL, f"stream_group_b8[{n}]: rel err {rel:.3e}")
+        for b in range(SERVE_BATCH):
+            one = stream_group(kernel, [x[b] for x in xs])
+            check(all(torch.equal(o[b], s) for o, s in zip(outs, one)),
+                  f"stream_group_b8[{n}]: frame {b} differs from its "
+                  f"single-frame launch")
+        n_bytes = (SERVE_BATCH * plane
+                   * (len(kernel.group.inputs) + len(kernel.group.outputs)))
+        ops = SERVE_BATCH * kernel.ops_per_element() * H * W
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        library = None
+        if n == "square":              # one PyTorch call computes it
+            _, lib_rel = rel_err([torch.square(xs[0])], refs)
+            check(lib_rel <= LIB_TOL, f"torch.square b8: {lib_rel:.3e}")
+            library = timer(lambda: torch.square(xs[0]))
+        frame = [x[0] for x in xs]
+        row = {"kernel": "stream_group_b8", "app": n, "frames": SERVE_BATCH,
+               "plane": [H, W], "launches": batches[n] * groups[n],
+               "max_abs_err": abs_err, "max_rel_err": rel,
+               "ms": timer(lambda: stream_group(kernel, xs)),
+               "single_frame_ms": timer(lambda: stream_group(kernel, frame)),
+               "plain_ms": timer(lambda: stream_group_ref(kernel.group, xs)),
+               "library_ms": library, "bytes": n_bytes, "ops": ops,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        row["over_8_single"] = row["ms"] / (SERVE_BATCH
+                                            * row["single_frame_ms"])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if power_limit < FULL_POWER_W:
+            row["bound_ms_power_scaled"] = (row["bound_ms"] * FULL_POWER_W
+                                            / power_limit)
+        row["card"] = smi
+        print(json.dumps(row), flush=True)
+        check(row["bound_share"] <= 1.05,
+              f"stream_group_b8[{n}]: {row['ms']:.5f} ms is under its "
+              f"bound {row['bound_ms']:.5f} ms: the timing is wrong")
+        entries.append({
+            "name": f"stream_group_b8[{n}]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": row["launches"], "max_abs_err": abs_err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": library})
+        del xs, outs, refs
+    print(json.dumps({"serving": "phase 8",
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
     return entries
 
 

@@ -98,9 +98,13 @@ def lower_graph(graph: DataflowGraph, backend="cuda_stream",
 
     ``run`` maps ``{input_name: tensor} -> {output_name: tensor}`` on
     whatever device the inputs lie on, and carries the generated
-    kernels of its groups as ``run.kernels``.  Unless a pre-built
-    ``schedule`` is passed, the graph is canonicalized and partitioned
-    first (:func:`repro_torch.core.schedule.build_schedule`).
+    kernels of its groups as ``run.kernels``.  ``run.batched`` does the
+    same for a batch: every input and output gains a leading axis of
+    ``B`` frames.  A kernel group launches once for all ``B``; a group
+    composed of torch ops (the ``torch`` backends, trivial groups) runs
+    frame by frame.  Unless a pre-built ``schedule`` is passed, the
+    graph is canonicalized and partitioned first
+    (:func:`repro_torch.core.schedule.build_schedule`).
     """
     from repro_torch.backends import resolve
     be = resolve(backend)
@@ -111,14 +115,32 @@ def lower_graph(graph: DataflowGraph, backend="cuda_stream",
     graph = sched.graph
     fns = [be.lower_group(g, valid_rows=valid_rows) for g in sched.groups]
 
-    def run(inputs: dict[str, Any]) -> dict[str, Any]:
-        env: dict[Channel, Any] = {}
-        for ch in graph.graph_inputs:
-            env[ch] = torch.as_tensor(inputs[ch.name],
-                                      dtype=as_dtype(ch.dtype))
-        for fn, g in zip(fns, sched.groups):
-            env.update(fn({ch: env[ch] for ch in g.inputs}))
-        return {ch.name: env[ch] for ch in graph.graph_outputs}
+    def graph_run(group_fns: list[Callable]) -> Callable:
+        def run(inputs: dict[str, Any]) -> dict[str, Any]:
+            env: dict[Channel, Any] = {}
+            for ch in graph.graph_inputs:
+                env[ch] = torch.as_tensor(inputs[ch.name],
+                                          dtype=as_dtype(ch.dtype))
+            for fn, g in zip(group_fns, sched.groups):
+                env.update(fn({ch: env[ch] for ch in g.inputs}))
+            return {ch.name: env[ch] for ch in graph.graph_outputs}
+        return run
 
+    run = graph_run(fns)
+    run.batched = graph_run([f if hasattr(f, "kernel") else _frame_by_frame(f)
+                             for f in fns])
     run.kernels = [f.kernel for f in fns if hasattr(f, "kernel")]
     return run, sched
+
+
+def _frame_by_frame(fn: Callable) -> Callable:
+    """A group function over single frames, run over each frame of a
+    ``(B, ...)`` batch in turn and the outputs stacked."""
+
+    def run(env_in: dict[Channel, Any]) -> dict[Channel, Any]:
+        n = next(iter(env_in.values())).shape[0]
+        frames = [fn({ch: x[b] for ch, x in env_in.items()})
+                  for b in range(n)]
+        return {ch: torch.stack([f[ch] for f in frames]) for ch in frames[0]}
+
+    return run

@@ -70,6 +70,10 @@ class CompiledApp:
     device: torch.device
     #: the generated group kernels (``cuda_stream`` only)
     kernels: list = dataclasses.field(default_factory=list)
+    #: ``fn`` over batches: every input and output has a leading axis of
+    #: ``B`` frames; one kernel launch per group for all of them
+    #: (:class:`~repro_torch.runtime.batching.MicroBatcher` calls it)
+    batch_fn: Callable | None = None
 
     def _args(self, inputs: dict[str, Any]) -> list[torch.Tensor]:
         args = []
@@ -150,14 +154,19 @@ def build_host_app(sched: Schedule, run: Callable, *, backend="cuda_stream",
     input_names = [c.name for c in graph.graph_inputs]
     output_names = [c.name for c in graph.graph_outputs]
 
-    def step(*args):
-        outs = run(dict(zip(input_names, args)))
-        return tuple(outs[n] for n in output_names)
+    def entry(graph_run: Callable) -> Callable:
+        def step(*args):
+            outs = graph_run(dict(zip(input_names, args)))
+            return tuple(outs[n] for n in output_names)
+        return step
 
     buffers = [BufferDecl(c.name, c.shape, dtype_name(c.dtype), "in", c.bundle)
                for c in graph.graph_inputs]
     buffers += [BufferDecl(c.name, c.shape, dtype_name(c.dtype), "out",
                            c.bundle)
                 for c in graph.graph_outputs]
-    return CompiledApp(graph, sched, backend, step, buffers, input_names,
-                       output_names, device, list(getattr(run, "kernels", [])))
+    batched = getattr(run, "batched", None)
+    return CompiledApp(graph, sched, backend, entry(run), buffers,
+                       input_names, output_names, device,
+                       list(getattr(run, "kernels", [])),
+                       entry(batched) if batched is not None else None)

@@ -31,7 +31,8 @@ from repro_torch.core.graph import as_dtype
 from repro_torch.core.schedule import FusionGroup
 
 __all__ = ["GPUSpec", "H100", "choose_tile", "select_tile", "sweep_tiles",
-           "modeled_plane_time", "DEFAULT_MAX_TILE",
+           "modeled_plane_time", "modeled_schedule_time", "plane_features",
+           "schedule_features", "DEFAULT_MAX_TILE",
            "LANE", "ROW_ALIGN", "THREADS_PER_BLOCK"]
 
 LANE = 32            # warp width: tile widths are multiples of it
@@ -146,7 +147,32 @@ def modeled_plane_time(group: FusionGroup, tile: tuple[int, int],
     only as far as enough warps are resident: blocks per SM are bounded
     by shared memory and warp slots, and a grid with too few blocks
     leaves part of the card's memory parallelism unused (which favours
-    smaller tiles).  Each wave of blocks pays a fixed overhead.
+    smaller tiles).  Each wave of blocks pays a fixed overhead.  The
+    terms are those of :func:`plane_features`.
+    """
+    f = plane_features(group, tile, spec)
+    dma_s = f["blocks"] * f["bytes_block"] / (spec.hbm_bw * f["fill"])
+    compute_s = f["blocks"] * f["ops_block"] / (spec.fp32_flops * f["fill"])
+    return max(dma_s, compute_s) + f["waves"] * spec.wave_overhead_s
+
+
+def plane_features(group: FusionGroup, tile: tuple[int, int],
+                   spec: GPUSpec = H100) -> dict:
+    """The quantities :func:`modeled_plane_time` is built from.
+
+    The model is, per fusion group,
+
+    ``t = max(blocks * bytes_block / (hbm_bw * fill),
+    blocks * ops_block / (fp32_flops * fill)) + waves * wave_overhead_s``
+
+    with ``blocks`` the grid, ``bytes_block`` and ``ops_block`` one
+    block's device-memory bytes and stage operations, and ``fill`` (the
+    share of the card's memory parallelism the resident warps use) and
+    ``waves`` computed under ``spec``'s SM count, shared memory and warp
+    slots.  :func:`repro_torch.obs.drift.predict_features` rebuilds the
+    modeled seconds from these under any spec's ``hbm_bw``,
+    ``fp32_flops`` and ``wave_overhead_s``, bit-identically to this
+    module under the spec they were taken with.
     """
     th, tw = tile
     H, W = _plane(group)
@@ -168,10 +194,44 @@ def modeled_plane_time(group: FusionGroup, tile: tuple[int, int],
     resident = min(blocks, spec.sms * per_sm)
     fill = min(1.0, resident * warps
                / (spec.sms * spec.saturating_warps_per_sm))
-    dma_s = blocks * bytes_block / (spec.hbm_bw * fill)
-    compute_s = blocks * ops_block / (spec.fp32_flops * fill)
     waves = math.ceil(blocks / (spec.sms * per_sm))
-    return max(dma_s, compute_s) + waves * spec.wave_overhead_s
+    return {"blocks": blocks, "bytes_block": bytes_block,
+            "ops_block": ops_block, "fill": fill, "waves": waves}
+
+
+def schedule_features(schedule, items: int = 1,
+                      spec: GPUSpec = H100) -> dict:
+    """Whole-app drift-row features: one :func:`plane_features` entry
+    per modeled group.
+
+    Trivial (custom/reduce) groups carry no tile and score zero in
+    :func:`modeled_schedule_time`, so they contribute no features
+    either.  ``items`` scales the prediction (a width-``n`` batched
+    launch does the plane ``n`` times); it rides in the feature dict so
+    a drift row stays self-describing.
+    """
+    groups = [plane_features(g, g.tile, spec) for g in schedule.groups
+              if not g.is_trivial and g.tile is not None]
+    feats: dict = {"groups": groups}
+    if items != 1:
+        feats["items"] = int(items)
+    return feats
+
+
+def modeled_schedule_time(schedule, spec: GPUSpec = H100) -> float:
+    """Whole-app modeled seconds: sum of per-group plane times.
+
+    Groups run back to back (each writes its outputs to device memory
+    before the next starts), so the app-level model is additive over
+    :func:`modeled_plane_time`; trivial (custom/reduce) groups carry no
+    tile and score zero.
+    """
+    total = 0.0
+    for g in schedule.groups:
+        if g.is_trivial or g.tile is None:
+            continue
+        total += modeled_plane_time(g, g.tile, spec)
+    return total
 
 
 def sweep_tiles(group: FusionGroup, spec: GPUSpec | None = None,

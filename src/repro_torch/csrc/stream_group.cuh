@@ -21,6 +21,11 @@
 //      the first step computes) and stores the group's outputs (store4).  A stencil's window rows are read once per step as
 //      16-byte chunks (window_row) and reused across the kVec outputs.
 //
+// A (B, H, W) batch of planes is one launch: gridDim.z = B, and in the
+// kernel's batch instance every block first moves each input and output
+// pointer to its frame, blockIdx.z * H * W elements on (64-bit), on the
+// tiled and the flat route.  One frame launches the instance without it.
+//
 // A barrier is emitted only before a pass that reads a window written by
 // other threads since the last one (the generator tracks it).  Windows
 // start PX = HX rounded up to 4 columns left of the tile, so their rows

@@ -11,7 +11,10 @@ barriers and each stage's body, recorded by
 shared memory, halo-free ones live in registers through one centre pass
 of ``sg::kVec`` outputs a thread, a barrier goes only before a pass
 that reads a window another thread wrote since the last one, and a
-group with no window at all streams the plane flat.
+group with no window at all streams the plane flat.  A batch of ``B``
+frames is one launch: ``gridDim.z = B``, each block on frame
+``blockIdx.z`` (the port of the TPU kernel under the engine's
+``jax.vmap``, which adds a batch axis to its grid).
 
 What bounds it on the card: the bytes for most groups (each input read
 once plus halo re-reads, each output written once; intermediates never
@@ -43,6 +46,7 @@ from repro_torch.kernels.expr import (RECORD_ERRORS, Expr, Patches,
 __all__ = ["GroupKernel", "stream_group", "stream_group_ref"]
 
 _VEC = 4            # adjacent outputs per thread and step: sg::kVec
+_MAX_FRAMES = 65535  # gridDim.z: frames a launch
 
 
 def stream_group_ref(group: FusionGroup, inputs: Sequence[torch.Tensor],
@@ -54,8 +58,12 @@ def stream_group_ref(group: FusionGroup, inputs: Sequence[torch.Tensor],
     ``group.outputs``.  Every stage runs over the whole plane as torch
     ops (the ``torch`` backend's lowering); stencils read zero-padded
     patches, and with ``valid_rows`` every stage output is zeroed
-    outside the row band.
+    outside the row band.  ``(B, H, W)`` inputs run frame by frame.
     """
+    if inputs[0].dim() == 3:
+        frames = [stream_group_ref(group, [x[b] for x in inputs], valid_rows)
+                  for b in range(inputs[0].shape[0])]
+        return [torch.stack(outs) for outs in zip(*frames)]
     outs = lower_group_torch(group, valid_rows=valid_rows)(
         dict(zip(group.inputs, inputs)))
     return [outs[c] for c in group.outputs]
@@ -64,9 +72,10 @@ def stream_group_ref(group: FusionGroup, inputs: Sequence[torch.Tensor],
 def stream_group(kernel: "GroupKernel", inputs: Sequence[torch.Tensor],
                  valid_rows: tuple[int, int] | None = None
                  ) -> list[torch.Tensor]:
-    """Run one fusion group: the CUDA kernel on the card, the plain
-    version on the CPU.  Each kernel launch adds one to
-    ``stream_group.launches``."""
+    """Run one fusion group on ``(H, W)`` planes or ``(B, H, W)``
+    batches: the CUDA kernel on the card, the plain version on the CPU.
+    Each kernel launch adds one to ``stream_group.launches``, whatever
+    ``B`` is."""
     devices = {x.device for x in inputs}
     if len(devices) != 1:
         raise ValueError(f"stream_group inputs must share one device, got "
@@ -369,12 +378,23 @@ class GroupKernel:
         self.flat = flat
 
         n_in, n_out = len(g.inputs), len(g.outputs)
+        # frame blockIdx.z of a (B, H, W) batch: the BATCH instance moves
+        # every pointer to its frame first, in 64-bit arithmetic.  One
+        # frame launches the instance without the offset, which alone
+        # cost a single frame 3-6 % (tools/group_batch_cost.py).
+        lines[:0] = ["if constexpr (BATCH) {",
+                     "  const size_t frame = (size_t)blockIdx.z * "
+                     "((size_t)H * W);",
+                     *[f"  in{k} += frame;" for k in range(n_in)],
+                     *[f"  out{j} += frame;" for j in range(n_out)],
+                     "}"]
         params = ([f"const float* __restrict__ in{k}" for k in range(n_in)]
                   + [f"float* __restrict__ out{j}" for j in range(n_out)]
                   + ["int r0", "int r1"])
         c_params = ([f"const void* in{k}" for k in range(n_in)]
                     + [f"void* out{j}" for j in range(n_out)]
-                    + ["int r0", "int r1", "int vec", "void* stream"])
+                    + ["int r0", "int r1", "int vec", "int B",
+                       "void* stream"])
         args = ([f"(const float*)in{k}" for k in range(n_in)]
                 + [f"(float*)out{j}" for j in range(n_out)] + ["r0", "r1"])
         # VEC: 16-byte loads and stores, where the wrapper found every
@@ -382,28 +402,36 @@ class GroupKernel:
         # chunk starts 16-byte aligned
         variants = (["true", "false"] if W % 4 == 0 or flat else ["false"])
 
-        def launch(variant: str) -> list[str]:
-            return ["    if (SMEM_BYTES > 48 * 1024) {",
-                    f"      const cudaError_t e = cudaFuncSetAttribute("
-                    f"sg_kernel<{variant}>, "
+        def launch(variant: str, batch: bool) -> list[str]:
+            kernel = f"sg_kernel<{variant}{', true' if batch else ''}>"
+            return ["if (SMEM_BYTES > 48 * 1024) {",
+                    f"  const cudaError_t e = cudaFuncSetAttribute("
+                    f"{kernel}, "
                     f"cudaFuncAttributeMaxDynamicSharedMemorySize, "
                     f"SMEM_BYTES);",
-                    "      if (e != cudaSuccess) return (int)e;",
-                    "    }",
-                    f"    sg_kernel<{variant}><<<grid, {threads}, "
+                    "  if (e != cudaSuccess) return (int)e;",
+                    "}",
+                    f"{kernel}<<<grid, {threads}, "
                     f"SMEM_BYTES, (cudaStream_t)stream>>>("
                     + ", ".join(args) + ");"]
 
+        def on_vec(batch: bool) -> list[str]:
+            if len(variants) == 1:
+                return ["{", *(f"  {ln}" for ln in launch("false", batch)),
+                        "}"]
+            return ["if (vec) {", *(f"  {ln}" for ln in launch("true", batch)),
+                    "} else {", *(f"  {ln}" for ln in launch("false", batch)),
+                    "}"]
+
         grid = ("((H * W + sg::kVec - 1) / sg::kVec + sg::kFlatSteps * "
                 "sg::kFlatThreads - 1) / (sg::kFlatSteps * sg::kFlatThreads)"
-                if flat else
-                "(W + TW - 1) / TW, (H + TH - 1) / TH")
-        if len(variants) == 2:
-            dispatch = (["  if (vec) {", *launch("true"), "  } else {",
-                         *launch("false"), "  }"])
-        else:
-            dispatch = ["  (void)vec;  // W % 4 != 0: scalar loads and "
-                        "stores", "  {", *launch("false"), "  }"]
+                ", 1, B" if flat else
+                "(W + TW - 1) / TW, (H + TH - 1) / TH, B")
+        dispatch = ([] if len(variants) == 2 else
+                    ["  (void)vec;  // W % 4 != 0: scalar loads and stores"])
+        dispatch += ["  if (B > 1) {", *(f"    {ln}" for ln in on_vec(True)),
+                     "  } else {  // one frame: no frame offset",
+                     *(f"    {ln}" for ln in on_vec(False)), "  }"]
         names = ", ".join(s.name for s in g.stages)
         return "\n".join([
             f"// Generated fused group kernel: {names}",
@@ -415,7 +443,7 @@ class GroupKernel:
             f"constexpr int H = {H}, W = {W}, TH = {TH}, TW = {TW};",
             f"constexpr int SMEM_BYTES = {self.smem_bytes};",
             "",
-            "template <bool VEC>",
+            "template <bool VEC, bool BATCH = false>",
             f"__global__ void __launch_bounds__({threads}) "
             f"sg_kernel({', '.join(params)}) {{",
             *[f"  {ln}" for ln in lines],
@@ -442,7 +470,7 @@ class GroupKernel:
             n = len(self.group.inputs) + len(self.group.outputs)
             fn = lib.sg_launch
             fn.argtypes = ([ctypes.c_void_p] * n
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             lib.sg_error_string.argtypes = [ctypes.c_int]
             lib.sg_error_string.restype = ctypes.c_char_p
@@ -451,25 +479,38 @@ class GroupKernel:
 
     def launch(self, inputs: Sequence[torch.Tensor],
                valid_rows: tuple[int, int] | None) -> list[torch.Tensor]:
-        """Launch on the inputs' card; returns the new output planes."""
+        """Launch on the inputs' card; returns the new output planes.
+
+        Each input is one contiguous float32 ``(H, W)`` plane or a
+        contiguous ``(B, H, W)`` batch of them: one launch computes all
+        ``B`` frames (``gridDim.z = B``), ``valid_rows`` applying to each.
+        """
         H, W = self.plane
+        lead = tuple(inputs[0].shape[:-2])
         for x, ch in zip(inputs, self.group.inputs, strict=True):
-            if (x.dtype != torch.float32 or tuple(x.shape) != (H, W)
-                    or not x.is_contiguous()):
+            if (x.dtype != torch.float32 or tuple(x.shape) != (*lead, H, W)
+                    or len(lead) > 1 or not x.is_contiguous()):
                 raise ValueError(
                     f"stream_group input {ch.name!r}: expected a contiguous "
-                    f"float32 ({H}, {W}) tensor, got {x.dtype} "
-                    f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+                    f"float32 ({H}, {W}) or (B, {H}, {W}) tensor, all of one "
+                    f"shape; got {x.dtype} {tuple(x.shape)} "
+                    f"contiguous={x.is_contiguous()}")
+        B = lead[0] if lead else 1
+        if not 1 <= B <= _MAX_FRAMES:
+            raise ValueError(f"stream_group takes 1 to {_MAX_FRAMES} frames "
+                             f"a launch, got {B}")
         r0, r1 = valid_rows if valid_rows is not None else (0, H)
         dev = inputs[0].device
-        outs = [torch.empty((H, W), dtype=torch.float32, device=dev)
+        outs = [torch.empty((*lead, H, W), dtype=torch.float32, device=dev)
                 for _ in self.group.outputs]
         fn = self.launcher()
         ptrs = [t.data_ptr() for t in (*inputs, *outs)]
+        # every frame's base is 16-byte aligned when the batch's is and
+        # W % 4 == 0 (then H * W % 4 == 0 too)
         vec = int(W % 4 == 0 and all(p % 16 == 0 for p in ptrs))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(*ptrs, int(r0), int(r1), vec, stream)
+            rc = fn(*ptrs, int(r0), int(r1), vec, int(B), stream)
         if rc != 0:
             msg = self._lib.sg_error_string(rc).decode()
             raise RuntimeError(f"stream_group launch failed ({rc}): {msg}")

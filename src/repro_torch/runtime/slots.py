@@ -3,9 +3,9 @@
 A serving scheduler here is a FIFO admission queue feeding a fixed pool
 of *slots*, with items retired out of slots as they complete.
 :class:`~repro_torch.runtime.batcher.ContinuousBatcher` uses the pool
-for decode slots (a slot = one sequence's rows of the KV cache); in the
-reference the dataflow ``StreamEngine`` shares it for in-flight
-launches, and will here when the engine is ported.
+for decode slots (a slot = one sequence's rows of the KV cache); the
+dataflow :class:`~repro_torch.runtime.engine.StreamEngine` shares it for
+in-flight batches.
 
 :class:`SlotPool` is that shared core: bounded occupancy, FIFO
 admission, admission-order retirement bookkeeping.

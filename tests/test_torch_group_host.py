@@ -103,9 +103,13 @@ def _host_library(kernel, d):
     args = ", ".join([f"in{k}" for k in range(len(g.inputs))]
                      + [f"out{j}" for j in range(len(g.outputs))]
                      + ["r0", "r1"])
-    call = f"sg_kernel<false>({args});"
-    if "sg_kernel<true>" in src:
-        call = f"if (vec) sg_kernel<true>({args}); else {call}"
+    calls = []
+    for batch in ("", ", true"):      # one frame; the batch instance
+        call = f"sg_kernel<false{batch}>({args});"
+        if "sg_kernel<true>" in src:
+            call = f"if (vec) sg_kernel<true{batch}>({args}); else {call}"
+        calls.append(call)
+    call = f"if (nb > 1) {{ {calls[1]} }} else {{ {calls[0]} }}"
     if kernel.flat:
         grid = ("1u, ((H * W + 3) / 4 + sg::kFlatSteps * sg::kFlatThreads "
                 "- 1) / (sg::kFlatSteps * sg::kFlatThreads), "
@@ -114,12 +118,14 @@ def _host_library(kernel, d):
         grid = "(H + TH - 1) / TH, (W + TW - 1) / TW, 1u"
     program = body + f"""
 host_dim threadIdx, blockIdx;
-extern "C" void run({', '.join(params)}, int r0, int r1, int vec) {{
+extern "C" void run({', '.join(params)}, int r0, int r1, int vec,
+                    int nb) {{
   const unsigned n[3] = {{{grid}}};
+  for (unsigned bz = 0; bz < (unsigned)nb; ++bz)
   for (unsigned by = 0; by < n[0]; ++by)
     for (unsigned bx = 0; bx < n[1]; ++bx)
       for (unsigned tx = 0; tx < n[2]; ++tx) {{
-        blockIdx = {{bx, by, 0}};
+        blockIdx = {{bx, by, bz}};
         threadIdx = {{tx, 0, 0}};
         {call}
       }}
@@ -135,7 +141,7 @@ extern "C" void run({', '.join(params)}, int r0, int r1, int vec) {{
                         str(cpp)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.run.argtypes = ([ctypes.c_void_p] * (len(g.inputs) + len(g.outputs))
-                        + [ctypes.c_int] * 3)
+                        + [ctypes.c_int] * 4)
     return lib
 
 
@@ -151,7 +157,7 @@ def _check(kernel, d, exact, seed=0):
             outs = [torch.full((H, W), float("nan"))
                     for _ in kernel.group.outputs]
             r0, r1 = rows or (0, H)
-            lib.run(*[t.data_ptr() for t in (*xs, *outs)], r0, r1, vec)
+            lib.run(*[t.data_ptr() for t in (*xs, *outs)], r0, r1, vec, 1)
             for o, r in zip(outs, want):
                 if exact:
                     assert torch.equal(o, r), (rows, vec)
@@ -203,3 +209,29 @@ def test_halo_free_input_beside_a_window_matches_on_host(host_dir):
     assert kernel.source.count("sg::load_window<") == 1
     assert kernel.source.count("sg::load4<") == 1
     _check(kernel, host_dir, exact=True, seed=2)
+
+
+@pytest.mark.parametrize("shape", [(37, 61), (40, 96)])
+@pytest.mark.parametrize("name", ["square", "unsharp_mask",
+                                  "optical_flow_lk"])
+def test_batched_kernel_matches_each_frame_on_host(name, shape, host_dir):
+    """Three frames in one launch (blockIdx.z the frame): every frame
+    equals the plain version of that frame alone, on the flat route
+    (square) and the tiled one, 16-byte and scalar."""
+    (kernel,) = tapps.compile_app(name, *shape, device="cpu").kernels
+    H, W = shape
+    lib = _host_library(kernel, host_dir)
+    rng = np.random.default_rng(4)
+    xs = [torch.from_numpy(rng.standard_normal((3, H, W)).astype(np.float32))
+          for _ in kernel.group.inputs]
+    # the wrapper takes 16-byte accesses only where W % 4 == 0: then
+    # every frame's base is 16-byte aligned too
+    for vec in ((1, 0) if W % 4 == 0 else (0,)):
+        outs = [torch.full((3, H, W), float("nan"))
+                for _ in kernel.group.outputs]
+        lib.run(*[t.data_ptr() for t in (*xs, *outs)], 2, H - 1, vec, 3)
+        for b in range(3):
+            want = stream_group_ref(kernel.group, [x[b] for x in xs],
+                                    (2, H - 1))
+            for o, r in zip(outs, want):
+                assert torch.equal(o[b], r), (b, vec)

@@ -3,11 +3,14 @@
 On the CPU: the expression recorder's DAG, evaluated with torch, equals
 each stage body applied to tensors (bit for bit, same op order); the
 CUDA source is generated for every app with no nvcc present; stages the
-recorder cannot express raise the typed error; the wrapper takes the
-plain version for CPU tensors and counts no launch.  Tests marked
+recorder cannot express raise the typed error; the source takes a
+batch axis on both routes (``blockIdx.z`` the frame, ``B`` in the
+launcher's arguments); the wrapper takes the plain version for CPU
+tensors, frame by frame for a batch, and counts no launch.  Tests marked
 ``gpu`` build and launch the kernel and hold it against the plain
 version on the card (max abs error <= 1e-6 * max|plain|, expected 0
-with ``-fmad=false``); they skip without a card.
+with ``-fmad=false``), and a batch of 8 frames against 8 single-frame
+launches bit for bit; they skip without a card.
 """
 from __future__ import annotations
 
@@ -79,9 +82,10 @@ def test_source_generates_without_nvcc(name, monkeypatch):
     (kernel,) = app.kernels
     src = kernel.source
     g = kernel.group
-    n_args = len(g.inputs) + len(g.outputs) + 4   # r0, r1, vec, stream
+    n_args = len(g.inputs) + len(g.outputs) + 5   # r0, r1, vec, B, stream
     sig = re.search(r'extern "C" int sg_launch\(([^)]*)\)', src).group(1)
     assert len(sig.split(",")) == n_args
+    assert "int B" in [a.strip() for a in sig.split(",")]
     # a window for each group input with a halo; the halo-free ones are
     # read straight from device memory in the centre pass
     windowed = [c for c in g.inputs if g.halo.get(c, (0, 0)) != (0, 0)]
@@ -94,6 +98,41 @@ def test_source_generates_without_nvcc(name, monkeypatch):
     assert kernel.smem_bytes <= 232448
     assert "powf" not in src             # integer powers are multiplies
     assert build.library_path("sg", src).name.startswith("sg_")
+
+
+@pytest.mark.parametrize("name", ["square", "unsharp_mask",
+                                  "optical_flow_lk"])
+def test_source_takes_a_batch_axis_on_both_routes(name):
+    """One source for one frame and for B: the grid's z axis is the
+    frame, every pointer moves to its frame first (64-bit), on the flat
+    route (square) and the tiled one."""
+    (kernel,) = tapps.compile_app(name, 1080, 1920, device="cpu").kernels
+    src = kernel.source
+    g = kernel.group
+    assert kernel.flat == (name == "square")
+    assert ("const size_t frame = (size_t)blockIdx.z * ((size_t)H * W);"
+            in src)
+    for k in range(len(g.inputs)):
+        assert f"in{k} += frame;" in src
+    for j in range(len(g.outputs)):
+        assert f"out{j} += frame;" in src
+    grid = re.search(r"const dim3 grid\((.*)\);", src).group(1)
+    assert grid.endswith(", B")
+    assert ("blockIdx.y" in src) != kernel.flat
+
+
+def test_batched_frames_on_cpu_take_the_plain_version_frame_by_frame():
+    (kernel,) = tapps.compile_app("unsharp_mask", H, W, device="cpu").kernels
+    gen = torch.Generator().manual_seed(5)
+    xs = [torch.randn(3, H, W, generator=gen) for _ in kernel.group.inputs]
+    before = stream_group.launches
+    (out,) = stream_group(kernel, xs, (2, H - 3))
+    assert stream_group.launches == before      # no kernel on the CPU
+    assert out.shape == (3, H, W)
+    for b in range(3):
+        (one,) = stream_group_ref(kernel.group, [x[b] for x in xs],
+                                  (2, H - 3))
+        assert torch.equal(out[b], one)
 
 
 def test_integer_power_is_emitted_as_multiplies():
@@ -325,3 +364,27 @@ def test_misaligned_inputs_take_the_scalar_instance_on_card(name):
     torch.cuda.synchronize()
     for o, r in zip(out, ref):
         assert torch.equal(o, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plane", [(1080, 1920), (1079, 1917)],
+                         ids=["1080x1920", "1079x1917"])
+@pytest.mark.parametrize("name", ["square", "unsharp_mask",
+                                  "optical_flow_lk"])
+def test_batch_of_8_equals_8_single_frame_launches_on_card(name, plane):
+    """A flat, a stencil and a deep group: B = 8 frames in one launch
+    are bit-identical to 8 launches of one frame each, with and without
+    a valid row band."""
+    _needs_card()
+    (kernel,) = tapps.compile_app(name, *plane).kernels
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xs = [torch.randn(8, *plane, device="cuda", generator=gen)
+          for _ in kernel.group.inputs]
+    for rows in (None, (5, plane[0] - 9)):
+        before = stream_group.launches
+        batched = stream_group(kernel, xs, rows)
+        assert stream_group.launches == before + 1
+        for b in range(8):
+            single = stream_group(kernel, [x[b] for x in xs], rows)
+            for o, s in zip(batched, single):
+                assert torch.equal(o[b], s), (b, rows)
