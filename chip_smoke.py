@@ -92,9 +92,29 @@ no result line) on any error:
    time through ``app(**inputs)`` and ``.cpu()``, and for each app one
    launch of B = 8 device-resident frames against 8 single-frame
    launches and its bound (a time under it fails);
-9. prints the ``kernels`` line; each route of flash and the MLP has its
+9. tuning on the card: ``gaussian_blur``, ``bilateral_filter``,
+   ``harris`` and ``optical_flow_lk`` at 1080x1920 float32 through
+   ``tune_graph`` (the model's 5 best widths and 3 lower height caps, at
+   most 8 measurements, best of 5 each, every round's candidates built
+   together) with the launch counter at 0:
+   prints the measurements, builds, build seconds, the analytic and the
+   tuned config; a second tune of each must make 0 measurements, the
+   winner must not be slower than the analytic pick in the search's own
+   measurements; the tuned app (``compile_graph(tune="auto")``, from
+   the cache) and the analytic app are timed in turns (4 rounds of the
+   median of 20) beside the bound, and their outputs held against the
+   plain version and each other (<= 1e-6 * max|plain|, 0 expected);
+   then a ``CalibratedSpec`` is fitted from the phase's trial rows
+   (written to ``chiprun_out/torch_drift_h100.jsonl`` with the card's
+   name and power limit), its constants and ``drift_report``'s
+   Spearman and bias before and after printed, ``harris`` re-tuned
+   under it, and 8 frames served through ``StreamEngine(sentinel=...,
+   drift=<the phase's log>, tune="auto")`` with ``sentinel.check()``
+   printed;
+10. prints the ``kernels`` line; each route of flash and the MLP has its
    own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
-   each served app its ``stream_group_b8[...]``.
+   each served app its ``stream_group_b8[...]``, each tuned app its
+   ``stream_group.tuned[...]``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -396,6 +416,9 @@ def main() -> int:
 
     # -- phase 8: dataflow serving through the StreamEngine --------------
     lm_entries += serving_phase(torch, timer, smi, power_limit, args.seed)
+
+    # -- phase 9: tuning, calibration and the drift sentinel -------------
+    lm_entries += tuning_phase(torch, timer, smi, power_limit, args.seed)
 
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
@@ -1385,6 +1408,241 @@ def serving_phase(torch, timer, smi: str, power_limit: float,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     return entries
 
+
+
+# ----------------------------------------------------------------------
+# phase 9: tuning, calibration and the drift sentinel on the card
+# ----------------------------------------------------------------------
+TUNE_APPS = ("gaussian_blur", "bilateral_filter", "harris",
+             "optical_flow_lk")
+TUNE_MAX_TRIALS = 8              # measurements a search, at most
+TUNE_TOP_K = 5                   # widths a group, from the model's ranking
+TUNE_REPS = 5                    # timed runs a measurement (best of)
+TUNE_ROUNDS = 4                  # analytic / tuned timed in turns
+RETUNE_APP = "harris"            # re-tuned under the fitted spec
+SENTINEL_FRAMES = 8
+FIXTURE = ROOT / "chiprun_out" / "torch_drift_h100.jsonl"
+
+
+def tuning_phase(torch, timer, smi: str, power_limit: float,
+                 seed: int) -> list[dict]:
+    """Phase 9; returns the ``stream_group.tuned`` entries of the
+    kernels line."""
+    import gc
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import compile_graph
+    from repro_torch.core.apps import build_app
+    from repro_torch.core.vectorize import GPUSpec
+    from repro_torch.frontend.lib import tables
+    from repro_torch.kernels.stream_group import stream_group, stream_group_ref
+    from repro_torch.obs import DriftLog, drift_report
+    from repro_torch.runtime import StreamEngine
+    from repro_torch.tune import TuningCache, calibrate, tune_graph
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 8's engine is gone
+    torch.cuda.empty_cache()
+    entries = []
+    saved_root = os.environ.get("REPRO_TUNE_CACHE")
+    with tempfile.TemporaryDirectory() as root:
+        # every store of the phase (tuning cache, drift log, the
+        # sentinel's calibration store) lives under one fresh root
+        os.environ["REPRO_TUNE_CACHE"] = root
+        try:
+            cache = TuningCache(root)
+            log = DriftLog(os.path.join(root, "drift.jsonl"))
+            gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+            searches = {}
+            for name in TUNE_APPS:
+                # the main path: the measured search, counter from 0
+                stream_group.launches = 0
+                cold = tune_graph(build_app(name, H, W), "cuda_stream",
+                                  cache=cache, drift=log, top_k=TUNE_TOP_K,
+                                  max_trials=TUNE_MAX_TRIALS, reps=TUNE_REPS)
+                torch.cuda.synchronize()
+                launches = stream_group.launches
+                searches[name] = cold
+                check(cold.source == "measured" and launches > 0,
+                      f"{name}: the search launched {launches} kernels")
+                rec = cold.record
+                check(rec.best_measured_s <= rec.analytic_measured_s,
+                      f"{name}: the winner {rec.best_measured_s} is slower "
+                      f"than the analytic pick {rec.analytic_measured_s}")
+                warm = tune_graph(build_app(name, H, W), "cuda_stream",
+                                  cache=cache, drift=log, top_k=TUNE_TOP_K,
+                                  max_trials=TUNE_MAX_TRIALS, reps=TUNE_REPS)
+                check(warm.source == "cache" and warm.n_measurements == 0,
+                      f"{name}: the warm tune made {warm.n_measurements} "
+                      f"measurements")
+                analytic = compile_graph(build_app(name, H, W))
+                tuned = compile_graph(build_app(name, H, W), tune="auto",
+                                      tune_cache=cache)
+                check(any("source=cache" in d
+                          for d in tuned.schedule.diagnostics),
+                      f"{name}: the tuned compile did not load the record")
+                ins = {c.name: torch.randn(c.shape, device="cuda",
+                                           generator=gen)
+                       for c in tuned.schedule.graph.graph_inputs}
+                (kernel,) = tuned.kernels
+                kin = [ins[c.name] for c in kernel.group.inputs]
+                refs = stream_group_ref(kernel.group, kin)
+                out_t = tuned(**ins)
+                out_a = analytic(**ins)
+                outs = [out_t[c.name] for c in kernel.group.outputs]
+                outs_a = [out_a[c.name] for c in kernel.group.outputs]
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(outs, refs)
+                check(rel <= TOL, f"{name}: tuned vs plain rel err {rel:.3e}")
+                vs_analytic, _ = rel_err(outs, outs_a)
+                check(vs_analytic <= TOL * max(float(r.abs().max())
+                                               for r in refs),
+                      f"{name}: tuned vs analytic abs err {vs_analytic:.3e}")
+                times = in_turns(timer, {
+                    "analytic": lambda: analytic(**ins),
+                    "tuned": lambda: tuned(**ins)}, TUNE_ROUNDS)
+                ms = statistics.median(times["tuned"])
+                analytic_ms = statistics.median(times["analytic"])
+                n_bytes = (4 * H * W * (len(kernel.group.inputs)
+                                        + len(kernel.group.outputs)))
+                bound = bounds(kernel, n_bytes)
+                for label, t in (("tuned", ms), ("analytic", analytic_ms)):
+                    check(bound["bound_ms"] / t <= 1.05,
+                          f"{name}: {label} {t} ms is under the bound "
+                          f"{bound['bound_ms']} ms")
+                plain_ms = timer(lambda: stream_group_ref(kernel.group, kin))
+                library = None
+                if name in LINEAR_STENCILS:
+                    x = kin[0][None, None]
+                    w = torch.from_numpy(
+                        tables()[LINEAR_STENCILS[name]]).to("cuda")[None, None]
+                    pad = (w.shape[-2] // 2, w.shape[-1] // 2)
+
+                    def conv():
+                        return torch.nn.functional.conv2d(
+                            x, w, padding=pad)[0, 0]
+
+                    _, lib_rel = rel_err([conv()], refs)
+                    check(lib_rel <= LIB_TOL,
+                          f"{name}: the library call disagrees ({lib_rel:.3e})")
+                    library = timer(conv)
+                row = {
+                    "tune": name, "plane": [H, W],
+                    "measurements": cold.n_measurements,
+                    "pruned": cold.n_pruned, "builds": cold.n_builds,
+                    "build_s": cold.build_s, "launches": launches,
+                    "warm_measurements": warm.n_measurements,
+                    "analytic_config": cold.trials[0].config.to_json(),
+                    "tuned_config": cold.config.to_json(),
+                    "analytic_tile": list(analytic.kernels[0].tile),
+                    "tuned_tile": list(kernel.tile),
+                    "trials": [{"label": t.label, "modeled_us":
+                                t.modeled_s * 1e6, "measured_us":
+                                t.measured_s * 1e6} for t in cold.trials],
+                    "search_analytic_us": rec.analytic_measured_s * 1e6,
+                    "search_best_us": rec.best_measured_s * 1e6,
+                    "ms": ms, "analytic_ms": analytic_ms,
+                    "tuned_over_analytic": ms / analytic_ms,
+                    "turns": turns_summary(times), "plain_ms": plain_ms,
+                    "library_ms": library, "max_abs_err": abs_err,
+                    "max_rel_err": rel, "tuned_vs_analytic_abs": vs_analytic,
+                    **bound, "bound_share": bound["bound_ms"] / ms,
+                    "card": smi}
+                print(json.dumps(row), flush=True)
+                entries.append({
+                    "name": f"stream_group.tuned[{name}]", "route": "cuda",
+                    "source": KERNEL_SOURCE, "replaces": REPLACES,
+                    "launches": launches, "max_abs_err": abs_err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"], "library_ms": library})
+                del ins, kin, refs, outs, outs_a, out_t, out_a
+
+            # calibration from the phase's own trial rows
+            log.flush()
+            rows = [r for r in log.rows() if r.kind == "trial"]
+            FIXTURE.parent.mkdir(parents=True, exist_ok=True)
+            with open(FIXTURE, "w") as f:
+                for r in rows:
+                    d = r.as_dict()
+                    d["attrs"] = dict(d.get("attrs", {}), card=smi,
+                                      power_limit_w=power_limit)
+                    f.write(json.dumps(d) + "\n")
+            seed_spec = GPUSpec.from_device()
+            fit = calibrate(rows, spec=seed_spec)
+            consts = {k: getattr(fit.spec, k) for k in
+                      ("wave_overhead_s", "hbm_bw", "fp32_flops")}
+            consts["ii_scale"] = dict(getattr(fit.spec, "ii_scale", ()))
+            check(all(math.isfinite(v) for v in
+                      [*consts.values()][:3] + list(consts["ii_scale"].values())),
+                  f"calibration returned a non-finite constant: {consts}")
+            before = drift_report(rows)
+            after = drift_report(rows, spec=fit.spec)["with_spec"]
+            uncal = searches[RETUNE_APP]
+            recal = tune_graph(build_app(RETUNE_APP, H, W), "cuda_stream",
+                               cache=TuningCache(os.path.join(root, "cal")),
+                               drift=False, calibrate=fit.spec,
+                               top_k=TUNE_TOP_K, max_trials=TUNE_MAX_TRIALS,
+                               reps=TUNE_REPS)
+            print(json.dumps({
+                "calibration": "phase 9", "rows": len(rows),
+                "fitted": fit.fitted, "warning": fit.warning,
+                "iterations": fit.iterations, "constants": consts,
+                "seed": {"wave_overhead_s": seed_spec.wave_overhead_s,
+                         "hbm_bw": seed_spec.hbm_bw,
+                         "fp32_flops": seed_spec.fp32_flops},
+                "before": {"spearman": before["spearman"],
+                           "bias": before["bias"],
+                           "log10_bias": before["log10_bias"]},
+                "after": {"spearman": after["spearman"], "bias": after["bias"],
+                          "log10_bias": after["log10_bias"]},
+                "retune": {"app": RETUNE_APP,
+                           "calibrated": {"config": recal.config.to_json(),
+                                          "measurements": recal.n_measurements,
+                                          "pruned": recal.n_pruned,
+                                          "best_us": recal.record
+                                          .best_measured_s * 1e6},
+                           "uncalibrated": {"config": uncal.config.to_json(),
+                                            "measurements":
+                                            uncal.n_measurements,
+                                            "best_us": uncal.record
+                                            .best_measured_s * 1e6}},
+                "fixture": str(FIXTURE.relative_to(ROOT)),
+                "card": smi}), flush=True)
+
+            # the sentinel over the phase's log, while serving
+            rng = np.random.default_rng(seed + 21)
+            g = build_app(TUNE_APPS[0], H, W)
+            frames = [rng.standard_normal((H, W), dtype=np.float32)
+                      for _ in range(SENTINEL_FRAMES)]
+            with StreamEngine(sentinel=True,
+                              drift=log, tune="auto", tune_cache=cache,
+                              max_batch=4) as eng:
+                outs = [eng.submit(g, {"img": f}).result(timeout=300)
+                        for f in frames]
+                verdict = eng.sentinel.check()
+                served = eng.report()
+            check(len(outs) == SENTINEL_FRAMES
+                  and all(np.isfinite(o["out"]).all() for o in outs),
+                  "sentinel phase: the served frames are not finite")
+            print(json.dumps({
+                "sentinel": "phase 9", "frames": SENTINEL_FRAMES,
+                "tile_provenance": [m["tile_provenance"] for m in
+                                    served["modeled"].values()],
+                **{k: v for k, v in verdict.items() if k != "report"},
+                "refits": eng.sentinel.refits,
+                "checks": eng.sentinel.checks}), flush=True)
+        finally:
+            if saved_root is None:
+                os.environ.pop("REPRO_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = saved_root
+    print(json.dumps({"tuning": "phase 9",
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return entries
 
 if __name__ == "__main__":
     sys.exit(main())

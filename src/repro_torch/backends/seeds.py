@@ -11,7 +11,8 @@
   on CPU tensors its wrapper runs the plain version.
 
 Trivial (custom/reduce) groups stay torch-composed on every backend,
-as the reference does.
+as the reference does.  Every seed serves tuning, timed by
+:func:`repro_torch.tune.search.default_measure`.
 """
 from __future__ import annotations
 
@@ -41,10 +42,18 @@ def _lower_cuda_stream(group, *,
     return lower_group_kernel(group, valid_rows=valid_rows)
 
 
+def _tuner_measure(graph, backend, config, **kw) -> float:
+    """Lower under ``config`` and time it on the app's device
+    (:func:`repro_torch.tune.search.default_measure`)."""
+    from repro_torch.tune.search import default_measure
+    return default_measure(graph, backend, config, **kw)
+
+
 TORCH = register(Backend(
     name="torch",
     description="stages composed as torch ops on whole planes",
     lower=_lower_torch,
+    measure=_tuner_measure,
 ))
 
 TORCH_STAGED = register(Backend(
@@ -52,12 +61,14 @@ TORCH_STAGED = register(Backend(
     description="every stage output, split arms included, materialized "
                 "as its own plane",
     lower=_lower_torch_staged,
+    measure=_tuner_measure,
 ))
 
 CUDA_STREAM = register(Backend(
     name="cuda_stream",
     description="one generated CUDA kernel per fusion group (sm_90a)",
     lower=_lower_cuda_stream,
+    measure=_tuner_measure,
 ))
 
 SEED_BACKENDS = ("torch", "torch_staged", "cuda_stream")

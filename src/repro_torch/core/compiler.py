@@ -4,8 +4,10 @@
 Port of :mod:`repro.core.compiler`, with the same keywords plus
 ``device=``.  The phases: the :mod:`repro_torch.core.transform` pass
 pipeline (unless ``strict=True``), validation, convex DAG fusion with
-per-group tile selection (:func:`repro_torch.core.schedule.build_schedule`),
-per-group lowering for the chosen backend
+per-group tile selection (:func:`repro_torch.core.schedule.build_schedule`:
+the analytic sweep, an explicit ``vector_factor=``, or the measured
+autotuner of :mod:`repro_torch.tune` with ``tune="auto"``), per-group
+lowering for the chosen backend
 (:func:`repro_torch.core.fusion.lower_graph`) and the generated host
 launcher (:func:`repro_torch.core.host.build_host_app`).
 """
@@ -18,7 +20,7 @@ from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.host import CompiledApp, build_host_app
 from repro_torch.core.schedule import build_schedule
 from repro_torch.core.transform import Pass, PassPipeline
-from repro_torch.core.vectorize import H100, GPUSpec
+from repro_torch.core.vectorize import GPUSpec, device_spec
 from repro_torch.device import NotPortedError, resolve_device
 from repro_torch.obs.tracer import maybe_span, resolve_tracer
 
@@ -51,11 +53,27 @@ def compile_graph(graph: DataflowGraph, backend="cuda_stream", *,
     ``compile.*`` spans.  ``jit`` has no effect (PyTorch runs eagerly)
     and ``data_axis`` only matters with a mesh.
 
+    ``tune`` upgrades tile selection from *modeled* to *measured*:
+    ``"auto"`` consults the persistent
+    :class:`~repro_torch.tune.store.TuningCache` (``tune_cache``, default
+    on-disk location) and on a miss runs the measured search
+    (:func:`repro_torch.tune.search.tune_graph`: the analytic pick and
+    the model's short-list, each built and timed on ``device``) and
+    persists the winner; a :class:`~repro_torch.tune.store.ScheduleConfig`
+    applies a known config verbatim.  ``tune`` is mutually exclusive
+    with ``vector_factor`` and ``max_tile``.  ``calibrate`` swaps the
+    data-sheet constants for fitted ones
+    (:mod:`repro_torch.tune.calibrate`): ``"auto"`` loads the
+    :class:`~repro_torch.tune.calibrate.CalibratedSpec` persisted for
+    this backend and device kind, a spec applies verbatim, ``None``
+    keeps the seed constants and cache keys.  An explicit ``spec=``
+    still wins over calibration.
+
     Not ported yet, and refused with
-    :class:`~repro_torch.device.NotPortedError`: ``tune``/``tune_cache``
-    (the autotuner), ``calibrate``, ``mesh`` (replication), ``donate``
-    (every call allocates new outputs) and ``interpret=True`` (a CUDA
-    kernel has no interpret mode; CPU tensors take the plain version).
+    :class:`~repro_torch.device.NotPortedError`: ``mesh`` (replication),
+    ``donate`` (every call allocates new outputs) and ``interpret=True``
+    (a CUDA kernel has no interpret mode; CPU tensors take the plain
+    version).
 
     >>> from repro_torch.core.graph import DataflowGraph
     >>> g = DataflowGraph("doc")
@@ -66,27 +84,55 @@ def compile_graph(graph: DataflowGraph, backend="cuda_stream", *,
     >>> float(app(img=torch.ones(8, 128))["out"][0, 0])
     3.0
     """
-    refused = {"tune": tune not in (None, "model"),
-               "tune_cache": tune_cache is not None,
-               "calibrate": calibrate not in (None, False),
-               "mesh": mesh is not None, "donate": bool(donate),
+    refused = {"mesh": mesh is not None, "donate": bool(donate),
                "interpret": bool(interpret)}
     for key, hit in refused.items():
         if hit:
             raise NotPortedError(
                 f"compile_graph({key}=...) is not ported to repro_torch yet")
+    if tune == "model":                 # explicit name for the default
+        tune = None
+    if tune is not None and vector_factor is not None:
+        raise ValueError(
+            "tune= and vector_factor= are mutually exclusive: the tuner "
+            "owns the vector factors it measures")
+    if tune is not None and max_tile is not None:
+        raise ValueError(
+            "tune= and max_tile= are mutually exclusive: the tile cap is "
+            "one of the tuner's search axes (and part of the cached "
+            "config); pass max_tile_candidates to tune_graph instead")
     dev = resolve_device(device)
-    from repro_torch.backends import resolve
-    be = resolve(backend)
-    if spec is None:
-        spec = GPUSpec.from_device(dev) if dev.type == "cuda" else H100
+    from repro_torch.backends import resolve_calibrated
+    from repro_torch.tune.store import detect_device_kind
+    be = resolve_calibrated(backend, calibrate,
+                            device_kind=detect_device_kind(dev))
+    spec = spec or be.spec or device_spec(dev)
     tracer = resolve_tracer(trace)
     with maybe_span(tracer, "compile", cat="compile", graph=graph.name,
                     backend=be.name) as top:
-        sched = build_schedule(
-            graph, canonicalize=canonicalize, strict=strict, passes=passes,
-            spec=spec, vector_factor=vector_factor, max_tile=max_tile,
-            trace=tracer)
+        tuned = None
+        if tune is not None:
+            from repro_torch.tune.search import (resolve_tuning,
+                                                 tuned_schedule_kwargs)
+            with maybe_span(tracer, "compile.tune", cat="compile",
+                            graph=graph.name):
+                tuned = resolve_tuning(graph, be, tune=tune, spec=spec,
+                                       cache=tune_cache, device=dev,
+                                       strict=strict,
+                                       canonicalize=canonicalize,
+                                       passes=passes, trace=tracer)
+        if tuned is not None:
+            config, source, notes = tuned
+            sched = build_schedule(
+                graph, canonicalize=canonicalize, strict=strict,
+                passes=passes, trace=tracer,
+                **tuned_schedule_kwargs(config, source, spec))
+            sched.diagnostics.extend(notes)
+        else:
+            sched = build_schedule(
+                graph, canonicalize=canonicalize, strict=strict,
+                passes=passes, spec=spec, vector_factor=vector_factor,
+                max_tile=max_tile, trace=tracer)
         with maybe_span(tracer, "compile.lower", cat="compile",
                         graph=graph.name, backend=be.name):
             run, sched = lower_graph(sched.graph, be, schedule=sched)

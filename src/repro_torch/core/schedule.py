@@ -63,8 +63,10 @@ class FusionGroup:
     #: vector factor behind the selected tile (tw == 32 * vector_factor,
     #: one warp-wide row segment per factor)
     vector_factor: int | None = None
-    #: why this tile was chosen: "model" (analytic sweep) or "forced"
-    #: (explicit vector_factor=).  Rendered by :meth:`Schedule.describe`.
+    #: why this tile was chosen: "model" (analytic sweep), "forced"
+    #: (explicit vector_factor=), or the autotuner's provenance
+    #: ("measured", "cache", "config").  Rendered by
+    #: :meth:`Schedule.describe`.
     tile_source: str = "model"
 
     @property
@@ -146,13 +148,21 @@ class Schedule:
     #: human-readable log from the pass pipeline + the fusion search
     diagnostics: list[str] = dataclasses.field(default_factory=list)
 
+    def features(self, items: int = 1, spec=None) -> dict:
+        """Drift-row features of this schedule under ``spec`` (default:
+        an H100's); see :func:`repro_torch.core.vectorize.schedule_features`."""
+        from repro_torch.core.vectorize import H100, schedule_features
+        return schedule_features(self, items, spec if spec is not None
+                                 else H100)
+
     def describe(self) -> str:
         """Render the schedule: kernels, FIFOs, tiles + provenance.
 
         Each fused kernel line reports its selected tile and *why* it
         was chosen (``via model`` — analytic sweep, ``via forced`` —
-        explicit ``vector_factor=``), followed by the pass-pipeline
-        diagnostics.
+        explicit ``vector_factor=``, ``via measured`` / ``via cache`` /
+        ``via config`` — the autotuner), followed by the pass-pipeline
+        and ``[tune]`` diagnostics.
         """
         lines = [f"schedule for {self.graph.name!r}: "
                  f"{len(self.order)} stages -> {len(self.groups)} kernels"]
@@ -179,8 +189,9 @@ def build_schedule(graph: DataflowGraph, n_bundles: int = 4, *,
                    canonicalize: bool = True, strict: bool = False,
                    passes: Sequence[Pass] | PassPipeline | None = None,
                    spec=None, vector_factor: int | None = None,
+                   group_vector_factors: Sequence[int | None] | None = None,
                    max_tile: tuple[int, int] | None = None,
-                   trace=None) -> Schedule:
+                   tile_source: str = "measured", trace=None) -> Schedule:
     """Canonicalize, validate and partition ``graph`` into fusion groups.
 
     ``strict=True`` skips canonicalization and enforces the paper's
@@ -194,6 +205,15 @@ def build_schedule(graph: DataflowGraph, n_bundles: int = 4, *,
     (:func:`repro_torch.core.vectorize.select_tile`) and logs the
     choice in the schedule diagnostics.
 
+    ``group_vector_factors`` is the autotuner's entry point (see
+    :mod:`repro_torch.tune`): one factor per fusion group in schedule
+    order (``None`` for trivial groups), each fixing that group's width
+    while the model picks its height under ``max_tile``, labelled
+    ``tile_source``.  A length mismatch, or a factor the group can no
+    longer hold — a stale cached config after the partition or the plane
+    changed — falls back to the analytic sweep with a diagnostic instead
+    of failing.
+
     >>> from repro_torch.core.graph import DataflowGraph
     >>> g = DataflowGraph("doc")
     >>> x = g.input("img", (64, 256))
@@ -203,6 +223,9 @@ def build_schedule(graph: DataflowGraph, n_bundles: int = 4, *,
     (1, 'model')
     >>> build_schedule(g, vector_factor=2).groups[0].tile[1]
     64
+    >>> tuned = build_schedule(g, group_vector_factors=[1])
+    >>> tuned.groups[0].tile[1], tuned.groups[0].tile_source
+    (32, 'measured')
     """
     diagnostics: list[str] = []
     if canonicalize and not strict:
@@ -219,26 +242,59 @@ def build_schedule(graph: DataflowGraph, n_bundles: int = 4, *,
         sp.set(groups=len(groups))
     diagnostics.extend(fusion_diags)
     diagnostics.extend(_select_tiles(groups, spec, vector_factor,
-                                     max_tile=max_tile, trace=trace))
+                                     group_vf=group_vector_factors,
+                                     max_tile=max_tile, source=tile_source,
+                                     trace=trace))
     bundles = _assign_bundles(graph, n_bundles)
     return Schedule(graph, order, groups, bundles, n_bundles, diagnostics)
 
 
 def _select_tiles(groups: list[FusionGroup], spec,
                   vector_factor: int | None,
+                  group_vf: Sequence[int | None] | None = None,
                   max_tile: tuple[int, int] | None = None,
-                  trace=None) -> list[str]:
-    """Per-group tile selection (post-partition): a forced factor pins
-    every group's width, ``None`` sweeps each group through the model."""
+                  source: str = "measured", trace=None) -> list[str]:
+    """Per-group tile selection (post-partition).
+
+    Three modes, in precedence order: ``group_vf`` fixes each group's
+    width (the autotuner applying a measured or cached config, labelled
+    ``source``), ``vector_factor`` pins every group to one factor (the
+    explicit knob), and otherwise each group is swept through the model.
+    """
     from repro_torch.core.vectorize import select_tile
     diags: list[str] = []
-    for g in groups:
+    if group_vf is not None and len(group_vf) != len(groups):
+        diags.append(f"[vectorize] tuned config has {len(group_vf)} "
+                     f"group factors but the partition produced "
+                     f"{len(groups)} groups; falling back to the "
+                     f"analytic sweep")
+        group_vf = None
+    for gi, g in enumerate(groups):
         if g.is_trivial:
             continue
+        names = ",".join(s.name for s in g.stages)
         g.tile_source = "forced" if vector_factor is not None else "model"
+        tuned = group_vf[gi] if group_vf is not None else None
+        if tuned is not None:
+            try:
+                tile, _ = select_tile(g, spec, None, max_tile, trace=trace,
+                                      width_factor=tuned)
+            except ValueError:
+                # a persistent tuned config can outlive the partitioner
+                # or the plane it was measured on; an explicit
+                # vector_factor= stays a hard error, a stale cached
+                # factor degrades to the sweep
+                diags.append(f"[vectorize] {{{names}}}: tuned "
+                             f"vector_factor={tuned} no longer feasible; "
+                             f"falling back to the analytic sweep")
+            else:
+                g.tile_source = source
+                diags.append(f"[vectorize] {{{names}}}: {source} "
+                             f"vector_factor={tuned} tile={tile} "
+                             f"smem={g.smem_bytes()}B")
+                continue
         tile, sweep = select_tile(g, spec, vector_factor, max_tile,
                                   trace=trace)
-        names = ",".join(s.name for s in g.stages)
         if sweep is not None:
             n_ok = sum(1 for r in sweep if r["feasible"])
             diags.append(f"[vectorize] {{{names}}}: swept {len(sweep)} "

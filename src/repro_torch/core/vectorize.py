@@ -14,13 +14,17 @@ Two entry points, as in the reference:
   factor, we fit the tallest tile whose windows hold the shared-memory
   budget, or raise when the factor cannot fit.
 - :func:`select_tile` — the automatic mode: sweep tile heights and
-  widths through :func:`modeled_plane_time` and keep the fastest.
-  Tiles may differ from the TPU's; outputs may not.
+  widths through :func:`modeled_plane_time` and keep the fastest; with
+  ``width_factor`` (a tuned config's factor) the width is fixed and
+  only the height is swept.  Tiles may differ from the TPU's; outputs
+  may not.
 
-The model's occupancy constants are not fitted, so its picks are held
-against a tile sweep on the card (``tools/tile_sweep.py``): on an H100
-SXM at 1080x1920 they ran 1.7-2.5x faster than the largest tile that
-fits shared memory, and within 25 % of the best tile of the grid.
+The model's constants are the data sheet's; the autotuner
+(:mod:`repro_torch.tune`) measures its candidates on the card and fits
+the constants from what it measured.  :func:`scale_spec` shrinks the
+shared-memory budget (the partitioner's fusion budget, the tuner's
+third axis) and :func:`sweep_vector_factor` ranks widths for the
+tuner's first.
 """
 from __future__ import annotations
 
@@ -29,8 +33,10 @@ import math
 
 from repro_torch.core.graph import as_dtype
 from repro_torch.core.schedule import FusionGroup
+from repro_torch.obs.drift import group_seconds
 
-__all__ = ["GPUSpec", "H100", "choose_tile", "select_tile", "sweep_tiles",
+__all__ = ["GPUSpec", "H100", "device_spec", "choose_tile", "select_tile", "sweep_tiles",
+           "sweep_vector_factor", "scale_spec", "smem_report",
            "modeled_plane_time", "modeled_schedule_time", "plane_features",
            "schedule_features", "DEFAULT_MAX_TILE",
            "LANE", "ROW_ALIGN", "THREADS_PER_BLOCK"]
@@ -39,7 +45,8 @@ LANE = 32            # warp width: tile widths are multiples of it
 ROW_ALIGN = 8        # tile heights are multiples of it
 THREADS_PER_BLOCK = 256   # sg::kThreads in csrc/stream_group.cuh
 
-#: default (th, tw) cap for choose_tile/select_tile
+#: default (th, tw) cap for choose_tile/select_tile; the autotuner
+#: searches lower height caps (the height axis of its search)
 DEFAULT_MAX_TILE = (64, 256)
 
 
@@ -80,6 +87,16 @@ class GPUSpec:
 
 
 H100 = GPUSpec()
+
+
+def device_spec(device) -> GPUSpec:
+    """The spec the compiler models ``device`` with: the constants the
+    card reports for a CUDA device, an H100's otherwise."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available():
+        return GPUSpec.from_device(dev)
+    return H100
 
 
 def _constants(spec, max_tile) -> tuple:
@@ -148,12 +165,12 @@ def modeled_plane_time(group: FusionGroup, tile: tuple[int, int],
     by shared memory and warp slots, and a grid with too few blocks
     leaves part of the card's memory parallelism unused (which favours
     smaller tiles).  Each wave of blocks pays a fixed overhead.  The
-    terms are those of :func:`plane_features`.
+    terms are those of :func:`plane_features`, priced by
+    :func:`repro_torch.obs.drift.group_seconds`; a calibrated spec
+    (:class:`repro_torch.tune.calibrate.CalibratedSpec`) multiplies each
+    stage kind's operations by its fitted ``ii_scale``.
     """
-    f = plane_features(group, tile, spec)
-    dma_s = f["blocks"] * f["bytes_block"] / (spec.hbm_bw * f["fill"])
-    compute_s = f["blocks"] * f["ops_block"] / (spec.fp32_flops * f["fill"])
-    return max(dma_s, compute_s) + f["waves"] * spec.wave_overhead_s
+    return group_seconds(plane_features(group, tile, spec), spec)
 
 
 def plane_features(group: FusionGroup, tile: tuple[int, int],
@@ -163,16 +180,20 @@ def plane_features(group: FusionGroup, tile: tuple[int, int],
     The model is, per fusion group,
 
     ``t = max(blocks * bytes_block / (hbm_bw * fill),
-    blocks * ops_block / (fp32_flops * fill)) + waves * wave_overhead_s``
+    blocks * sum_kind(ops_block[kind] * ii_scale[kind])
+    / (fp32_flops * fill)) + waves * wave_overhead_s``
 
-    with ``blocks`` the grid, ``bytes_block`` and ``ops_block`` one
-    block's device-memory bytes and stage operations, and ``fill`` (the
-    share of the card's memory parallelism the resident warps use) and
-    ``waves`` computed under ``spec``'s SM count, shared memory and warp
-    slots.  :func:`repro_torch.obs.drift.predict_features` rebuilds the
-    modeled seconds from these under any spec's ``hbm_bw``,
-    ``fp32_flops`` and ``wave_overhead_s``, bit-identically to this
-    module under the spec they were taken with.
+    with ``blocks`` the grid, ``bytes_block`` one block's device-memory
+    bytes, ``ops_block`` its stage operations per stage kind (as the
+    reference's ``steps[kind]``), and ``fill`` (the share of the card's
+    memory parallelism the resident warps use) and ``waves`` computed
+    under ``spec``'s SM count, shared memory and warp slots.  Once each
+    group's memory-or-compute branch is decided, the model is linear in
+    ``wave_overhead_s``, ``1 / hbm_bw`` and ``ii_scale[kind] /
+    fp32_flops`` — what the calibration fit regresses; ``fill`` is kept
+    as recorded.  :func:`repro_torch.obs.drift.predict_features`
+    rebuilds the modeled seconds from these under any spec,
+    bit-identically to this module under the spec they were taken with.
     """
     th, tw = tile
     H, W = _plane(group)
@@ -183,10 +204,11 @@ def plane_features(group: FusionGroup, tile: tuple[int, int],
         bytes_block += (th + 2 * hy) * (tw + 2 * hx) * _itemsize(ch)
     for ch in group.outputs:
         bytes_block += th * tw * _itemsize(ch)
-    ops_block = 0.0
+    ops_block: dict[str, float] = {}
     for st in group.stages:
         hy, hx = _out_halo(group, st)
-        ops_block += st.ii * (th + 2 * hy) * (tw + 2 * hx)
+        ops_block[st.kind] = (ops_block.get(st.kind, 0.0)
+                              + st.ii * (th + 2 * hy) * (tw + 2 * hx))
     warps = THREADS_PER_BLOCK // 32
     smem = max(1, group.smem_bytes(tile))
     per_sm = max(1, min(spec.smem_per_sm // smem,
@@ -196,7 +218,8 @@ def plane_features(group: FusionGroup, tile: tuple[int, int],
                / (spec.sms * spec.saturating_warps_per_sm))
     waves = math.ceil(blocks / (spec.sms * per_sm))
     return {"blocks": blocks, "bytes_block": bytes_block,
-            "ops_block": ops_block, "fill": fill, "waves": waves}
+            "ops_block": dict(sorted(ops_block.items())), "fill": fill,
+            "waves": waves}
 
 
 def schedule_features(schedule, items: int = 1,
@@ -236,27 +259,32 @@ def modeled_schedule_time(schedule, spec: GPUSpec = H100) -> float:
 
 def sweep_tiles(group: FusionGroup, spec: GPUSpec | None = None,
                 max_tile: tuple[int, int] | None = None,
-                trace=None) -> list[dict]:
+                trace=None, vector_factors=None) -> list[dict]:
     """Cost-model sweep over (th, tw); one record per candidate.
 
     Heights run over the 8-aligned powers of two up to the cap, widths
-    over every multiple of 32 up to the cap.  Each record carries
-    ``tile``, ``vector_factor``, ``feasible`` and ``modeled_s``; the
-    group's own tile is left as it was (the sweep only scores).
+    over every multiple of 32 up to the cap (or ``32 * vf`` for each of
+    ``vector_factors`` within it).  Each record carries ``tile``,
+    ``vector_factor``, ``feasible`` and ``modeled_s``; the group's own
+    tile is left as it was (the sweep only scores).
     """
     spec, max_tile = _constants(spec, max_tile)
     if trace is not None:
         with trace.span("compile.vectorize.sweep", cat="compile",
                         group=",".join(s.name for s in group.stages)) as sp:
-            records = sweep_tiles(group, spec, max_tile)
+            records = sweep_tiles(group, spec, max_tile,
+                                  vector_factors=vector_factors)
             sp.set(candidates=len(records),
                    feasible=sum(1 for r in records if r["feasible"]))
             return records
     cap_th, cap_tw = _caps(group, max_tile)
     heights = sorted({min(cap_th, ROW_ALIGN << k)
                       for k in range(max(1, cap_th.bit_length()))})
+    factors = range(1, cap_tw // LANE + 1)
+    if vector_factors is not None:
+        factors = [vf for vf in vector_factors if 1 <= vf <= cap_tw // LANE]
     records: list[dict] = []
-    for vf in range(1, cap_tw // LANE + 1):
+    for vf in factors:
         for th in heights:
             tile = (th, LANE * vf)
             smem = group.smem_bytes(tile)
@@ -272,16 +300,32 @@ def sweep_tiles(group: FusionGroup, spec: GPUSpec | None = None,
 def select_tile(group: FusionGroup, spec: GPUSpec | None = None,
                 vector_factor: int | None = None,
                 max_tile: tuple[int, int] | None = None,
-                trace=None) -> tuple[tuple[int, int], list[dict] | None]:
+                trace=None, width_factor: int | None = None,
+                ) -> tuple[tuple[int, int], list[dict] | None]:
     """Pick the group's tile; sweep when no vector factor is forced.
 
     Returns ``(tile, sweep_records)`` (``None`` records in forced mode)
     and sets the group's ``tile`` and ``vector_factor``.  Ties break
-    toward the larger tile (fewer halo re-reads).
+    toward the larger tile (fewer halo re-reads).  ``width_factor``
+    (a tuned config's factor) fixes the width at ``32 * width_factor``
+    and sweeps only the height under ``max_tile``: the analytic pick's
+    factor so re-applied gives back the analytic tile.  It raises
+    :class:`ValueError` when that width exceeds the cap or no height
+    fits.
     """
     if vector_factor is not None:
         return choose_tile(group, spec, vector_factor, max_tile), None
-    records = sweep_tiles(group, spec, max_tile, trace=trace)
+    factors = None
+    if width_factor is not None:
+        _, cap_tw = _caps(group, _constants(spec, max_tile)[1])
+        if LANE * width_factor > cap_tw:
+            raise ValueError(
+                f"vector_factor={width_factor} needs a "
+                f"{LANE * width_factor}-wide tile, but the widest feasible "
+                f"tile is {cap_tw} (plane {_plane(group)})")
+        factors = (width_factor,)
+    records = sweep_tiles(group, spec, max_tile, trace=trace,
+                          vector_factors=factors)
     feasible = [r for r in records if r["feasible"]]
     if not feasible:
         raise ValueError(
@@ -292,6 +336,82 @@ def select_tile(group: FusionGroup, spec: GPUSpec | None = None,
     group.tile = best["tile"]
     group.vector_factor = best["vector_factor"]
     return group.tile, records
+
+
+def sweep_vector_factor(group: FusionGroup, spec: GPUSpec | None = None,
+                        max_tile: tuple[int, int] | None = None,
+                        candidates: tuple[int, ...] | None = None,
+                        trace=None) -> list[dict]:
+    """Cost-model sweep over vector factors; one record per candidate.
+
+    Each factor ``vf`` (tile width ``32 * vf``) is scored at its best
+    height under ``max_tile`` — the tile ``select_tile(...,
+    width_factor=vf)`` would pick.  Default candidates run 1..cap plus
+    one infeasible sentinel (wider than the plane or the cap).  Each
+    record carries ``vector_factor``, ``feasible``, ``tile``,
+    ``modeled_s`` and the :func:`plane_features` behind it
+    (``features``), or a ``reason`` when infeasible.  The group's own
+    tile is left as it was.
+    """
+    spec, max_tile = _constants(spec, max_tile)
+    _, cap_tw = _caps(group, max_tile)
+    if candidates is None:
+        candidates = tuple(range(1, cap_tw // LANE + 2))
+    records = sweep_tiles(group, spec, max_tile, trace=trace,
+                          vector_factors=candidates)
+    out: list[dict] = []
+    for vf in candidates:
+        ok = [r for r in records
+              if r["vector_factor"] == vf and r["feasible"]]
+        if not ok:
+            out.append({"vector_factor": vf, "feasible": False,
+                        "tile": None, "modeled_s": float("inf"),
+                        "reason": (f"no {LANE * vf}-wide tile fits the plane, "
+                                   f"the cap {max_tile} or shared memory")})
+            continue
+        best = min(ok, key=lambda r: (r["modeled_s"], -r["tile"][0]))
+        out.append({"vector_factor": vf, "feasible": True,
+                    "tile": best["tile"], "modeled_s": best["modeled_s"],
+                    "features": plane_features(group, best["tile"], spec)})
+    return out
+
+
+def scale_spec(spec: GPUSpec, vmem_fraction: float) -> GPUSpec:
+    """Shrink a spec's shared-memory budget — the *fusion budget* knob.
+
+    The port of the reference's VMEM-budget scaling (the name of the
+    fraction is kept, so tuned configs read alike): the partitioner
+    merges groups only while the union's halo windows fit
+    ``spec.smem_per_block``, and the tile sweep keeps only tiles that
+    fit it, so scaling the budget changes which stages fuse, not just
+    how they tile.  The occupancy terms (``smem_per_sm``) are the
+    card's and stay.
+    """
+    if not 0.0 < vmem_fraction <= 1.0:
+        raise ValueError(f"vmem_fraction must be in (0, 1], got "
+                         f"{vmem_fraction}")
+    if vmem_fraction == 1.0:
+        return spec
+    return dataclasses.replace(
+        spec, smem_per_block=int(spec.smem_per_block * vmem_fraction))
+
+
+def smem_report(group: FusionGroup) -> dict:
+    """The port of ``vmem_report``: one scheduled group's tile, its
+    shared memory, its channel count and its largest halo window read
+    from device memory (the burst a block issues per input)."""
+    th, tw = group.tile
+    return {
+        "tile": group.tile,
+        "vector_factor": tw // LANE,
+        "smem_bytes": group.smem_bytes(),
+        "n_channels": len(group.inputs) + len(group.outputs)
+        + len(group.internal),
+        "window_bytes": max(
+            ((th + 2 * hy) * (tw + 2 * hx) * _itemsize(ch)
+             for ch in group.inputs
+             for hy, hx in [group.halo.get(ch, (0, 0))]), default=0),
+    }
 
 
 def _out_halo(group: FusionGroup, st) -> tuple[int, int]:

@@ -43,7 +43,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.expr import (RECORD_ERRORS, Expr, Patches,
                                       count_ops, emit_c, leaves, record)
 
-__all__ = ["GroupKernel", "stream_group", "stream_group_ref"]
+__all__ = ["GroupKernel", "stream_group", "stream_group_ref", "build_kernels"]
 
 _VEC = 4            # adjacent outputs per thread and step: sg::kVec
 _MAX_FRAMES = 65535  # gridDim.z: frames a launch
@@ -91,6 +91,16 @@ def stream_group(kernel: "GroupKernel", inputs: Sequence[torch.Tensor],
 
 
 stream_group.launches = 0
+
+
+def build_kernels(kernels: Sequence["GroupKernel"]) -> int:
+    """Build the libraries of ``kernels`` not built yet, one nvcc each,
+    all at once; returns how many were built.  A failed build raises
+    :class:`~repro_torch.kernels.build.KernelBuildError`."""
+    todo = {k.source for k in kernels
+            if not build.library_path("sg", k.source).exists()}
+    build.build_libraries([("sg", src) for src in sorted(todo)])
+    return len(todo)
 
 
 class GroupKernel:

@@ -1,20 +1,21 @@
-"""Observability: tracing, metrics, export, health, drift.
+"""Observability: tracing, metrics, export, health, drift, refit.
 
-Port of :mod:`repro.obs`, without the drift sentinel (it refits the
-cost model through the tuner, which comes with ``ROADMAP.md`` A5):
-:mod:`~repro_torch.obs.tracer` records spans into a bounded ring (the
-compiler's ``compile.*`` spans and the serving engine's per-request
-timelines), :mod:`~repro_torch.obs.export` renders the ring as a
-Perfetto-loadable Chrome trace, :mod:`~repro_torch.obs.metrics` is the
+Port of :mod:`repro.obs`: :mod:`~repro_torch.obs.tracer` records spans
+into a bounded ring (the compiler's ``compile.*`` spans and the serving
+engine's per-request timelines), :mod:`~repro_torch.obs.export` renders
+the ring as a Perfetto-loadable Chrome trace, :mod:`~repro_torch.obs.metrics` is the
 counter/gauge/histogram registry the engine's telemetry publishes into,
 :mod:`~repro_torch.obs.exporter` renders that registry as an
 OpenMetrics/Prometheus exposition (with an optional stdlib scrape
 endpoint), :mod:`~repro_torch.obs.health` evaluates rolling-window SLOs
-with hysteresis, and :mod:`~repro_torch.obs.drift` persists the
-(modeled, measured) pairs that will calibrate the cost model.
+with hysteresis, :mod:`~repro_torch.obs.drift` persists the
+(modeled, measured) pairs that calibrate the cost model, and
+:mod:`~repro_torch.obs.sentinel` watches those pairs and refits the
+cost model when its fitted constants go stale.
 
 This package imports only the standard library and numpy at module
-load, so every layer of the port can depend on it without cycles.
+load, so every layer of the port can depend on it without cycles (the
+sentinel pulls in :mod:`repro_torch.tune` lazily, at use).
 """
 from repro_torch.obs.drift import (DRIFT_ENV, DriftLog, DriftRow,
                                    default_drift_path, drift_report,
@@ -28,6 +29,7 @@ from repro_torch.obs.exporter import (MetricFamily, MetricsHTTPServer, Sample,
                                       validate_openmetrics, write_openmetrics)
 from repro_torch.obs.health import SLO, STATES, HealthMonitor
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
+from repro_torch.obs.sentinel import DriftSentinel, SentinelPolicy
 from repro_torch.obs.tracer import (TRACE_ENV, Event, Tracer, get_tracer,
                                     install, maybe_span, resolve_tracer,
                                     uninstall)
@@ -44,4 +46,5 @@ __all__ = [
     "parse_openmetrics", "validate_openmetrics", "MetricsHTTPServer",
     "write_openmetrics", "export_metrics_at_exit", "flatten_report",
     "SLO", "STATES", "HealthMonitor",
+    "DriftSentinel", "SentinelPolicy",
 ]

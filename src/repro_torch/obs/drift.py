@@ -6,16 +6,16 @@ copies; :func:`predict_features` rebuilds the port's cost model
 
 The analytic cost model
 (:func:`repro_torch.core.vectorize.modeled_schedule_time`) picks every
-group's tile, and its occupancy constants are not fitted.  Calibrating
-it needs data: a persistent stream of (modeled, measured) pairs from
-real runs.
+group's tile from data-sheet constants.  Calibrating them needs data:
+a persistent stream of (modeled, measured) pairs from real runs.
 
 :class:`DriftLog` is that stream — an append-only JSONL file under
 :func:`~repro_torch.tune.store.default_cache_root` (one directory for
 everything learned about this machine).  The serving engine appends a
-row for **every batched launch** (kind ``launch``) and for the **first
-launch of each (signature, width)** bucket (kind ``compile``, where the
-measured time includes building the kernels).
+row for **every batched launch** (kind ``launch``), the autotuner one
+for **every measured candidate** (kind ``trial``), and the engine one
+for the **first launch of each (signature, width)** bucket (kind
+``compile``, where the measured time includes building the kernels).
 
 :func:`drift_report` turns the accumulated rows into the calibration
 input: per-group and overall **Spearman rank correlation** (does the
@@ -26,8 +26,9 @@ ranks), without scipy.
 
 Rows may additionally carry **features** (``attrs["features"]``, see
 :func:`repro_torch.core.vectorize.schedule_features`): the terms
-(blocks, bytes and operations a block, fill, waves) behind the modeled
-seconds.  :func:`predict_features` reconstitutes the modeled time from
+(blocks, bytes and per-kind operations a block, fill, waves) behind the
+modeled seconds — what the calibration fit
+(:func:`repro_torch.tune.calibrate.calibrate`) regresses.  :func:`predict_features` reconstitutes the modeled time from
 those features under a spec's rates, and ``drift_report(rows,
 spec=...)`` shows the comparison under it without re-running anything.
 """
@@ -41,7 +42,8 @@ from typing import Any, Iterable
 import numpy as np
 
 __all__ = ["DriftLog", "DriftRow", "default_drift_path", "resolve_drift",
-           "spearman", "drift_report", "predict_features", "DRIFT_ENV"]
+           "spearman", "drift_report", "predict_features", "group_seconds",
+           "DRIFT_ENV"]
 
 #: environment variable overriding the on-disk drift log location
 DRIFT_ENV = "REPRO_DRIFT_LOG"
@@ -289,6 +291,28 @@ def spearman(xs: Iterable[float], ys: Iterable[float]) -> float:
     return float(((rx - rx.mean()) * (ry - ry.mean())).mean() / (sx * sy))
 
 
+def _ops(ops_block: Any, spec: Any) -> float:
+    """One block's stage operations priced under ``spec``: per stage
+    kind, times the kind's ``ii_scale`` multiplier (a calibrated spec's;
+    1.0 for any other).  A scalar ``ops_block`` (rows written before the
+    operations were split by kind) is taken as it is."""
+    if not isinstance(ops_block, dict):
+        return ops_block
+    scale = dict(getattr(spec, "ii_scale", ()) or ())
+    return sum(v * scale.get(k, 1.0) for k, v in sorted(ops_block.items()))
+
+
+def group_seconds(g: dict[str, Any], spec: Any) -> float:
+    """Modeled seconds of one fusion group from its features (one entry
+    of ``features["groups"]``); the single formula behind both
+    :func:`predict_features` and
+    :func:`repro_torch.core.vectorize.modeled_plane_time`."""
+    dma_s = g["blocks"] * g["bytes_block"] / (spec.hbm_bw * g["fill"])
+    compute_s = (g["blocks"] * _ops(g["ops_block"], spec)
+                 / (spec.fp32_flops * g["fill"]))
+    return max(dma_s, compute_s) + g["waves"] * spec.wave_overhead_s
+
+
 def predict_features(features: dict[str, Any], spec: Any) -> float:
     """Modeled seconds reconstituted from drift-row features.
 
@@ -296,33 +320,34 @@ def predict_features(features: dict[str, Any], spec: Any) -> float:
     :func:`repro_torch.core.vectorize.schedule_features` (or
     :func:`~repro_torch.core.vectorize.plane_features` wrapped in a
     single-group list): per fusion group the ``blocks`` of its grid,
-    the device-memory ``bytes_block`` and stage ``ops_block`` of one
-    block, and the ``fill`` and ``waves`` of the grid on the card.  The
-    prediction is, per group,
+    the device-memory ``bytes_block`` and the stage operations
+    ``ops_block`` of one block (per stage kind), and the ``fill`` and
+    ``waves`` of the grid on the card.  The prediction is, per group,
 
     ``max(blocks * bytes_block / (hbm_bw * fill),
-    blocks * ops_block / (fp32_flops * fill)) + waves * wave_overhead_s``
+    blocks * sum_kind(ops_block[kind] * ii_scale[kind])
+    / (fp32_flops * fill)) + waves * wave_overhead_s``
 
     summed over groups and multiplied by ``items`` — **bit-identical**
     to :func:`repro_torch.core.vectorize.modeled_schedule_time` under
-    the spec the features were taken with.  ``spec`` is duck typed
-    (only ``hbm_bw``, ``fp32_flops`` and ``wave_overhead_s`` are read),
-    keeping :mod:`repro_torch.obs` free of the core import chain.
+    the spec the features were taken with.  ``ii_scale`` is a
+    calibrated spec's per-kind multiplier (1.0 without one).  A scalar
+    ``ops_block`` (rows written before the split by kind) is priced
+    unscaled.  ``spec`` is duck typed (``hbm_bw``, ``fp32_flops``,
+    ``wave_overhead_s`` and an optional ``ii_scale`` are read), keeping
+    :mod:`repro_torch.obs` free of the core import chain.
 
     >>> class S:
     ...     hbm_bw, fp32_flops, wave_overhead_s = 1e9, 1e9, 1e-6
     >>> feats = {"groups": [{"blocks": 4, "bytes_block": 1000,
-    ...                      "ops_block": 500.0, "fill": 0.5,
+    ...                      "ops_block": {"point": 500.0}, "fill": 0.5,
     ...                      "waves": 1}]}
     >>> round(predict_features(feats, S()) * 1e6, 3)  # 4*1000/0.5e9 + 1us
     9.0
     """
     total = 0.0
     for g in features.get("groups", ()):
-        dma_s = g["blocks"] * g["bytes_block"] / (spec.hbm_bw * g["fill"])
-        compute_s = (g["blocks"] * g["ops_block"]
-                     / (spec.fp32_flops * g["fill"]))
-        total += max(dma_s, compute_s) + g["waves"] * spec.wave_overhead_s
+        total += group_seconds(g, spec)
     return total * features.get("items", 1)
 
 

@@ -17,10 +17,15 @@ registers the *post-canonicalization* signature as an alias of the
 same entry — resubmitting either form hits.  The pipeline is
 idempotent, so there are at most two keys per app.
 
-Compile options are part of the key (the engine's ``device=`` among
-them).  Option values that carry a ``to_json`` method are keyed by
-their JSON form, so two equal configs built by different processes
-still map to one entry.
+Compile options are part of the key (the engine's ``device=`` and
+``tune=`` among them).  Option values that carry a ``to_json`` method
+are keyed by their JSON form, so two equal configs built by different
+processes still map to one entry.  A ``calibrate=`` option is resolved
+here, into the backend it names
+(:func:`repro_torch.backends.resolve_calibrated`): the entry is keyed by
+that backend's ``cache_key()``, which covers the fitted spec, so
+calibrated apps never mix with uncalibrated ones, and a refit (by the
+drift sentinel) compiles anew.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import weakref
 from collections import OrderedDict
 from typing import Any, Callable
 
-from repro_torch.backends import resolve
+from repro_torch.backends import resolve, resolve_calibrated
 from repro_torch.core.compiler import compile_graph
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.host import CompiledApp
@@ -156,10 +161,18 @@ class CompileCache:
         ``backend`` is a registered name or a
         :class:`~repro_torch.backends.Backend`; the entry is keyed by the
         resolved record's :meth:`~repro_torch.backends.Backend.cache_key`
-        (name + digest of capabilities and constants), so re-registering
-        a name with different constants never serves stale kernels.
+        (its name, plus a digest of the constants for a calibrated
+        copy), so calibrated and uncalibrated compiles never share an
+        entry.
         """
-        backend = resolve(backend)
+        calibrate = compile_kwargs.pop("calibrate", None)
+        if calibrate is None or calibrate is False:
+            backend = resolve(backend)
+        else:
+            from repro_torch.tune.store import detect_device_kind
+            backend = resolve_calibrated(
+                backend, calibrate,
+                device_kind=detect_device_kind(compile_kwargs.get("device")))
         # ``trace`` is observability plumbing, not a compile option: a
         # Tracer's repr is identity-based, so keying it would split the
         # cache per tracer instance for semantically identical compiles

@@ -11,8 +11,7 @@ The worker thread enters ``torch.cuda.device(engine.device)`` before its
 first launch; client threads make no CUDA call for a request (``submit``
 validates shapes on the host; a cache miss compiles on the submitting
 thread, as in the reference).  ``replicas`` other than 1 (``ROADMAP.md``
-A6) and a drift ``sentinel`` (A5) raise
-:class:`~repro_torch.device.NotPortedError`.
+A6) raises :class:`~repro_torch.device.NotPortedError`.
 
 FLOWER's generated host code sets up an XRT context, buffers and a
 command queue and overlaps H2D / kernel / D2H.  This module is that
@@ -77,7 +76,7 @@ import torch
 
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.host import CompiledApp
-from repro_torch.core.vectorize import (H100, GPUSpec, modeled_schedule_time,
+from repro_torch.core.vectorize import (device_spec, modeled_schedule_time,
                                         schedule_features)
 from repro_torch.device import NotPortedError, resolve_device
 from repro_torch.obs.drift import resolve_drift
@@ -274,10 +273,15 @@ class StreamEngine:
     rate-limited worker-loop sweep) evaluates with hysteresis; and
     :meth:`openmetrics` / :meth:`serve_metrics` expose everything as
     an OpenMetrics scrape with stable ``backend``/``device``/``app``
-    labels.  ``donate=`` is accepted and has no effect; ``replicas``
-    other than 1 and a ``sentinel`` other than ``None``/``False`` raise
-    :class:`~repro_torch.device.NotPortedError` (``ROADMAP.md`` A6 and
-    A5).
+    labels.  ``sentinel=True`` (with ``drift=``), a
+    :class:`~repro_torch.obs.sentinel.SentinelPolicy` or a
+    :class:`~repro_torch.obs.sentinel.DriftSentinel` arms the sentinel
+    that refits the cost model from the drift rows when its fit goes
+    stale (polled from the worker's idle loop).  ``tune="auto"`` and
+    ``calibrate=`` reach :func:`~repro_torch.core.compiler.compile_graph`
+    through the cache.  ``donate=`` is accepted and has no effect;
+    ``replicas`` other than 1 raises
+    :class:`~repro_torch.device.NotPortedError` (``ROADMAP.md`` A6).
     """
 
     def __init__(self, *, backend="cuda_stream", device: Any = None,
@@ -299,18 +303,12 @@ class StreamEngine:
             raise NotPortedError(
                 f"StreamEngine(replicas={replicas}): replication across "
                 f"cards is not ported to repro_torch yet (ROADMAP.md A6)")
-        if sentinel is not None and sentinel is not False:
-            raise NotPortedError(
-                "StreamEngine(sentinel=...): the drift sentinel refits the "
-                "cost model through the tuner, which is not ported to "
-                "repro_torch yet (ROADMAP.md A5)")
         #: the resolved Backend record; its cache_key() keys every
         #: compile below
         self.backend = resolve(backend)
         self.device = resolve_device(device)
         #: the spec compile_graph models this device with (drift rows)
-        self._spec = (GPUSpec.from_device(self.device)
-                      if self.device.type == "cuda" else H100)
+        self._spec = device_spec(self.device)
         self.max_queue = max_queue
         self.max_batch = max_batch
         self.max_pending = max_pending
@@ -333,6 +331,8 @@ class StreamEngine:
             slo if slo is not None else SLO(latency_p99_s=latency_budget),
             registry=self.telemetry.registry, tracer=self.tracer)
         self._metrics_server: Any = None
+        # drift sentinel: off unless asked (True/SentinelPolicy/instance)
+        self.sentinel = self._resolve_sentinel(sentinel)
         self._modeled_s: dict[str, float] = {}   # sig -> modeled s/item
         self._features: dict[str, dict] = {}     # sig -> drift features
         self._launched: set[tuple[str, int]] = set()  # warm (sig, width)
@@ -504,8 +504,34 @@ class StreamEngine:
         return out
 
     # ------------------------------------------------------------------
-    # observability plane: health, OpenMetrics
+    # observability plane: health, sentinel, OpenMetrics
     # ------------------------------------------------------------------
+    def _resolve_sentinel(self, sentinel: Any):
+        """Normalize the ``sentinel=`` argument (None/False = off)."""
+        if sentinel is None or sentinel is False:
+            return None
+        from repro_torch.obs.sentinel import DriftSentinel, SentinelPolicy
+        if isinstance(sentinel, DriftSentinel):
+            # adopt a pre-built sentinel into this engine's telemetry
+            # plane (unless the caller wired its own sinks)
+            if sentinel.registry is None:
+                sentinel.registry = self.telemetry.registry
+            if sentinel.tracer is None:
+                sentinel.tracer = self.tracer
+            return sentinel
+        if self.drift is None:
+            raise ValueError("sentinel= needs drift rows: pass drift=True "
+                             "(or a path/DriftLog) alongside it")
+        policy = sentinel if isinstance(sentinel, SentinelPolicy) else None
+        if not (sentinel is True or policy is not None):
+            raise TypeError(f"sentinel must be True/False/None, a "
+                            f"SentinelPolicy or a DriftSentinel; got "
+                            f"{sentinel!r}")
+        return DriftSentinel(self.drift, self.backend, policy=policy,
+                             registry=self.telemetry.registry,
+                             tracer=self.tracer, device=self.device,
+                             spec=self._spec)
+
     def health(self) -> dict[str, Any]:
         """Evaluate the SLOs now; returns the health verdict.
 
@@ -525,10 +551,11 @@ class StreamEngine:
             queue_depth=qd, cache_hit_rate=hit_rate)
 
     def _periodic(self) -> None:
-        """Idle-loop upkeep: a rate-limited health sweep.
+        """Idle-loop upkeep: rate-limited health and sentinel sweeps.
 
-        Failures here must never take the worker down with them —
-        they are telemetry's problem, not the serving path's.
+        Failures here must never take the worker down with them — a
+        sentinel refit hitting a torn store is telemetry's problem, not
+        the serving path's.
         """
         try:
             stats = self.cache.stats
@@ -537,6 +564,8 @@ class StreamEngine:
                 shed=self.telemetry.shed, queue_depth=self._pending,
                 cache_hit_rate=(stats.hit_rate if stats.requests
                                 else None))
+            if self.sentinel is not None:
+                self.sentinel.poll()
         except Exception:
             if self.tracer is not None:
                 self.tracer.instant("obs.periodic_error", cat="health")
@@ -546,7 +575,7 @@ class StreamEngine:
 
         Everything in the telemetry registry (latency/queue/batch
         summaries, phase histograms folded into one ``phase_seconds``
-        family with a ``phase`` label, health counters) plus
+        family with a ``phase`` label, health and sentinel counters) plus
         per-app admission counters and per-bucket launch counts — all
         stamped with the stable identity labels ``backend`` (the
         resolved backend's ``cache_key()``) and ``device`` kind.
@@ -680,7 +709,7 @@ class StreamEngine:
                     and not self._pool.active):
                 break
             self._flush_obs()      # idle: sync deferred telemetry
-            self._periodic()       # rate-limited health sweep
+            self._periodic()       # rate-limited health + sentinel
             self._wait_for_work()
 
     def _flush_obs(self) -> None:

@@ -284,7 +284,7 @@ def test_engine_defaults_to_the_card_and_refuses_unported_options():
         StreamEngine(autostart=False)
     with pytest.raises(NotPortedError, match="A6"):
         StreamEngine(replicas=2, autostart=False, **CPU)
-    with pytest.raises(NotPortedError, match="A5"):
+    with pytest.raises(ValueError, match="drift"):   # the sentinel is ported
         StreamEngine(sentinel=True, autostart=False, **CPU)
     with pytest.raises(NotPortedError, match="A6"):
         MicroBatcher(max_batch=4, replicas=2)
