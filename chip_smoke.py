@@ -109,12 +109,32 @@ no result line) on any error:
    name and power limit), its constants and ``drift_report``'s
    Spearman and bias before and after printed, ``harris`` re-tuned
    under it, and 8 frames served through ``StreamEngine(sentinel=...,
-   drift=<the phase's log>, tune="auto")`` with ``sentinel.check()``
-   printed;
-10. prints the ``kernels`` line; each route of flash and the MLP has its
+   drift=<the phase's log>, tune="auto")``, then the four apps in
+   bursts of 1, 2 and 4 frames, with ``sentinel.check()`` printed; the
+   engine's ``launch`` rows time the batches' launches on the card
+   (behind the launch gate), and the ``hbm_bw`` fitted from them alone
+   is printed beside the trial fit's (a fit that falls back to the seed
+   or comes under 1e11 B/s fails, and so does an app whose one-frame
+   rows' median is over 2x its tuned trial time);
+10. replication: ``filter_chain``, ``unsharp_mask``, ``harris`` and
+   ``optical_flow_lk`` at 1080x1920 through ``replicate_app`` at k = 1,
+   2 and 4 replicas (distinct cards where the host has k, else the
+   first card k times; every extended-plane kernel built in phase 2's
+   nvcc round): per app and k, with the launch counter at 0, k launches
+   per group a call, max abs error 0 against the single-device app and
+   <= 1e-6 x max|plain| against the replicated plain versions; the
+   replicated and the single-device app timed in turns (2 rounds of
+   the median of 20), beside the function's bound and the bound of the
+   copies replication adds.  Then 16 ``filter_chain`` frames through
+   ``MicroBatcher(max_batch=8, replicas=2, devices=[card, card])``
+   (2 launches per group a batch, each frame equal to its single-frame
+   launch), and ``StreamEngine(replicas=2)`` where the host has 2 cards
+   (skipped, and said so, on one);
+11. prints the ``kernels`` line; each route of flash and the MLP has its
    own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
    each served app its ``stream_group_b8[...]``, each tuned app its
-   ``stream_group.tuned[...]``.
+   ``stream_group.tuned[...]``, each replicated app and k its
+   ``stream_group.replicated[<app>,k=<k>]``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -271,21 +291,25 @@ def main() -> int:
         return 2.0 * img - blur
 
     qs_app = sharpen.compile(fe.spec((QS_H, QS_W)))
+    reps = replicated_apps(torch, apps)
     compile_s = time.perf_counter() - t0
-    kernels = [k for a in [*apps.values(), *ragged.values(), qs_app]
+    kernels = [k for a in [*apps.values(), *ragged.values(), qs_app,
+                           *(r for r, _plain in reps.values())]
                for k in a.kernels]
     t0 = time.perf_counter()
     lm_sources = [build.CudaSource(name) for name in LM_KERNELS]
+    gate = build.CudaSource("launch_gate")     # phase 9's launch rows
     chains = pipeline_chains(torch)          # fused, and one per stage
     sp_sources = {PipelineKernel(c).source for c in chains.values()} | {
         PipelineKernel((fn,)).source for c in chains.values() for fn in c}
     build.build_libraries([("sg", k.source) for k in kernels]
                           + [(src.name, src.source) for src in lm_sources]
+                          + [(gate.name, gate.source)]
                           + [("sp", src) for src in sorted(sp_sources)])
-    print(f"compiled {len(apps) + len(ragged) + 1} apps in {compile_s:.2f} "
-          f"s; built "
-          f"{len(kernels)} group kernels, {len(lm_sources)} LM kernels and "
-          f"{len(sp_sources)} pipeline chains "
+    print(f"compiled {len(apps) + len(ragged) + 1} apps and "
+          f"{len(reps)} replicated apps in {compile_s:.2f} s; built "
+          f"{len(kernels)} group kernels, {len(lm_sources)} LM kernels, "
+          f"{len(sp_sources)} pipeline chains and the launch gate "
           f"in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
 
@@ -419,6 +443,10 @@ def main() -> int:
 
     # -- phase 9: tuning, calibration and the drift sentinel -------------
     lm_entries += tuning_phase(torch, timer, smi, power_limit, args.seed)
+
+    # -- phase 10: replication over k replicas ---------------------------
+    lm_entries += replication_phase(torch, timer, smi, power_limit,
+                                    args.seed, apps, reps)
 
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
@@ -1421,7 +1449,9 @@ TUNE_REPS = 5                    # timed runs a measurement (best of)
 TUNE_ROUNDS = 4                  # analytic / tuned timed in turns
 RETUNE_APP = "harris"            # re-tuned under the fitted spec
 SENTINEL_FRAMES = 8
+LAUNCH_FIT_ROUNDS = 3            # bursts of 1, 2, 4 frames of each app
 FIXTURE = ROOT / "chiprun_out" / "torch_drift_h100.jsonl"
+LAUNCH_ROWS = ROOT / "chiprun_out" / "torch_launch_rows_h100.jsonl"
 
 
 def tuning_phase(torch, timer, smi: str, power_limit: float,
@@ -1432,6 +1462,7 @@ def tuning_phase(torch, timer, smi: str, power_limit: float,
     import math
     import os
     import tempfile
+    import warnings
 
     import numpy as np
 
@@ -1618,11 +1649,23 @@ def tuning_phase(torch, timer, smi: str, power_limit: float,
             g = build_app(TUNE_APPS[0], H, W)
             frames = [rng.standard_normal((H, W), dtype=np.float32)
                       for _ in range(SENTINEL_FRAMES)]
+            bursts = [build_app(n, H, W) for n in TUNE_APPS]
+            bursts = [(gn, {c.name: rng.standard_normal(c.shape,
+                                                         dtype=np.float32)
+                            for c in gn.graph_inputs}) for gn in bursts]
             with StreamEngine(sentinel=True,
                               drift=log, tune="auto", tune_cache=cache,
                               max_batch=4) as eng:
                 outs = [eng.submit(g, {"img": f}).result(timeout=300)
                         for f in frames]
+                # the four apps in bursts of 1, 2 and 4 frames: launch
+                # rows of several widths and groups for the fit below
+                for _ in range(LAUNCH_FIT_ROUNDS):
+                    for gn, x in bursts:
+                        for width in (1, 2, 4):
+                            hs = [eng.submit(gn, x) for _ in range(width)]
+                            for h in hs:
+                                h.result(timeout=300)
                 verdict = eng.sentinel.check()
                 served = eng.report()
             check(len(outs) == SENTINEL_FRAMES
@@ -1635,6 +1678,48 @@ def tuning_phase(torch, timer, smi: str, power_limit: float,
                 **{k: v for k, v in verdict.items() if k != "report"},
                 "refits": eng.sentinel.refits,
                 "checks": eng.sentinel.checks}), flush=True)
+
+            # the fit from the engine's launch rows alone: each row's
+            # measured time is its batch's launches on the card
+            launch_rows = [r for r in log.rows() if r.kind == "launch"]
+            with open(LAUNCH_ROWS, "w") as f:
+                for r in launch_rows:
+                    f.write(json.dumps(r.as_dict()) + "\n")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                lfit = calibrate(launch_rows, spec=seed_spec)
+            measured_us = sorted(r.measured_s * 1e6 for r in launch_rows)
+            # each app's one-frame rows against its tuned trial time (the
+            # search's CardTimer: a spin first, the L2 flushed)
+            over_trial = {}
+            for name in TUNE_APPS:
+                ones = [r.measured_s for r in launch_rows
+                        if r.attrs.get("app") == name
+                        and r.attrs.get("width") == 1]
+                over_trial[name] = (
+                    statistics.median(ones)
+                    / searches[name].record.best_measured_s
+                    if ones else None)
+            print(json.dumps({
+                "launch_fit": "phase 9", "rows": len(launch_rows),
+                "fitted": lfit.fitted, "warning": lfit.warning,
+                "hbm_bw": lfit.spec.hbm_bw,
+                "wave_overhead_s": lfit.spec.wave_overhead_s,
+                "trial_fit_hbm_bw": fit.spec.hbm_bw,
+                "rows_file": str(LAUNCH_ROWS.relative_to(ROOT)),
+                "measured_us": {"min": measured_us[0],
+                                "median": statistics.median(measured_us),
+                                "max": measured_us[-1]}
+                if measured_us else None,
+                "width1_median_over_trial": over_trial,
+                "card": smi}), flush=True)
+            check(lfit.fitted and lfit.spec.hbm_bw >= 1e11,
+                  f"the launch rows fit hbm_bw {lfit.spec.hbm_bw:.3e} B/s "
+                  f"(fitted={lfit.fitted}): they do not time the card")
+            check(all(v is not None and v <= 2.0
+                      for v in over_trial.values()),
+                  f"the one-frame launch rows' median is not within 2x of "
+                  f"the tuned trial time: {over_trial}")
         finally:
             if saved_root is None:
                 os.environ.pop("REPRO_TUNE_CACHE", None)
@@ -1643,6 +1728,209 @@ def tuning_phase(torch, timer, smi: str, power_limit: float,
     print(json.dumps({"tuning": "phase 9",
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     return entries
+
+
+# ----------------------------------------------------------------------
+# phase 10: replication
+# ----------------------------------------------------------------------
+REPLICATE_APPS = ("filter_chain", "unsharp_mask", "harris",
+                  "optical_flow_lk")
+REPLICA_COUNTS = (1, 2, 4)
+REPLICATE_ROUNDS = 2             # replicated / single-device in turns
+BATCHER_FRAMES = 16              # through the replicated MicroBatcher
+
+
+def replica_devices(torch, k: int) -> list:
+    """Distinct cards where the host has k, else the first card k times."""
+    if torch.cuda.device_count() >= k:
+        return [torch.device("cuda", j) for j in range(k)]
+    return [torch.device("cuda", 0)] * k
+
+
+def replicated_apps(torch, apps: dict) -> dict:
+    """(app, k) -> the replicated app and its plain twin (the same
+    replication through the plain versions, ``interpret=True``)."""
+    from repro_torch.core.graph import GraphError
+    from repro_torch.parallel import replicate_app
+    out = {}
+    for name in REPLICATE_APPS:
+        for k in REPLICA_COUNTS:
+            devs = replica_devices(torch, k)
+            try:
+                out[name, k] = (
+                    replicate_app(apps[name], k, devices=devs),
+                    replicate_app(apps[name], k, devices=devs,
+                                  interpret=True))
+            except GraphError as e:
+                raise RuntimeError(f"replicate_app refused {name} at "
+                                   f"k={k}: {e}") from e
+    return out
+
+
+def replication_phase(torch, timer, smi: str, power_limit: float,
+                      seed: int, apps: dict, reps: dict) -> list[dict]:
+    """Phase 10; returns the ``stream_group.replicated`` entries of the
+    kernels line."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels.stream_group import stream_group
+    from repro_torch.runtime import MicroBatcher, StreamEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 9's engine is gone
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    entries = []
+    for name in REPLICATE_APPS:
+        app = apps[name]
+        ins = {c.name: torch.randn(c.shape, device="cuda", generator=gen)
+               for c in app.graph.graph_inputs}
+        want = app(**ins)
+        names = list(want)
+        for k in REPLICA_COUNTS:
+            rep, plain = reps[name, k]
+            label = f"{name},k={k}"
+            groups = len(rep.schedule.groups)
+            # the main path: the replicated entry a user calls, counter
+            # from 0
+            stream_group.launches = 0
+            out = rep(**ins)
+            torch.cuda.synchronize()
+            launches = stream_group.launches
+            check(launches == k * groups,
+                  f"replicated[{label}]: {launches} kernel launches for "
+                  f"{k} replicas of {groups} groups")
+            for n in names:
+                o = out[n]
+                check(tuple(o.shape) == (H, W) and o.is_cuda
+                      and bool(torch.isfinite(o).all()),
+                      f"replicated[{label}]: output {n} is not finite "
+                      f"{(H, W)} on the card")
+            abs_err = max(float((out[n] - want[n]).abs().max())
+                          for n in names)
+            check(abs_err == 0.0,
+                  f"replicated[{label}]: max abs err {abs_err:.3e} against "
+                  f"the single-device app")
+            ref = plain(**ins)
+            vs_plain, rel = rel_err([out[n] for n in names],
+                                    [ref[n] for n in names])
+            check(rel <= TOL, f"replicated[{label}]: vs plain rel err "
+                              f"{rel:.3e}")
+            times = in_turns(timer, {"replicated": lambda: rep(**ins),
+                                     "single": lambda: app(**ins)},
+                             REPLICATE_ROUNDS)
+            ms = statistics.median(times["replicated"])
+            single_ms = statistics.median(times["single"])
+            plain_ms = timer(lambda: plain(**ins))
+            n_in, n_out = len(rep.input_names), len(rep.output_names)
+            # the function's bound: the single-device app's work
+            bound = bounds(app.kernels[0], 4 * H * W * (n_in + n_out))
+            # the copies replication adds: each input into its extended
+            # shards (the halo rows read from the neighbours, the image
+            # edges zero-filled), each output's rows into the global plane
+            hy = rep.halo_rows
+            ext_rows = k * (H // k + 2 * hy)
+            copy_bytes = 4 * W * (n_in * (2 * ext_rows - 2 * hy)
+                                  + n_out * 2 * H)
+            row = {"replicated": name, "replicas": k, "plane": [H, W],
+                   "devices": [str(d) for d in rep.mesh.devices],
+                   "halo_rows": hy,
+                   "local_plane": [H // k + 2 * hy, W],
+                   "tile": list(rep.kernels[0].tile), "groups": groups,
+                   "launches": launches, "max_abs_err": abs_err,
+                   "max_abs_err_vs_plain": vs_plain, "max_rel_err": rel,
+                   "ms": ms, "single_ms": single_ms,
+                   "over_single": ms / single_ms,
+                   "turns": turns_summary(times), "plain_ms": plain_ms,
+                   **bound, "bound_share": bound["bound_ms"] / ms,
+                   "copy_bytes": copy_bytes,
+                   "copy_bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3,
+                   "library_ms": None, "card": smi}
+            if power_limit < FULL_POWER_W:
+                row["bound_ms_power_scaled"] = (
+                    row["bound_ms"] * FULL_POWER_W / power_limit)
+            print(json.dumps(row), flush=True)
+            check(row["bound_share"] <= 1.05,
+                  f"replicated[{label}]: {ms:.5f} ms is under its bound "
+                  f"{row['bound_ms']:.5f} ms: the timing is wrong")
+            entries.append({
+                "name": f"stream_group.replicated[{label}]", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": REPLACES,
+                "launches": launches, "max_abs_err": abs_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"], "library_ms": None})
+            del out, ref
+        del ins, want
+
+    # the replicated micro-batcher: 16 frames, two batches of 8, each
+    # split over two replicas on the card
+    class Req:
+        def __init__(self, inputs):
+            self.inputs = inputs
+
+    app = apps["filter_chain"]
+    groups = len(app.schedule.groups)
+    card = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 24)
+    reqs = [Req({"img": rng.standard_normal((H, W), dtype=np.float32)})
+            for _ in range(BATCHER_FRAMES)]
+    mb = MicroBatcher(max_batch=8, replicas=2, devices=[card, card])
+    # the main path: the batcher's launches, counter from 0
+    stream_group.launches = 0
+    batches = [mb.launch(app, reqs[i:i + 8])
+               for i in range(0, BATCHER_FRAMES, 8)]
+    torch.cuda.synchronize()
+    launches = stream_group.launches
+    check(launches == 2 * groups * len(batches),
+          f"replicated batcher: {launches} launches for {len(batches)} "
+          f"batches of 2 replicas x {groups} groups")
+    worst = 0.0
+    for b, out in enumerate(batches):
+        slices = out["out"]
+        check(len(slices) == 2 and all(s.shape[0] == 4 for s in slices),
+              "replicated batcher: expected 2 slices of 4 frames")
+        rows = torch.cat(slices)
+        for i in range(8):
+            one = app(**reqs[8 * b + i].inputs)["out"]
+            err = float((rows[i] - one).abs().max())
+            check(err == 0.0, f"replicated batcher: frame {8 * b + i} "
+                              f"differs from its single-frame launch "
+                              f"({err:.3e})")
+            worst = max(worst, err)
+    print(json.dumps({"replication": "micro_batcher", "app": "filter_chain",
+                      "frames": BATCHER_FRAMES, "max_batch": 8,
+                      "replicas": 2, "devices": [str(card)] * 2,
+                      "batches": len(batches), "launches": launches,
+                      "bucket_launches": mb.bucket_launches,
+                      "max_abs_err": worst, "card": smi}), flush=True)
+    del batches
+
+    if torch.cuda.device_count() >= 2:
+        frames = [r.inputs for r in reqs]
+        g = app.schedule.graph
+        with StreamEngine(replicas=2, max_batch=8) as eng:
+            results = [eng.submit(app, x) for x in frames]
+            results = [h.result(timeout=300) for h in results]
+            rep = eng.report()
+        for x, got in zip(frames, results):
+            check(np.array_equal(got["out"], app(**x)["out"].cpu().numpy()),
+                  "replicated engine: a result differs from the "
+                  "single-frame launch")
+        print(json.dumps({"replication": "engine", "graph": g.name,
+                          "replicas": 2,
+                          "completed": rep["measured"]["completed"],
+                          "card": smi}), flush=True)
+    else:
+        print(json.dumps({"replication": "engine", "skipped":
+                          f"StreamEngine(replicas=2) needs 2 cards; this "
+                          f"host has {torch.cuda.device_count()}"}),
+              flush=True)
+    print(json.dumps({"replication": "phase 10",
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return entries
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -11,8 +11,11 @@
   on CPU tensors its wrapper runs the plain version.
 
 Trivial (custom/reduce) groups stay torch-composed on every backend,
-as the reference does.  Every seed serves tuning, timed by
-:func:`repro_torch.tune.search.default_measure`.
+as the reference does.  ``interpret=True`` lowers a ``cuda_stream``
+group to its plain version (the ``torch`` lowering) on whatever device
+its inputs lie.  Every seed serves tuning, timed by
+:func:`repro_torch.tune.search.default_measure`, and replication
+(:func:`repro_torch.parallel.replicate.replicate_app`).
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ __all__ = ["TORCH", "TORCH_STAGED", "CUDA_STREAM", "SEED_BACKENDS"]
 
 
 def _lower_torch(group, *, valid_rows: tuple[int, int] | None,
-                 staged: bool = False) -> Callable:
+                 staged: bool = False, interpret: bool = False) -> Callable:
+    # ``interpret`` changes nothing here: these stages are already the
+    # plain versions
     from repro_torch.core.fusion import lower_group_torch
     return lower_group_torch(group, staged=staged, valid_rows=valid_rows)
 
@@ -34,10 +39,10 @@ def _lower_torch_staged(group, **kw) -> Callable:
     return _lower_torch(group, staged=not group.is_trivial, **kw)
 
 
-def _lower_cuda_stream(group, *,
-                       valid_rows: tuple[int, int] | None) -> Callable:
+def _lower_cuda_stream(group, *, valid_rows: tuple[int, int] | None,
+                       interpret: bool = False) -> Callable:
     from repro_torch.core.fusion import lower_group_kernel, lower_group_torch
-    if group.is_trivial:
+    if group.is_trivial or interpret:
         return lower_group_torch(group, staged=False, valid_rows=valid_rows)
     return lower_group_kernel(group, valid_rows=valid_rows)
 
@@ -53,6 +58,7 @@ TORCH = register(Backend(
     name="torch",
     description="stages composed as torch ops on whole planes",
     lower=_lower_torch,
+    capabilities=frozenset({"tuning", "replication"}),
     measure=_tuner_measure,
 ))
 
@@ -61,6 +67,7 @@ TORCH_STAGED = register(Backend(
     description="every stage output, split arms included, materialized "
                 "as its own plane",
     lower=_lower_torch_staged,
+    capabilities=frozenset({"tuning", "replication"}),
     measure=_tuner_measure,
 ))
 
@@ -68,6 +75,7 @@ CUDA_STREAM = register(Backend(
     name="cuda_stream",
     description="one generated CUDA kernel per fusion group (sm_90a)",
     lower=_lower_cuda_stream,
+    capabilities=frozenset({"tuning", "replication"}),
     measure=_tuner_measure,
 ))
 

@@ -2,7 +2,8 @@
 
 Port of :mod:`repro.backends.spec`.  A ``Backend`` names a target, its
 ``lower`` hook, the ``measure`` hook the autotuner times candidates
-with, and the features it can serve (``capabilities``: ``"tuning"``).
+with, and the features it can serve (``capabilities``: ``"tuning"``,
+``"replication"``).
 The reference's per-backend lane widths and tile caps are not carried
 over: every backend of the port lowers every stage kind, and the tile
 cap is that of :mod:`repro_torch.core.vectorize`.  ``spec`` is
@@ -25,7 +26,7 @@ from repro_torch.core.graph import GraphError
 __all__ = ["Backend", "UnsupportedBackendError", "FEATURE_CAPS"]
 
 #: the features a backend may declare
-FEATURE_CAPS = frozenset({"tuning"})
+FEATURE_CAPS = frozenset({"tuning", "replication"})
 
 
 class UnsupportedBackendError(GraphError):
@@ -47,7 +48,9 @@ class Backend:
     """Declarative description of one lowering target."""
 
     name: str
-    #: ``lower(group, *, valid_rows) -> fn({channel: tensor})``
+    #: ``lower(group, *, valid_rows) -> fn({channel: tensor})``; it
+    #: also takes ``interpret=True`` when a compile asks for the plain
+    #: versions
     lower: Callable
     description: str = ""
     #: features this backend serves (a subset of :data:`FEATURE_CAPS`)
@@ -106,8 +109,12 @@ class Backend:
                 backend=self.name, missing=absent)
 
     def lower_group(self, group, *,
-                    valid_rows: tuple[int, int] | None = None) -> Callable:
-        """Hand ``group`` to the lower hook."""
+                    valid_rows: tuple[int, int] | None = None,
+                    interpret: bool = False) -> Callable:
+        """Hand ``group`` to the lower hook; ``interpret=True`` asks it
+        for the group's plain version instead of a kernel."""
+        if interpret:
+            return self.lower(group, valid_rows=valid_rows, interpret=True)
         return self.lower(group, valid_rows=valid_rows)
 
     def __repr__(self) -> str:

@@ -15,13 +15,16 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
+import torch
+
 from repro_torch.core.fusion import lower_graph
 from repro_torch.core.graph import DataflowGraph
-from repro_torch.core.host import CompiledApp, build_host_app
+from repro_torch.core.host import (CompiledApp, build_host_app,
+                                   replicated_host_app)
 from repro_torch.core.schedule import build_schedule
 from repro_torch.core.transform import Pass, PassPipeline
 from repro_torch.core.vectorize import GPUSpec, device_spec
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.obs.tracer import maybe_span, resolve_tracer
 
 __all__ = ["compile_graph"]
@@ -69,11 +72,22 @@ def compile_graph(graph: DataflowGraph, backend="cuda_stream", *,
     keeps the seed constants and cache keys.  An explicit ``spec=``
     still wins over calibration.
 
-    Not ported yet, and refused with
-    :class:`~repro_torch.device.NotPortedError`: ``mesh`` (replication),
-    ``donate`` (every call allocates new outputs) and ``interpret=True``
-    (a CUDA kernel has no interpret mode; CPU tensors take the plain
-    version).
+    ``mesh`` (a :class:`~repro_torch.parallel.sharding.ReplicaMesh`)
+    row-partitions every call over the mesh axis ``data_axis``: the app
+    runs through :func:`~repro_torch.parallel.replicate.replicate_app`'s
+    launcher, one replica a mesh device, with the schedule knobs and
+    ``tune`` applied to the replicas' local extended plane; outputs
+    equal the unsharded app's bit for bit, and a graph replication
+    refuses raises the same :class:`~repro_torch.core.graph.GraphError`.
+    ``app.mesh`` records the mesh, ``app.replicated`` the replicated app,
+    ``app.kernels`` its kernels; such an app has no batched entry.
+    ``donate`` names inputs whose buffers the caller gives up; it has no
+    effect (every call allocates its outputs) but shows in the buffer
+    declarations, and a name that is not an input raises.
+    ``interpret=True`` lowers every group to its plain version (no CUDA
+    kernel) on the app's device, as an explicit request; a CUDA kernel
+    has no interpret mode, and CPU tensors take the plain version
+    anyway.
 
     >>> from repro_torch.core.graph import DataflowGraph
     >>> g = DataflowGraph("doc")
@@ -84,12 +98,6 @@ def compile_graph(graph: DataflowGraph, backend="cuda_stream", *,
     >>> float(app(img=torch.ones(8, 128))["out"][0, 0])
     3.0
     """
-    refused = {"mesh": mesh is not None, "donate": bool(donate),
-               "interpret": bool(interpret)}
-    for key, hit in refused.items():
-        if hit:
-            raise NotPortedError(
-                f"compile_graph({key}=...) is not ported to repro_torch yet")
     if tune == "model":                 # explicit name for the default
         tune = None
     if tune is not None and vector_factor is not None:
@@ -101,6 +109,16 @@ def compile_graph(graph: DataflowGraph, backend="cuda_stream", *,
             "tune= and max_tile= are mutually exclusive: the tile cap is "
             "one of the tuner's search axes (and part of the cached "
             "config); pass max_tile_candidates to tune_graph instead")
+    axis = data_axis if isinstance(data_axis, str) else data_axis[0]
+    if mesh is not None:
+        if axis not in mesh.axis_names:
+            raise ValueError(f"data_axis {axis!r} is not an axis of the mesh "
+                             f"{mesh.axis_names}")
+        if device is None:
+            device = mesh.devices[0]
+        elif torch.device(device).type != mesh.devices[0].type:
+            raise ValueError(f"device {device!r} is not of the mesh's type "
+                             f"({mesh.devices[0].type})")
     dev = resolve_device(device)
     from repro_torch.backends import resolve_calibrated
     from repro_torch.tune.store import detect_device_kind
@@ -110,6 +128,20 @@ def compile_graph(graph: DataflowGraph, backend="cuda_stream", *,
     tracer = resolve_tracer(trace)
     with maybe_span(tracer, "compile", cat="compile", graph=graph.name,
                     backend=be.name) as top:
+        if mesh is not None:
+            from repro_torch.parallel.replicate import replicate_app
+            with maybe_span(tracer, "compile.replicate", cat="compile",
+                            graph=graph.name, replicas=mesh.size):
+                rep = replicate_app(
+                    graph, mesh.size, backend=be, axis=axis,
+                    devices=list(mesh.devices), canonicalize=canonicalize,
+                    strict=strict, passes=passes, spec=spec,
+                    vector_factor=vector_factor, max_tile=max_tile,
+                    tune=tune, tune_cache=tune_cache, interpret=interpret)
+            top.set(kernels=len(rep.schedule.groups),
+                    stages=len(rep.schedule.order))
+            return replicated_host_app(graph, rep, mesh, backend=be,
+                                       device=dev, donate=donate)
         tuned = None
         if tune is not None:
             from repro_torch.tune.search import (resolve_tuning,
@@ -135,9 +167,11 @@ def compile_graph(graph: DataflowGraph, backend="cuda_stream", *,
                 max_tile=max_tile, trace=tracer)
         with maybe_span(tracer, "compile.lower", cat="compile",
                         graph=graph.name, backend=be.name):
-            run, sched = lower_graph(sched.graph, be, schedule=sched)
+            run, sched = lower_graph(sched.graph, be, schedule=sched,
+                                     interpret=interpret)
         with maybe_span(tracer, "compile.host", cat="compile",
                         graph=graph.name):
-            app = build_host_app(sched, run, backend=be, device=dev)
+            app = build_host_app(sched, run, backend=be, device=dev,
+                                 donate=donate)
         top.set(kernels=len(sched.groups), stages=len(sched.order))
     return app

@@ -93,6 +93,7 @@ def lower_graph(graph: DataflowGraph, backend="cuda_stream",
                 canonicalize: bool = True, strict: bool = False,
                 max_tile: tuple[int, int] | None = None,
                 valid_rows: tuple[int, int] | None = None,
+                interpret: bool | None = None,
                 ) -> tuple[Callable, Schedule]:
     """Lower a whole dataflow graph; returns ``(run, schedule)``.
 
@@ -102,7 +103,9 @@ def lower_graph(graph: DataflowGraph, backend="cuda_stream",
     same for a batch: every input and output gains a leading axis of
     ``B`` frames.  A kernel group launches once for all ``B``; a group
     composed of torch ops (the ``torch`` backends, trivial groups) runs
-    frame by frame.  Unless a pre-built ``schedule`` is passed, the
+    frame by frame.  ``interpret=True`` lowers every group to its plain
+    version (no kernel), on whatever device the inputs lie.  Unless a
+    pre-built ``schedule`` is passed, the
     graph is canonicalized and partitioned first
     (:func:`repro_torch.core.schedule.build_schedule`).
     """
@@ -113,7 +116,8 @@ def lower_graph(graph: DataflowGraph, backend="cuda_stream",
                                        vector_factor=vector_factor,
                                        max_tile=max_tile)
     graph = sched.graph
-    fns = [be.lower_group(g, valid_rows=valid_rows) for g in sched.groups]
+    fns = [be.lower_group(g, valid_rows=valid_rows, interpret=bool(interpret))
+           for g in sched.groups]
 
     def graph_run(group_fns: list[Callable]) -> Callable:
         def run(inputs: dict[str, Any]) -> dict[str, Any]:

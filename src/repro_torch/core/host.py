@@ -6,14 +6,16 @@ device, the call into the lowered graph, and the buffer declarations
 that :meth:`CompiledApp.host_program` renders as an XRT-style listing.
 
 Differences from the reference: readiness of an asynchronous launch is
-a CUDA event (``Event.query()``) instead of ``is_ready()``; buffer
-donation is not ported (every call allocates new output tensors), and
-meshes wait for the replication slice.
+a CUDA event (``Event.query()``) instead of ``is_ready()``; donated
+inputs are named in the buffer declarations but every call allocates
+new output tensors; and an app compiled with a mesh runs through the
+replicated launcher of :mod:`repro_torch.parallel.replicate`, where
+the reference row-shards every plane under GSPMD.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -21,7 +23,8 @@ import torch
 from repro_torch.core.graph import DataflowGraph, GraphError, as_dtype, dtype_name
 from repro_torch.core.schedule import Schedule
 
-__all__ = ["CompiledApp", "LaunchHandle", "build_host_app"]
+__all__ = ["CompiledApp", "LaunchHandle", "build_host_app",
+           "replicated_host_app"]
 
 
 @dataclasses.dataclass
@@ -53,6 +56,8 @@ class BufferDecl:
     dtype: str
     direction: str        # "in" | "out"
     bundle: int | None
+    #: named in ``compile_graph(donate=)``; no effect (module doc)
+    donated: bool = False
 
 
 @dataclasses.dataclass
@@ -74,6 +79,12 @@ class CompiledApp:
     #: ``B`` frames; one kernel launch per group for all of them
     #: (:class:`~repro_torch.runtime.batching.MicroBatcher` calls it)
     batch_fn: Callable | None = None
+    #: the :class:`~repro_torch.parallel.sharding.ReplicaMesh` of
+    #: ``compile_graph(mesh=)``, and the
+    #: :class:`~repro_torch.parallel.replicate.ReplicatedApp` that ``fn``
+    #: runs then (``None`` for a single-device app)
+    mesh: Any = None
+    replicated: Any = None
 
     def _args(self, inputs: dict[str, Any]) -> list[torch.Tensor]:
         args = []
@@ -114,6 +125,14 @@ class CompiledApp:
         lines = [
             "// ---- generated host program (XRT-style rendering) ----",
             f"// device: {self.device}",
+        ]
+        if self.replicated is not None:
+            r = self.replicated
+            local = (r.plane[0] // r.n_replicas + 2 * r.halo_rows, r.plane[1])
+            lines.append(f"// mesh: {r.n_replicas} replicas over axis "
+                         f"{r.mesh.axis_names[0]!r}, local plane {local} "
+                         f"({r.halo_rows} halo rows a side)")
+        lines += [
             "auto device = xcl::get_devices()[0];",
             'auto bin = xcl::read_binary_file("%s.xclbin");' % self.graph.name,
             "auto q = cl::CommandQueue(context, device, 0);",
@@ -121,8 +140,9 @@ class CompiledApp:
         for b in self.buffers:
             flag = "CL_MEM_READ_ONLY" if b.direction == "in" else "CL_MEM_WRITE_ONLY"
             nbytes = int(np.prod(b.shape)) * getattr(torch, b.dtype).itemsize
+            donated = " donated" if b.donated else ""
             lines.append(f"cl::Buffer {b.name}(context, {flag}, /*bytes=*/"
-                         f"{nbytes}); // bundle=mem{b.bundle}")
+                         f"{nbytes}); // bundle=mem{b.bundle}{donated}")
         for b in self.buffers:
             if b.direction == "in":
                 lines.append(f"q.enqueueWriteBuffer({b.name}, ...);  // H2D")
@@ -139,12 +159,14 @@ class CompiledApp:
 
 
 def build_host_app(sched: Schedule, run: Callable, *, backend="cuda_stream",
-                   device=None) -> CompiledApp:
+                   device=None, donate: Sequence[str] = ()) -> CompiledApp:
     """Generate the host launcher around an already-lowered graph.
 
     ``run`` is the whole-graph function from
     :func:`repro_torch.core.fusion.lower_graph`; the graph is taken from
     the schedule so launcher and kernels never disagree on the I/O.
+    ``donate`` names inputs whose buffers the caller gives up; a name
+    that is not an input raises :class:`GraphError`.
     """
     from repro_torch.backends import resolve
     from repro_torch.device import resolve_device
@@ -160,13 +182,40 @@ def build_host_app(sched: Schedule, run: Callable, *, backend="cuda_stream",
             return tuple(outs[n] for n in output_names)
         return step
 
-    buffers = [BufferDecl(c.name, c.shape, dtype_name(c.dtype), "in", c.bundle)
+    batched = getattr(run, "batched", None)
+    return CompiledApp(graph, sched, backend, entry(run),
+                       _buffer_decls(graph, donate), input_names,
+                       output_names, device,
+                       list(getattr(run, "kernels", [])),
+                       entry(batched) if batched is not None else None)
+
+
+def replicated_host_app(graph: DataflowGraph, rep: Any, mesh: Any, *,
+                        backend, device,
+                        donate: Sequence[str] = ()) -> CompiledApp:
+    """The host launcher of ``compile_graph(mesh=)``: the global
+    plane's buffers around the launcher of ``rep``, a
+    :class:`~repro_torch.parallel.replicate.ReplicatedApp`, whose
+    schedule and kernels (the local extended plane's) are what runs.
+    Such an app has no batched entry."""
+    return CompiledApp(graph, rep.schedule, backend, rep.fn,
+                       _buffer_decls(graph, donate), list(rep.input_names),
+                       list(rep.output_names), device, list(rep.kernels),
+                       None, mesh=mesh, replicated=rep)
+
+
+def _buffer_decls(graph: DataflowGraph,
+                  donate: Sequence[str]) -> list[BufferDecl]:
+    """The graph's I/O buffers; ``donate`` must name inputs."""
+    input_names = [c.name for c in graph.graph_inputs]
+    unknown = sorted(set(donate) - set(input_names))
+    if unknown:
+        raise GraphError(f"donate names {unknown}, which are not inputs of "
+                         f"{graph.name!r} (inputs: {input_names})")
+    buffers = [BufferDecl(c.name, c.shape, dtype_name(c.dtype), "in", c.bundle,
+                          c.name in donate)
                for c in graph.graph_inputs]
     buffers += [BufferDecl(c.name, c.shape, dtype_name(c.dtype), "out",
                            c.bundle)
                 for c in graph.graph_outputs]
-    batched = getattr(run, "batched", None)
-    return CompiledApp(graph, sched, backend, entry(run), buffers,
-                       input_names, output_names, device,
-                       list(getattr(run, "kernels", [])),
-                       entry(batched) if batched is not None else None)
+    return buffers

@@ -10,8 +10,20 @@ back with one ``.cpu()`` per output, and each request gets numpy rows.
 The worker thread enters ``torch.cuda.device(engine.device)`` before its
 first launch; client threads make no CUDA call for a request (``submit``
 validates shapes on the host; a cache miss compiles on the submitting
-thread, as in the reference).  ``replicas`` other than 1 (``ROADMAP.md``
-A6) raises :class:`~repro_torch.device.NotPortedError`.
+thread, as in the reference).  With ``replicas=k`` each padded batch is
+split over the k devices of ``replica_mesh(k)`` (the batch-parallel
+farm of :class:`~repro_torch.runtime.batching.MicroBatcher`), the
+worker polls one event per device, and readback gathers every
+replica's rows.
+
+A drift ``launch`` row records the batch's *device* time: timing
+events around its launches on the card, behind a launch gate that holds
+the stream until the host has queued them
+(:class:`~repro_torch.runtime.batching.BatchSpan`); the host time
+around the batched entry on the CPU.  The sentinel then refits the cost
+model from what the model prices.  The reference records the whole
+service time (staging, launch and readback) there; ``svc`` stays in the
+telemetry and in ``compile`` rows.
 
 FLOWER's generated host code sets up an XRT context, buffers and a
 command queue and overlaps H2D / kernel / D2H.  This module is that
@@ -78,11 +90,11 @@ from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.host import CompiledApp
 from repro_torch.core.vectorize import (device_spec, modeled_schedule_time,
                                         schedule_features)
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.obs.drift import resolve_drift
 from repro_torch.obs.health import SLO, HealthMonitor
 from repro_torch.obs.tracer import resolve_tracer
-from repro_torch.runtime.batching import MicroBatcher
+from repro_torch.runtime.batching import BatchSpan, MicroBatcher
 from repro_torch.runtime.cache import CompileCache
 from repro_torch.runtime.slots import SlotPool
 from repro_torch.runtime.telemetry import (_SERVICE_ALPHA, PHASES, Telemetry,
@@ -96,6 +108,20 @@ _BUDGET_FRACTION = 0.5
 #: clamp on the adaptive formation budget (seconds)
 _BUDGET_MIN_S = 1e-4
 _BUDGET_MAX_S = 2e-2
+
+
+def _to_host(out: Any) -> np.ndarray:
+    """One batched output as a host array; a replicated output (the
+    replicas' row slices) is gathered row slice by row slice."""
+    if isinstance(out, torch.Tensor):
+        return out.cpu().numpy()
+    rows = sum(s.shape[0] for s in out)
+    host = torch.empty((rows, *out[0].shape[1:]), dtype=out[0].dtype)
+    r0 = 0
+    for s in out:
+        host[r0:r0 + s.shape[0]].copy_(s)
+        r0 += s.shape[0]
+    return host.numpy()
 
 
 class QueueFullError(RuntimeError):
@@ -279,9 +305,16 @@ class StreamEngine:
     that refits the cost model from the drift rows when its fit goes
     stale (polled from the worker's idle loop).  ``tune="auto"`` and
     ``calibrate=`` reach :func:`~repro_torch.core.compiler.compile_graph`
-    through the cache.  ``donate=`` is accepted and has no effect;
-    ``replicas`` other than 1 raises
-    :class:`~repro_torch.device.NotPortedError` (``ROADMAP.md`` A6).
+    through the cache.  ``donate=`` is accepted and has no effect.
+
+    ``replicas=k`` shards every padded micro-batch across the k devices
+    of :func:`~repro_torch.parallel.sharding.replica_mesh` on the
+    engine's device type — the batch-parallel farm: each device runs
+    one full pipeline replica on ``batch/k`` rows, and the report shows
+    measured per-replica throughput next to the model's predicted
+    scaling.  On ``cuda`` that is the first k cards, so asking for more
+    than the host has raises ``ValueError``; on ``cpu`` it is k copies
+    of the CPU.
     """
 
     def __init__(self, *, backend="cuda_stream", device: Any = None,
@@ -299,14 +332,17 @@ class StreamEngine:
                  drift: Any = None, slo: SLO | None = None,
                  sentinel: Any = None, **compile_kwargs: Any):
         from repro_torch.backends import resolve
-        if replicas != 1:
-            raise NotPortedError(
-                f"StreamEngine(replicas={replicas}): replication across "
-                f"cards is not ported to repro_torch yet (ROADMAP.md A6)")
+        from repro_torch.parallel.sharding import replica_mesh
         #: the resolved Backend record; its cache_key() keys every
         #: compile below
         self.backend = resolve(backend)
         self.device = resolve_device(device)
+        #: the replicas' devices (the engine's own device for one)
+        self.mesh = replica_mesh(
+            replicas, devices=[self.device] if replicas == 1 else None,
+            device=self.device)
+        # the devices whose streams a batch's readiness events sit on
+        self._streams = list(dict.fromkeys(self.mesh.devices))
         #: the spec compile_graph models this device with (drift rows)
         self._spec = device_spec(self.device)
         self.max_queue = max_queue
@@ -351,6 +387,8 @@ class StreamEngine:
         # returns, so a rotation may be rewritten only once the batch
         # that used it has been retired (read back).
         self._batcher = MicroBatcher(max_batch=max_batch, donate=donate,
+                                     replicas=replicas,
+                                     devices=list(self.mesh.devices),
                                      staging_depth=inflight + 1,
                                      trace=self.tracer
                                      if self.tracer is not None else False)
@@ -824,6 +862,9 @@ class StreamEngine:
     def _dispatch(self, batch: list[StreamRequest]) -> None:
         app = batch[0].app
         timings: dict[str, float] = {}
+        # the device time of the launches, for the drift row (only
+        # recorded when there is a drift log to write it to)
+        span = BatchSpan() if self.drift is not None else None
         try:
             # pad to the power-of-two bucket (or the fixed max_batch
             # width with bucket_pad=False): a 2-request batch launches
@@ -831,16 +872,20 @@ class StreamEngine:
             outs = self._batcher.launch(
                 app, batch,
                 pad_to=None if self._bucket_pad else self.max_batch,
-                timings=timings, check_shapes=False)
+                timings=timings, check_shapes=False, span=span)
         except BaseException as e:
             for r in batch:
                 r._fail(e)
             return
-        # one event after the batch's copies and kernels: what _reap polls
-        event = None
+        # one event per device after the batch's copies and kernels:
+        # what _reap polls
+        events = None
         if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            events = []
+            for dev in self._streams:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                events.append(event)
         t_disp = time.perf_counter()
         self._form_obs.update(timings)
         with self._obs_lock:
@@ -854,14 +899,14 @@ class StreamEngine:
         t_s0 = t_s1 - timings.get("stack", 0.0)
         if not self._pool.free_slots():
             self._retire(self._pool.oldest())     # rotate: block on oldest
-        self._pool.submit((batch, outs, event, t_disp, (t_s0, t_s1)))
+        self._pool.submit((batch, outs, events, t_disp, (t_s0, t_s1), span))
         self._pool.admit()
 
     def _reap(self) -> None:
         """Retire every in-flight slot whose outputs already landed.
 
-        Non-blocking: readiness is the batch's event (``query()``; a
-        CPU batch, which has no event, is ready).  This is what keeps
+        Non-blocking: readiness is the batch's events (``query()``; a
+        CPU batch, which has none, is ready).  This is what keeps
         the slot pool continuously refilled instead of draining at a
         barrier.
         """
@@ -869,8 +914,8 @@ class StreamEngine:
             return
 
         def _is_ready(item: Any) -> bool:
-            event = item[2]
-            return event is None or event.query()
+            events = item[2]
+            return events is None or all(e.query() for e in events)
 
         for slot in self._pool.ready(_is_ready):
             self._retire(slot)
@@ -878,10 +923,10 @@ class StreamEngine:
     def _retire(self, slot: int | None) -> None:
         if slot is None:
             return
-        batch, outs, _event, t_disp, stage_ts = self._pool.retire(slot)
+        batch, outs, _events, t_disp, stage_ts, span = self._pool.retire(slot)
         t0 = time.perf_counter()
         # blocks here until the batch is done, then copies it back
-        host = {k: v.cpu().numpy() for k, v in outs.items()}
+        host = {k: _to_host(v) for k, v in outs.items()}
         now = time.perf_counter()
         # claim completions quietly, record them, THEN wake waiters —
         # a caller that wakes from result() and immediately reads
@@ -915,7 +960,7 @@ class StreamEngine:
         # bookkeeping reconstructed from stamps, never waiter latency
         if self.tracer is not None or self.drift is not None:
             self._record_batch(batch, winners, host, t_disp, stage_ts,
-                               t0, now, svc)
+                               t0, now, svc, span)
         if backlog >= 64:
             self._flush_obs()
 
@@ -923,7 +968,8 @@ class StreamEngine:
                       winners: list[StreamRequest],
                       host: dict[str, np.ndarray], t_disp: float,
                       stage_ts: tuple[float, float], t0: float,
-                      now: float, svc: float) -> None:
+                      now: float, svc: float,
+                      span: BatchSpan | None = None) -> None:
         """Emit one retired batch's trace timelines and drift row.
 
         Runs on the worker thread at retirement, entirely from
@@ -965,19 +1011,26 @@ class StreamEngine:
                 self._features[sig] = schedule_features(app.schedule,
                                                         spec=self._spec)
             kind = "launch"
+            items, measured = width, svc
             if (sig, width) not in self._launched:
                 self._launched.add((sig, width))
                 kind = "compile"   # cold (sig, width): svc includes the build
-            # the features behind `modeled * width`, so a later fit can
+            else:
+                # the launches' device time, the frames one device ran
+                # (a span exists whenever there is a drift log)
+                items, measured = span.items, span.seconds()
+                if measured is None:
+                    return   # a gate timed out: the pair held the host
+            # the features behind `modeled * items`, so a later fit can
             # re-score this launch under other constants; `compile` rows
             # keep them too (their svc includes building the kernels)
             features = dict(self._features[sig])
-            if width != 1:
-                features["items"] = int(width)
+            if items != 1:
+                features["items"] = int(items)
             self.drift.record(
                 kind, sig,
                 [list(shape) for _n, shape in self._io_specs.get(sig, [])],
-                self.backend.name, modeled * width, svc,
+                self.backend.name, modeled * items, measured,
                 app=app.graph.name, width=width, batch=len(batch),
                 backend_key=self._backend_key, features=features)
 

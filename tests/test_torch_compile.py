@@ -33,7 +33,8 @@ from repro_torch.core import apps as tapps                 # noqa: E402
 from repro_torch.core.compiler import compile_graph        # noqa: E402
 from repro_torch.core.fusion import lower_graph            # noqa: E402
 from repro_torch.core.host import LaunchHandle             # noqa: E402
-from repro_torch.device import NotPortedError              # noqa: E402
+from repro_torch.core.graph import GraphError             # noqa: E402
+from repro_torch.parallel import replica_mesh              # noqa: E402
 
 H, W = 37, 150
 APP_NAMES = sorted(japps.APPS)
@@ -132,14 +133,42 @@ def test_launch_handle_and_host_program_on_cpu():
     assert len(app.kernels) == 1
 
 
-@pytest.mark.parametrize("kwargs", [{"tune": "auto", "mesh": object()},
+@pytest.mark.parametrize("kwargs", [{"tune": "auto", "mesh": 2},
                                     {"calibrate": "auto", "donate": ["img"]},
-                                    {"mesh": object()}, {"donate": ["img"]},
+                                    {"mesh": 3}, {"donate": ["img"]},
                                     {"interpret": True}])
-def test_unported_keywords_raise(kwargs):
-    # tune= and calibrate= are ported; they do not get past a refusal
-    with pytest.raises(NotPortedError):
-        compile_graph(tapps.build_app("square", H, W), device="cpu", **kwargs)
+def test_unported_keywords_raise(kwargs, tmp_path, monkeypatch):
+    """The keywords these cases once saw refused now run.  ``mesh``
+    (k CPU replicas over axis "data") and ``donate`` give the unsharded
+    app's outputs bit for bit; ``interpret=True`` runs the plain
+    versions, with no kernel generated."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path))
+    kwargs = dict(kwargs)
+    h = 36                               # divides over 2 and 3 replicas
+    if "mesh" in kwargs:
+        kwargs["mesh"] = replica_mesh(kwargs["mesh"], axis="data",
+                                      device="cpu")
+    app = compile_graph(tapps.build_app("filter_chain", h, W), device="cpu",
+                        **kwargs)
+    plain = compile_graph(tapps.build_app("filter_chain", h, W),
+                          device="cpu")
+    x = np.random.default_rng(5).normal(size=(h, W)).astype(np.float32)
+    assert torch.equal(app(img=x)["out"], plain(img=x)["out"])
+    assert app.mesh is kwargs.get("mesh")
+    if "mesh" in kwargs:
+        assert app.replicated.n_replicas == kwargs["mesh"].size
+        assert "// mesh:" in app.host_program()
+    if "donate" in kwargs:
+        assert [b.name for b in app.buffers if b.donated] == ["img"]
+        assert "bundle=mem0 donated" in app.host_program()
+    if kwargs.get("interpret"):
+        assert app.kernels == []
+
+
+def test_donate_names_an_input():
+    with pytest.raises(GraphError, match="not inputs"):
+        compile_graph(tapps.build_app("square", H, W), device="cpu",
+                      donate=["nope"])
 
 
 def test_compile_rejects_wrong_input_shape():

@@ -23,8 +23,7 @@ torch.set_num_threads(1)
 
 from repro_torch.core import DataflowGraph, compile_graph   # noqa: E402
 from repro_torch.core import apps as tapps                 # noqa: E402
-from repro_torch.device import (DeviceUnavailableError,    # noqa: E402
-                                NotPortedError)
+from repro_torch.device import DeviceUnavailableError     # noqa: E402
 from repro_torch.frontend.lib import (JACOBI3, LAPLACE3,   # noqa: E402
                                       conv_taps)
 from repro_torch.kernels import build                      # noqa: E402
@@ -282,13 +281,20 @@ def test_engine_defaults_to_the_card_and_refuses_unported_options():
         pytest.skip("a card is present")
     with pytest.raises(DeviceUnavailableError):
         StreamEngine(autostart=False)
-    with pytest.raises(NotPortedError, match="A6"):
-        StreamEngine(replicas=2, autostart=False, **CPU)
+    with pytest.raises(DeviceUnavailableError):       # the mesh is the card's
+        StreamEngine(replicas=2, autostart=False)
     with pytest.raises(ValueError, match="drift"):   # the sentinel is ported
         StreamEngine(sentinel=True, autostart=False, **CPU)
-    with pytest.raises(NotPortedError, match="A6"):
-        MicroBatcher(max_batch=4, replicas=2)
+    # replication is ported: two CPU replicas serve, bit for bit
     app = compile_graph(_diamond(), backend="torch", **CPU)
+    xs = _frames(3)
+    with StreamEngine(backend="torch", replicas=2, max_batch=4, **CPU) as eng:
+        outs = [eng.submit(app, {"x": x}) for x in xs]
+        outs = [h.result(timeout=T)["y"] for h in outs]
+    for x, y in zip(xs, outs):
+        np.testing.assert_array_equal(y, app(x=x)["y"].numpy())
+    mb = MicroBatcher(max_batch=4, replicas=2)
+    assert [mb.bucket(n) for n in (1, 2, 3)] == [2, 2, 4]
     eng = StreamEngine(backend="torch", autostart=False, **CPU)
     try:
         eng.submit(app, {"x": np.zeros((8, 128), np.float32)}).cancel()

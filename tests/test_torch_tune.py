@@ -2,8 +2,8 @@
 search, cache hits with zero measurements, serving integration, and
 parity with the JAX package under one schedule config.
 
-Twins of ``tests/test_tuning.py`` on the port (without the replication
-test, which waits for ``ROADMAP.md`` A6).  The search is exercised with
+Twins of ``tests/test_tuning.py`` on the port (the replication test's
+twin is in ``tests/test_torch_parallel.py``).  The search is exercised with
 injected fake measurements (deterministic functions of the candidate
 config) on the CPU, at planes of at most 96x256; two tests run the real
 measurer on the CPU, where it times the plain versions.  Parity: under
