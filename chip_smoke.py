@@ -42,7 +42,11 @@ no result line) on any error:
    per prefill, every one on its tensor-core route, decode attention 40
    per decode step, MLP 40 per prefill on its tensor-core route and 40
    per decode step on its decode route; a fused MLP call's launches
-   count as one),
+   count as one; the decode step is one CUDA graph, captured once per
+   batcher, and the counts are the executed launches), serves the same
+   requests again with the step called eagerly (the same tokens, logits
+   equal to the graph's, max abs 0), times the graph's step against the
+   eager one in turns on one cache (host clock to a synchronize),
    and teacher-forces two requests through ``prefill`` /
    ``decode_step`` with the kernels and with ``impl="ref"``, logits
    within 5e-2 * max|logits|;
@@ -57,7 +61,9 @@ no result line) on any error:
    serves 8 requests on mamba2-2.7b at full width and
    depth (64 layers, bf16, random weights from ``--seed``) through the
    4-slot batcher with ``ssd_scan`` launched exactly 64 times per
-   prefill (and never at decode); teacher-forces two requests against
+   prefill (and never at decode), the step captured and held against
+   the eager step as in phase 5 (so too zamba2's); teacher-forces two
+   requests against
    ``impl="ref"`` (logits within twice the spread between two plain
    versions) and one in float32 (within 1e-4 * max|logits|); then frees
    it and serves 4 requests on zamba2-1.2b at full width (38 Mamba2
@@ -551,48 +557,108 @@ def read_counts(counters) -> dict:
     return out
 
 
+class TimedSteps:
+    """Records CUDA events around each admission and decode step, and
+    each step's logits as returned (a mixin over ``ContinuousBatcher``
+    and its subclasses)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.prefill_events, self.decode_events, self.logits = [], [], []
+
+    def _admit(self):
+        import torch
+        n0, ev0 = self.prefills, torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        super()._admit()
+        if self.prefills > n0:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            self.prefill_events.append((ev0, ev1, self.prefills - n0))
+
+    def _decode_step(self, tokens, lengths):
+        import torch
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = super()._decode_step(tokens, lengths)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        self.decode_events.append((ev0, ev1))
+        self.logits.append(out[0])
+        return out
+
+
+def eager_decode_step(torch, M, cfg, params, cache, tokens, lengths):
+    """The decode step called eagerly from host arrays, one launch per
+    op: the yardstick of the captured step."""
+    cache = {**cache, "index": torch.tensor(lengths, device="cuda")}
+    token = torch.tensor(tokens, dtype=torch.long, device="cuda")
+    return M.decode_step(params, cfg, token, cache)
+
+
+def step_clock(torch, reps: int = 5):
+    """Host ms of one call that ends in a synchronize (median of
+    ``reps`` after one warm call): a step's wall time."""
+    def clock(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    return clock
+
+
+# the step's wall time, graph against eager: rounds in turns, and the
+# slots' lengths for them
+STEP_ROUNDS = 6
+STEP_LENGTHS = (17, 130, 301, 500)
+
+
 def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
                    init_s, expected) -> tuple[list, dict]:
     """Serves ``prompts`` through a ``ContinuousBatcher`` of N_SLOTS x
     MAX_LEN after a short warm-up, with every launch counter of
-    ``counters`` at 0 just before (each route's too); checks the tokens
-    and that the counts equal ``expected(prefills, decode_steps)``;
-    prints the ``serving``
+    ``counters`` at 0 just before (each route's too); checks the tokens,
+    one capture of the decode step, and that the counts (executed
+    launches: the graph's replays count theirs) equal
+    ``expected(prefills, decode_steps)``.  Then serves the same requests
+    with the decode step called eagerly and checks the same tokens and
+    logits equal to the graph's (max abs 0), and times the graph's step
+    against the eager one in turns on one cache.  Prints the ``serving``
     line.  Returns (finished requests, launch counts)."""
+    import numpy as np
+    from repro_torch.models import model as M
     from repro_torch.runtime.batcher import ContinuousBatcher, Request
 
-    class TimedBatcher(ContinuousBatcher):
-        """Records CUDA events around each admission and decode step."""
+    class TimedBatcher(TimedSteps, ContinuousBatcher):
+        """The batcher as served: the decode step one CUDA graph."""
 
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.prefill_events, self.decode_events = [], []
-
-        def _admit(self):
-            n0, ev0 = self.prefills, torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            super()._admit()
-            if self.prefills > n0:
-                ev1 = torch.cuda.Event(enable_timing=True)
-                ev1.record()
-                self.prefill_events.append((ev0, ev1, self.prefills - n0))
+    class Eager(ContinuousBatcher):
+        """The same scheduler with the decode step called eagerly."""
 
         def _decode_step(self, tokens, lengths):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            out = super()._decode_step(tokens, lengths)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev1.record()
-            self.decode_events.append((ev0, ev1))
-            return out
+            self.decode_steps += 1
+            return eager_decode_step(torch, M, self.cfg, self.params,
+                                     self.cache, tokens, lengths)
+
+    class EagerBatcher(TimedSteps, Eager):
+        """The eager batcher, timed."""
+
+    def serve(cls):
+        b = cls(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
+        for i, p in enumerate(prompts):
+            b.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+        return b
 
     warm = ContinuousBatcher(cfg, params, 1, 64, device="cuda")
     warm.submit(Request(rid=-1, prompt=prompts[0][:8], max_new_tokens=3))
     warm.run_to_completion()
     del warm
-    batcher = TimedBatcher(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
-    for i, p in enumerate(prompts):
-        batcher.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+    batcher = serve(TimedBatcher)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     t0 = time.perf_counter()
@@ -601,12 +667,16 @@ def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
     wall_s = time.perf_counter() - t0
     launches = read_counts(counters)
     steps = batcher.decode_steps
+    step = batcher.compiled
     check(sorted(r.rid for r in done) == list(range(len(prompts))),
           f"{cfg.name}: {len(done)} of {len(prompts)} requests finished")
     for r in done:
         check(len(r.tokens) == new_tokens
               and all(0 <= t < cfg.vocab_size for t in r.tokens),
               f"{cfg.name}: request {r.rid} gave {len(r.tokens)} tokens")
+    check(step.captures == 1 and step.steps == steps,
+          f"{cfg.name}: {step.captures} captures of the decode step over "
+          f"{step.steps} of {steps} steps")
     want = expected(batcher.prefills, steps)
     check(launches == want and all(launches[n] for n in counters),
           f"{cfg.name} serving launches {launches}, expected {want}")
@@ -614,6 +684,30 @@ def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
                   batcher.prefill_events]
     decode_ms = [a.elapsed_time(b) for a, b in batcher.decode_events]
     decode_tokens = len(prompts) * (new_tokens - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same requests with the step eager: same tokens, same logits
+    eager = serve(EagerBatcher)
+    edone = eager.run_to_completion()
+    check([r.tokens for r in edone] == [r.tokens for r in done],
+          f"{cfg.name}: the graph's tokens differ from the eager step's")
+    check(eager.decode_steps == steps and steps >= 8,
+          f"{cfg.name}: {steps} graph steps, {eager.decode_steps} eager")
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(batcher.logits, eager.logits))
+    check(diff == 0.0, f"{cfg.name}: graph vs eager logits differ by "
+          f"{diff:.3e}")
+    eager_ms = [a.elapsed_time(b) for a, b in eager.decode_events]
+
+    # the graph's step against the eager one, in turns on one cache
+    lengths = np.array(STEP_LENGTHS, np.int32)
+    tokens = np.arange(N_SLOTS, dtype=np.int32)
+    turns = in_turns(step_clock(torch), {
+        "graph": lambda: ContinuousBatcher._decode_step(batcher, tokens,
+                                                        lengths),
+        "eager": lambda: eager_decode_step(torch, M, cfg, params,
+                                           batcher.cache, tokens, lengths)},
+        STEP_ROUNDS)
     print(json.dumps({
         "serving": cfg.name, "layers": cfg.n_layers, "slots": N_SLOTS,
         "max_len": MAX_LEN, "requests": len(prompts),
@@ -625,8 +719,17 @@ def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
         "prefill_ms_per_request": prefill_ms,
         "decode_ms_per_step_median": statistics.median(decode_ms),
         "decode_tokens_per_s": decode_tokens / (sum(decode_ms) / 1e3),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_gb": peak_gb,
+        "captures": step.captures, "capture_ms": step.capture_ms,
+        "step_launches": step.step_launches,
+        "eager_decode_ms_per_step_median": statistics.median(eager_ms),
+        "eager_decode_tokens_per_s": decode_tokens / (sum(eager_ms) / 1e3),
+        "graph_vs_eager_max_abs": diff, "tokens_equal_eager": True,
+        "step_wall_in_turns": {"rounds": STEP_ROUNDS,
+                               "lengths": list(STEP_LENGTHS),
+                               **turns_summary(turns)},
         "card": smi}), flush=True)
+    del eager
     return done, launches
 
 

@@ -8,10 +8,16 @@ takes the dense ``granite_3_2b``, the SSM ``mamba2_2p7b`` and the hybrid
 
 Builds random parameters from ``--seed`` and a cache in the config's
 type, prefills ``--batch`` random prompts at once and decodes
-``--gen-len - 1`` more tokens in lock step.  On the card, prefill and
-decode are timed with CUDA events; on the CPU (``--device cpu``, the
-plain PyTorch versions) with the host clock, and the output says which.
-A mesh (``--mesh-data``) is not ported and raises.
+``--gen-len - 1`` more tokens in lock step.  The reference jits the
+decode step with the cache donated; here a
+:class:`~repro_torch.runtime.compiled_step.CompiledStep` captures it as
+one CUDA graph on the card (the lock-step index is one of its input
+buffers, refreshed from the step's ``index + 1``).  Prefill stays eager:
+it runs once per shape.  On the card, prefill and decode are timed with
+CUDA events; on the CPU (``--device cpu``, the plain PyTorch versions,
+the step eager) with the host clock, and the output says which and
+whether the decode ran captured.  A mesh (``--mesh-data``) is not ported
+and raises.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.device import NotPortedError, resolve_device
 from repro_torch.models import model as M
+from repro_torch.runtime.compiled_step import CompiledStep
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
 __all__ = ["main"]
@@ -90,14 +97,20 @@ def main(argv: list[str] | None = None) -> dict:
     logits, cache = prefill(params, {"tokens": prompt}, cache)
     tp = clock.stop_ms(t0)
 
-    tok = torch.argmax(logits, -1)
+    def decode_fn(token, index):      # the cache is updated in place
+        out, new = decode(params, {"token": token}, {**cache, "index": index})
+        return out, new["index"]
+
+    step = CompiledStep(decode_fn, device=dev)
+    tok, index = torch.argmax(logits, -1), cache["index"]
     outs = [tok]
     t0 = clock.start()
     for _ in range(args.gen_len - 1):
-        logits, cache = decode(params, {"token": tok}, cache)
+        logits, index = step(tok, index)
         tok = torch.argmax(logits, -1)
         outs.append(tok)
     td = clock.stop_ms(t0)
+    captured = step.captures > 0
 
     gen_tokens = torch.stack(outs, 1).cpu().numpy()
     n_dec = B * (args.gen_len - 1)
@@ -105,12 +118,14 @@ def main(argv: list[str] | None = None) -> dict:
              else "cpu")
     print(f"{cfg.name} on {where} ({clock.source}): prefill {tp:.1f} ms "
           f"({B * args.prompt_len / tp * 1e3:.0f} tok/s), decode "
-          f"{td:.1f} ms ({n_dec / max(td, 1e-9) * 1e3:.0f} tok/s)")
+          f"{td:.1f} ms ({n_dec / max(td, 1e-9) * 1e3:.0f} tok/s), "
+          + ("captured as one CUDA graph" if captured else "eager"))
     if not (np.all(gen_tokens >= 0) and np.all(gen_tokens < cfg.vocab_size)):
         raise RuntimeError("generated tokens outside the vocabulary")
     print("first row:", gen_tokens[0][:12], "... OK")
     return {"config": cfg.name, "device": where, "clock": clock.source,
-            "prefill_ms": tp, "decode_ms": td, "tokens": gen_tokens}
+            "prefill_ms": tp, "decode_ms": td, "decode_captured": captured,
+            "tokens": gen_tokens}
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@ port of ``repro.models.layers``).
 Parameters are declared with :class:`ParamDef` (shape, logical axes,
 init law) and made by :func:`init_tree` from one ``torch.Generator`` on
 the target device.  The blocks are plain functions on tensors; the LM
-kernels are reached through :mod:`repro_torch.kernels.ops` only.
+kernels are reached through :mod:`repro_torch.kernels.ops` only.  The
+decode path (``S == 1``) builds no device tensor from host data and
+reads nothing back to the host, so one CUDA graph can capture a whole
+decode step (:mod:`repro_torch.runtime.compiled_step`).
 
 Not here: the reference's ``shard_act`` / ``activation_rules`` (a no-op
 without a mesh, and the port has no mesh yet), MLA, MoE and the chunked
@@ -99,8 +102,8 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     D = x.shape[-1]
     half = D // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    # a Python base: no host-to-device copy, so a CUDA graph can capture it
+    freqs = torch.pow(float(theta), exps)
     ang = pos[..., None].to(torch.float32) * freqs        # (..., S, half)
     ang = ang[..., None, :]                               # broadcast heads
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -358,9 +361,10 @@ def mamba2_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
     z, xs, Bm, Cm, dt, new_conv = _ssm_in(p, cfg, x, conv_state)
     xs, Bm, Cm, dt = xs[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0]
     rep = H // g
-    if rep > 1:
-        Bm = torch.repeat_interleave(Bm, rep, dim=1)      # (B, H, n)
-        Cm = torch.repeat_interleave(Cm, rep, dim=1)
+    if rep > 1:            # repeat_interleave by expand: no host wait
+        n = Bm.shape[-1]
+        Bm = Bm[:, :, None].expand(B, g, rep, n).reshape(B, H, n)
+        Cm = Cm[:, :, None].expand(B, g, rep, n).reshape(B, H, n)
     f32 = torch.float32
     dec = torch.exp(dt * p["A"].to(f32))                  # (B, H)
     upd = torch.einsum("bhn,bhp,bh->bhpn", Bm.to(f32), xs.to(f32), dt)

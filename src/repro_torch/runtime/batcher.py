@@ -10,8 +10,15 @@ length and sequences of different ages share one batch.
 As in the reference, prompts are prefilled one at a time (B = 1, into
 a fresh float32 cache whose rows are then copied into the slot), decode
 runs across all slots every step, and the host's lengths are the
-scheduler's truth.  There is no ``jit``: the decode step runs eagerly,
-one kernel launch per op.
+scheduler's truth.  The reference jits the decode step once per batcher
+(``jax.jit(self._decode_step)``); here a :class:`CompiledStep` captures
+it once as a CUDA graph and replays it every step, so on the card a step
+is one graph launch.  Its inputs, the tokens and the per-slot lengths,
+are copied each step from pinned host tensors into the graph's static
+buffers, and the cache's tensors keep their addresses for the batcher's
+life (admission writes a slot in place).  On the CPU the step runs
+eagerly through the same buffers.  Prefill stays eager and B = 1, as the
+reference's is not jitted.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.compiled_step import CompiledStep
 from repro_torch.runtime.slots import SlotPool
 
 __all__ = ["Request", "ContinuousBatcher"]
@@ -44,7 +52,9 @@ class ContinuousBatcher:
 
     ``params`` must live on ``device`` (default: the card).  The cache is
     the stacked (layers, slots, ...) tree of :func:`M.init_cache`, in
-    ``dtype`` (float32 by default, as in the reference).
+    ``dtype`` (float32 by default, as in the reference).  ``compiled``
+    is the decode step (:class:`CompiledStep`; ``compiled.captures`` is
+    1 once two steps have run on the card).
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int,
@@ -60,6 +70,16 @@ class ContinuousBatcher:
         self.pool: SlotPool = SlotPool(n_slots)
         self.prefills = 0
         self.decode_steps = 0
+        # each step's inputs, staged on the host: pinned on the card's
+        # host, so their copies into the graph's buffers are async
+        pin = self.device.type == "cuda"
+        self._host_tokens = torch.zeros(n_slots, dtype=torch.long,
+                                        pin_memory=pin)
+        self._host_lengths = torch.zeros(n_slots, dtype=torch.int32,
+                                         pin_memory=pin)
+        # recorded after each step's copies out of staging
+        self._staged = torch.cuda.Event() if pin else None
+        self.compiled = CompiledStep(self._forward, device=self.device)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -115,15 +135,24 @@ class ContinuousBatcher:
              src_cache)
 
     # ------------------------------------------------------------------
+    def _forward(self, token: torch.Tensor, index: torch.Tensor):
+        """The step the graph holds: (logits, the advanced index)."""
+        logits, cache = M.decode_step(self.params, self.cfg, token,
+                                      {**self.cache, "index": index})
+        return logits, cache["index"]
+
     def _decode_step(self, tokens: np.ndarray, lengths: np.ndarray):
         """One decode step with PER-SLOT lengths: each slot writes its KV
         at its own position and attends under its own mask."""
-        cache = dict(self.cache)
-        cache["index"] = torch.tensor(lengths, device=self.device)
-        token = torch.tensor(tokens, dtype=torch.long, device=self.device)
-        logits, cache = M.decode_step(self.params, self.cfg, token, cache)
+        if self._staged is not None:   # the last step's copies are done
+            self._staged.synchronize()
+        self._host_tokens.numpy()[:] = tokens
+        self._host_lengths.numpy()[:] = lengths
+        logits, index = self.compiled(self._host_tokens, self._host_lengths)
+        if self._staged is not None:
+            self._staged.record()
         self.decode_steps += 1
-        return logits, cache
+        return logits, {**self.cache, "index": index}
 
     def step(self) -> int:
         """Admit, decode once for all active slots, retire finished.
@@ -138,7 +167,8 @@ class ContinuousBatcher:
                 tokens[i] = r.tokens[-1]
         logits, new_cache = self._decode_step(tokens, self.lengths)
         # keep host lengths authoritative (the step +1s them all,
-        # including idle slots; we install our own vector next step)
+        # including idle slots; we install our own vector next step);
+        # only the index changes, the other tensors stay the graph's
         self.cache = new_cache
         nxt = torch.argmax(logits, -1).cpu().numpy().astype(np.int32)
         produced = 0

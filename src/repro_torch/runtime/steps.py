@@ -1,9 +1,11 @@
 """Step-function builders for serving (the port of
 ``repro.runtime.steps``, its prefill and decode part).
 
-The reference builds jitted, sharded, donated steps from a config and a
-mesh.  PyTorch runs eagerly, so a step here is the model call itself;
-a ``mesh`` and the training step raise
+A step here is the model call itself, a plain function, as in the
+reference, whose callers jit it: the port's callers capture the decode
+step as a CUDA graph
+(:class:`~repro_torch.runtime.compiled_step.CompiledStep`, in
+``launch/serve.py``).  A ``mesh`` and the training step raise
 :class:`~repro_torch.device.NotPortedError`.
 """
 from __future__ import annotations

@@ -5,15 +5,28 @@ mamba2-2.7b or zamba2-1.2b, at full width and depth).
 
 Fills the 4 slots of ``repro_torch.runtime.batcher.ContinuousBatcher``
 (512 positions) with prompts of 17, 64, 100 and 128 tokens, runs 5 warm
-decode steps, then 10 more under ``torch.profiler`` (CPU and CUDA
-activities) and reports per decode step:
+decode steps (the first runs eagerly, the second captures the step as
+one CUDA graph), then 10 more, each one graph replay, timed without the
+profiler, then 10 more under ``torch.profiler`` (CPU and CUDA
+activities), and reports per decode step:
 
-- wall ms: the host clock around the steps, ending in a synchronize;
+- wall ms: the host clock around the 10 unprofiled steps (admission
+  checks, the step, argmax and its readback), ending in a synchronize;
+  also under the profiler (``profiled_wall_ms_per_step``: its tracing
+  slows each graph replay);
+- event ms: CUDA events around each unprofiled step's decode call
+  (staging copies, the replay and the logits' copy);
 - device ms: the kernels' and copies' time from the profiler's
-  ``key_averages()`` (one stream, so their sum is the busy time);
+  ``key_averages()`` (one stream, so their sum is the busy time), or
+  "not measured" where the profiler lists no kernel;
 - the device's idle share, ``1 - device / wall``;
-- launches: device events per step;
-- the kernels by device time, with their launches per step.
+- launches: device events per step; the counted kernel launches a step
+  (``CompiledStep.step_launches``), the captures and the capture's ms;
+- the bound: every parameter byte, the live KV rows and the conv and
+  SSM states read once, the states written once, at 3.35 TB/s;
+- the kernels by device time, with their launches per step, and the
+  longest single launches (the head's float32 copy and the unembedding
+  among them).
 
 Prints one JSON line with the card's ``nvidia-smi`` name and power limit
 and writes the full kernel table to ``chiprun_out/serve_profile.json``.
@@ -45,7 +58,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import card_line  # noqa: E402
+from chip_smoke import HBM_BYTES_PER_S, TimedSteps, card_line  # noqa: E402
 
 PROMPT_LENS = (17, 64, 100, 128)
 PREFILL_LENS = (17, 100, 255)     # chip_smoke.py's shortest, middle, longest
@@ -94,36 +107,72 @@ def main() -> int:
     if args.prefill:
         return profile_prefills(torch, profile, ProfilerActivity, M, cfg,
                                 params, rng, smi, args.arch)
-    batcher = ContinuousBatcher(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
+    class Batcher(TimedSteps, ContinuousBatcher):
+        """Records CUDA events around each decode call."""
+
+    batcher = Batcher(cfg, params, N_SLOTS, MAX_LEN, device="cuda")
     for i, n in enumerate(PROMPT_LENS):
         batcher.submit(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab_size, size=n).astype(np.int32),
-            max_new_tokens=WARM + STEPS + 2))
-    for _ in range(WARM):
-        batcher.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+            max_new_tokens=WARM + 2 * STEPS + 2))
+
+    def run_steps() -> float:
+        """Host ms a step over STEPS steps, ending in a synchronize."""
         t0 = time.perf_counter()
         for _ in range(STEPS):
             batcher.step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        return (time.perf_counter() - t0) * 1e3 / STEPS
+
+    for _ in range(WARM):
+        batcher.step()
+    torch.cuda.synchronize()
+    batcher.decode_events.clear()
+    wall_ms = run_steps()
+    event_ms = sorted(a.elapsed_time(b) for a, b in batcher.decode_events)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = run_steps()
     rows = device_rows(torch, prof, STEPS)
     device_ms = sum(r["ms_per_step"] for r in rows)
+    step = batcher.compiled
     summary = {
         "profile": cfg.name, "slots": N_SLOTS, "max_len": MAX_LEN,
         "steps": STEPS, "wall_ms_per_step": wall_ms,
+        "profiled_wall_ms_per_step": profiled_wall_ms,
+        "event_ms_per_step": event_ms,
         "device_ms_per_step": device_ms if rows else "not measured",
         "idle_share": 1 - device_ms / wall_ms if rows else "not measured",
         "launches_per_step": sum(r["launches_per_step"] for r in rows),
-        "families": families(rows), "top": rows[:8], "card": smi}
+        "counted_launches_per_step": step.step_launches,
+        "captures": step.captures, "capture_ms": step.capture_ms,
+        "bound_ms": step_bound_ms(torch, params, batcher),
+        "families": families(rows), "top": rows[:8],
+        "longest": longest_launches(torch, prof, 6), "card": smi}
     print(json.dumps(summary), flush=True)
     out = (OUT if args.arch == "granite_3_2b"
            else OUT.with_name(f"serve_profile_{args.arch}.json"))
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({**summary, "kernels": rows}, indent=1))
     return 0
+
+
+def step_bound_ms(torch, params, batcher) -> float:
+    """The least time of one decode step at the batcher's lengths: the
+    parameters, each slot's live KV rows and the conv and SSM states
+    read once, the states written once, at the card's memory rate."""
+    def nbytes(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.numel() * tree.element_size()
+        return sum(nbytes(v) for v in tree.values())
+    cache = batcher.cache
+    n = nbytes(params) + 2 * sum(nbytes(cache[k]) for k in ("conv", "ssm")
+                                 if k in cache)
+    if "attn" in cache:                  # (sites, slots, Hkv, S, D) each
+        k = cache["attn"]["k"]
+        row = k.shape[2] * k.shape[4] * k.element_size()
+        n += 2 * k.shape[0] * row * int(batcher.lengths.sum() + N_SLOTS)
+    return n / HBM_BYTES_PER_S * 1e3
 
 
 def families(rows) -> dict:
@@ -137,6 +186,17 @@ def families(rows) -> dict:
         out[fam] = {"device_ms": ms, "launches": sum(
             r["launches_per_step"] for r in mine), "share": ms / total}
     return out
+
+
+def longest_launches(torch, prof, n: int) -> list[dict]:
+    """The longest single launch of each kernel, for the ``n`` kernels
+    whose longest launch is longest."""
+    longest: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            longest[e.name] = max(longest.get(e.name, 0.0), _device_us(e))
+    top = sorted(longest.items(), key=lambda kv: -kv[1])[:n]
+    return [{"name": name[:120], "ms": us / 1e3} for name, us in top]
 
 
 def device_rows(torch, prof, steps: int) -> list[dict]:
