@@ -136,11 +136,38 @@ no result line) on any error:
    (2 launches per group a batch, each frame equal to its single-frame
    launch), and ``StreamEngine(replicas=2)`` where the host has 2 cards
    (skipped, and said so, on one);
-11. prints the ``kernels`` line; each route of flash and the MLP has its
+11. MoE and MLA serving: holds the kernels at the shapes of
+   granite-moe-3b-a800m and minicpm3-4b against their plain versions
+   (float32 within 1e-5 * max|plain|, the path's types within 8e-3)
+   and times them beside their bounds and SDPA where it takes the
+   shapes: flash's tensor-core route at prefill (granite-moe 24 / 8
+   heads of 64; minicpm3's non-absorbed MLA, 40 / 40 heads, Dk 96, Dv
+   64; S = 100, 255), ``decode_attention``'s split instance at
+   granite-moe's cache (4 slots x 512, 24 / 8 heads of 64, so G = 3,
+   the same lengths), its latent instance at minicpm3's cache (4 slots x 512, G 40, Dk 288, Dv 256, bf16 q,
+   float32 rows, lengths 17/130/301/511 and all live; v the first 256
+   columns of each row, read once) and the MLP at d 2560, f 6400 (T = 4
+   on its decode route, 17-255 on its tensor-core route); then serves
+   each model at full width and depth (random weights from ``--seed``)
+   as phase 5 serves granite (granite-moe 8 requests x 32 tokens,
+   minicpm3 4 x 16; graph and eager in turns, launch counts exact: flash and decode attention once a layer
+   per prefill and per step, minicpm3's on the latent instance, its MLP
+   on the tensor-core and decode routes), prints a ``serving_profile``
+   line (wall and device ms a step from an unprofiled and a profiled
+   window, idle share, launches a step, the step's bound) and
+   teacher-forces one request against ``impl="ref"`` (granite-moe
+   within 5e-2 * max|logits|, the plain route on the kernel route's
+   expert choices and the choices its own router would flip counted,
+   the plain route on its own choices reported beside it unchecked;
+   minicpm3 within 6e-2); the phase's line splits its seconds;
+12. prints the ``kernels`` line; each route of flash and the MLP has its
    own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
    each served app its ``stream_group_b8[...]``, each tuned app its
    ``stream_group.tuned[...]``, each replicated app and k its
-   ``stream_group.replicated[<app>,k=<k>]``.
+   ``stream_group.replicated[<app>,k=<k>]``, phase 11's kernels theirs
+   (``decode_attention[moe ...]``, ``decode_attention.mla[...]``,
+   ``flash_attention.tc[moe ...]`` /
+   ``[mla ...]``, ``fused_mlp.*[minicpm3 ...]``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -454,6 +481,9 @@ def main() -> int:
     lm_entries += replication_phase(torch, timer, smi, power_limit,
                                     args.seed, apps, reps)
 
+    # -- phase 11: MoE and MLA serving, granite-moe and minicpm3 ---------
+    lm_entries += moe_mla_serving(torch, timer, smi, args.seed)
+
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -533,8 +563,8 @@ def kernel_entries(rows, launches) -> list[dict]:
 
 
 # the routes of flash_attention (tc, simt) and fused_mlp (stream, tc,
-# simt), each counted
-ROUTES = ("tc", "simt", "stream")
+# simt) and decode_attention's latent instance (mla), each counted
+ROUTES = ("tc", "simt", "stream", "mla")
 
 
 def reset_counts(counters) -> None:
@@ -741,42 +771,67 @@ def teacher_force(torch, cfg, params, r, smi, tol=None,
     with ``spread_factor``, within that many times the largest
     difference between two plain versions: ``impl="ref"`` and the same
     with chunks of one position (the scan's token-by-token recurrence),
-    which differ only in where they round."""
+    which differ only in where they round.  In an MoE model the plain
+    route takes the kernel route's expert choices (a rounding
+    difference flips near-ties of a random router, and a flipped choice
+    is no kernel's error); ``routing_flips`` counts the (token, layer)
+    choices its own router would have made otherwise, and ``unforced``
+    the plain route on its own choices, reported and not checked."""
     import dataclasses
 
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
     ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
     routes = {"kernels": cfg, "ref": ref_cfg}
     if spread_factor is not None:
         routes["ref_chunk1"] = dataclasses.replace(ref_cfg, ssm_chunk=1)
-    seqs = {}
+    if cfg.n_experts:
+        routes["unforced"] = ref_cfg
+    seqs, chosen = {}, {}
     for label, c in routes.items():
-        cache = M.init_cache(c, 1, MAX_LEN, dtype=torch.float32,
-                             device="cuda")
-        tok = torch.tensor(r.prompt, device="cuda", dtype=torch.long)
-        logits, cache = M.prefill(params, c, tok[None], cache)
-        out = [logits[0]]
-        for t in r.tokens[:-1]:
-            tok = torch.tensor([t], device="cuda")
-            logits, cache = M.decode_step(params, c, tok, cache)
-            out.append(logits[0])
-        seqs[label] = torch.stack(out)
+        replay = chosen["kernels"] if label == "ref" and cfg.n_experts \
+            else None
+        with L.expert_choices(replay) as routing:
+            cache = M.init_cache(c, 1, MAX_LEN, dtype=torch.float32,
+                                 device="cuda")
+            tok = torch.tensor(r.prompt, device="cuda", dtype=torch.long)
+            logits, cache = M.prefill(params, c, tok[None], cache)
+            out = [logits[0]]
+            for t in r.tokens[:-1]:
+                tok = torch.tensor([t], device="cuda")
+                logits, cache = M.decode_step(params, c, tok, cache)
+                out.append(logits[0])
+        seqs[label], chosen[label] = torch.stack(out), routing.chosen
+
+    def flips(label):            # (token, layer) choices unlike the kernels'
+        return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                   for a, b in zip(chosen[label], chosen["kernels"]))
+
+    def agree(seq):              # greedy tokens equal to the served ones
+        return float((seq.argmax(-1).cpu()
+                      == torch.tensor(r.tokens)).float().mean())
     kern, ref = seqs["kernels"], seqs["ref"]
     err = float((kern - ref).abs().max())
     scale = float(ref.abs().max())
-    agree = float((ref.argmax(-1).cpu()
-                   == torch.tensor(r.tokens)).float().mean())
     row = {"teacher_forced": r.rid, "config": cfg.name, "dtype": cfg.dtype,
            "prompt_len": len(r.prompt), "steps": len(r.tokens),
            "max_abs_dlogits": err, "max_abs_logits": scale}
+    if cfg.n_experts:
+        row["routing_choices"] = sum(t[..., 0].numel()
+                                     for t in chosen["kernels"])
+        row["routing_flips"] = flips("ref")
+        row["unforced"] = {
+            "max_abs_dlogits": float((kern - seqs["unforced"]).abs().max()),
+            "routing_flips": flips("unforced"),
+            "greedy_agree_share": agree(seqs["unforced"])}
     if spread_factor is None:
         limit, rule = tol * scale, f"{tol} * max|logits|"
     else:
         spread = float((seqs["ref_chunk1"] - ref).abs().max())
         limit, rule = spread_factor * spread, f"{spread_factor} * spread"
         row["plain_spread"] = spread
-    row.update({"tol": limit, "greedy_agree_share": agree, "card": smi})
+    row.update({"tol": limit, "greedy_agree_share": agree(ref), "card": smi})
     print(json.dumps(row), flush=True)
     check(bool(torch.isfinite(kern).all()) and err <= limit,
           f"{cfg.name} ({cfg.dtype}) teacher-forced request {r.rid}: "
@@ -932,6 +987,7 @@ def lm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
                                  "flash_attention.tc": L * prefills,
                                  "flash_attention.simt": 0,
                                  "decode_attention": L * steps,
+                                 "decode_attention.mla": 0,
                                  "fused_mlp": L * (prefills + steps),
                                  "fused_mlp.tc": L * prefills,
                                  "fused_mlp.stream": L * steps,
@@ -1111,6 +1167,7 @@ def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
                                  "flash_attention.tc": sites * prefills,
                                  "flash_attention.simt": 0,
                                  "decode_attention": sites * steps,
+                                 "decode_attention.mla": 0,
                                  "fused_mlp": sites * (prefills + steps),
                                  "fused_mlp.tc": sites * prefills,
                                  "fused_mlp.stream": sites * steps,
@@ -1152,6 +1209,244 @@ def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
 
     return (kernel_entries(rows, launches)
             + kernel_entries(simt_rows, f32_launches))
+
+
+# ----------------------------------------------------------------------
+# phase 11: MoE and MLA serving
+# ----------------------------------------------------------------------
+MOE_ARCH, MLA_ARCH = "granite_moe_3b_a800m", "minicpm3_4b"
+MOE_MLA_FLASH_S = (100, 255)     # served prompt lengths, flash at prefill
+MLA_MLP_T = (4, 17, 100, 255)    # decode, and served prompt lengths
+# Teacher-forced logits, kernels vs impl="ref", by phase 5's rule (one
+# bf16 step, 0.4 %, a kernel call, adding up like a random walk):
+# minicpm3's decode step runs 3 x 62 = 186 kernel calls, sqrt(186) x 0.4 %
+# = 5.5 %, so 6e-2; granite-moe's 32 (its experts are torch.bmm on both
+# routes), sqrt(32) x 0.4 % = 2.3 %, so phase 5's 5e-2, with the plain
+# route on the kernel route's expert choices (see teacher_force).
+MLA_LOGIT_TOL = 6e-2
+MOE_LOGIT_TOL = 5e-2
+# requests x new tokens served, and the request teacher-forced: minicpm3's
+# eager step is the slowest of the script (about 150 ms), so it serves 4
+# requests of 16 tokens, as zamba2 does in phase 6
+MOE_SERVE, MLA_SERVE = (8, NEW_TOKENS, 0), (4, 16, 3)
+
+
+def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
+    """Phase 11; returns its kernels' entries of the kernels line."""
+    import gc
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.fused_mlp import route as mlp_route
+    from repro_torch.models import model as M
+    sys.path.insert(0, str(ROOT / "tools"))
+    from serve_profile import profile_decode
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 10's apps are gone
+    torch.cuda.empty_cache()
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    moe, mla = get_config(MOE_ARCH), get_config(MLA_ARCH)
+
+    def randn(*shape, std=1.0, dtype=f32):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * std).to(dtype)
+
+    def bound(n_bytes, n_ops):
+        return lm_bound(n_bytes, n_ops, BF16_OPS_PER_S)
+
+    def sdpa(label, fn):
+        """SDPA as the yardstick where it takes the shapes, else None
+        (and a line that says why)."""
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as e:
+            print(json.dumps({"library": label, "sdpa": "refused",
+                              "error": str(e)[:200]}), flush=True)
+            return None
+        return fn
+
+    # -- kernels against their plain versions, then timed ----------------
+    cases = {"moe": [], "mla": []}
+    r, kr, hd = mla.kv_lora_rank, mla.rope_head_dim, mla.hd
+    # flash at prefill: granite-moe's 24 / 8 heads of 64; minicpm3's
+    # non-absorbed MLA, 40 / 40 heads, Dk = hd + kr = 96, Dv = hd = 64
+    for model, Hq, Hkv, Dk, Dv in (
+            ("moe", moe.n_heads, moe.n_kv_heads, moe.hd, moe.hd),
+            ("mla", mla.n_heads, mla.n_heads, hd + kr, hd)):
+        scale = Dk ** -0.5
+        for S in MOE_MLA_FLASH_S:
+            q, k = (randn(1, S, h, Dk).transpose(1, 2) for h in (Hq, Hkv))
+            v = randn(1, S, Hkv, Dv).transpose(1, 2)
+            compare_close(torch, f"flash_attention[{model} S={S}] f32",
+                          flash_attention(q, k, v, causal=True, scale=scale),
+                          R.flash_attention_ref(q, k, v, causal=True,
+                                                scale=scale), LM_F32_TOL)
+            qb, kb, vb = (t.to(bf16) for t in (q, k, v))
+            pairs = S * (S + 1) // 2
+            cases[model].append((
+                "flash_attention.tc", f"{model} S={S}",
+                lambda qb=qb, kb=kb, vb=vb, sc=scale: flash_attention(
+                    qb, kb, vb, causal=True, scale=sc),
+                lambda qb=qb, kb=kb, vb=vb, sc=scale: R.flash_attention_ref(
+                    qb, kb, vb, causal=True, scale=sc),
+                sdpa(f"flash_attention.tc[{model} S={S}]",
+                     lambda qb=qb, kb=kb, vb=vb, sc=scale:
+                     F.scaled_dot_product_attention(
+                         qb, kb, vb, is_causal=True, enable_gqa=True,
+                         scale=sc)),
+                bound(2 * S * (Hq + Hkv) * (Dk + Dv),
+                      2 * Hq * (Dk + Dv) * pairs)))
+    # decode at granite-moe's 24 / 8 heads of 64 (G = 3: the split
+    # instance's group only partly filled), bf16 q, f32 cache
+    Hq, Hkv, D = moe.n_heads, moe.n_kv_heads, moe.hd
+    q = randn(N_SLOTS, Hq, D)
+    k, v = randn(N_SLOTS, Hkv, MAX_LEN, D), randn(N_SLOTS, Hkv, MAX_LEN, D)
+    qb = q.to(bf16)
+    for label, lens in DECODE_CASES.items():
+        lens = torch.tensor(lens, device="cuda")
+        keep = torch.arange(MAX_LEN, device="cuda")[None] <= lens[:, None]
+        bias = torch.where(keep, 0.0, -1e30)
+        compare_close(torch, f"decode_attention[moe {label}] f32",
+                      decode_attention(q, k, v, bias=bias),
+                      R.decode_attention_ref(q, k, v, bias=bias), LM_F32_TOL)
+        live = int(keep.sum())
+        cases["moe"].append((
+            "decode_attention", f"moe {label}",
+            lambda bias=bias, k=k, v=v, qb=qb: decode_attention(
+                qb, k, v, bias=bias),
+            lambda bias=bias, k=k, v=v, qb=qb: R.decode_attention_ref(
+                qb, k, v, bias=bias),
+            lambda bias=bias, k=k, v=v, qb=qb: F.scaled_dot_product_attention(
+                qb.float()[:, :, None], k, v, attn_mask=bias[:, None, None],
+                enable_gqa=True)[:, :, 0],
+            bound(2 * N_SLOTS * Hq * D * 2 + live * Hkv * D * 4 * 2
+                  + N_SLOTS * MAX_LEN * 4, 4 * Hq * D * live)))
+    # decode: MQA over minicpm3's latent cache, v the first r columns of
+    # each [c_kv ; k_rope] row (the model's layout), bf16 q, f32 rows
+    G, Dk, Dv = mla.n_heads, r + kr, r
+    scale = (hd + kr) ** -0.5
+    rows = randn(N_SLOTS, MAX_LEN, Dk)
+    k, v = rows[:, None], rows[:, None, :, :r]
+    q = randn(N_SLOTS, G, Dk)
+    qb = q.to(bf16)
+    for label, lens in DECODE_CASES.items():
+        lens = torch.tensor(lens, device="cuda")
+        keep = torch.arange(MAX_LEN, device="cuda")[None] <= lens[:, None]
+        bias = torch.where(keep, 0.0, -1e30)
+        compare_close(torch, f"decode_attention.mla[{label}] f32",
+                      decode_attention(q, k, v, bias=bias, scale=scale),
+                      R.decode_attention_ref(q, k, v, bias=bias,
+                                             scale=scale), LM_F32_TOL)
+        live = int(keep.sum())
+        cases["mla"].append((
+            "decode_attention.mla", f"minicpm3 {label}",
+            lambda bias=bias: decode_attention(qb, k, v, bias=bias,
+                                               scale=scale),
+            lambda bias=bias: R.decode_attention_ref(qb, k, v, bias=bias,
+                                                     scale=scale),
+            sdpa(f"decode_attention.mla[minicpm3 {label}]",
+                 lambda bias=bias: F.scaled_dot_product_attention(
+                     qb.float()[:, :, None], k, v,
+                     attn_mask=bias[:, None, None], enable_gqa=True,
+                     scale=scale)[:, :, 0]),
+            # the live latent rows read once (v inside them), q, the
+            # bias, the output
+            bound(N_SLOTS * G * (Dk + Dv) * 2 + live * Dk * 4
+                  + N_SLOTS * MAX_LEN * 4, 2 * G * (Dk + Dv) * live)))
+    # the MLP at minicpm3's width: decode (stream) and prefill (tc)
+    d, f = mla.d_model, mla.d_ff
+    ws = [randn(d), randn(d, f, std=d ** -0.5),
+          randn(d, f, std=d ** -0.5), randn(f, d, std=f ** -0.5)]
+    wb = [w.to(bf16) for w in ws]
+    cublas = {}
+    for T in MLA_MLP_T:
+        x = randn(T, d)
+        compare_close(torch, f"fused_mlp[minicpm3 T={T}] f32",
+                      fused_mlp(x, *ws), R.fused_mlp_ref(x, *ws), LM_F32_TOL)
+        xb = x.to(bf16)
+        cublas[f"minicpm3 T={T}"] = (
+            lambda xb=xb: (F.silu((h := F.rms_norm(xb, (d,), wb[0], 1e-6))
+                                  @ wb[1]) * (h @ wb[2])) @ wb[3],
+            lambda xb=xb: R.fused_mlp_ref(xb, *wb))
+        cases["mla"].append((
+            f"fused_mlp.{mlp_route(bf16, T, d, f)}", f"minicpm3 T={T}",
+            lambda xb=xb: fused_mlp(xb, *wb),
+            lambda xb=xb: R.fused_mlp_ref(xb, *wb), None,
+            bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)))
+    timed = {m: time_cases(torch, timer, smi, c, LM_PATH_TOL)
+             for m, c in cases.items()}
+    for row in timed["mla"]:    # composes three GEMMs: not a library call
+        if row["kernel"].startswith("fused_mlp"):
+            fn, plain = cublas[row["shape"]]
+            compare_close(torch, f"cuBLAS composition [{row['shape']}]",
+                          fn(), plain(), LM_PATH_TOL)
+            row["cublas_bf16_ms"] = timer(fn)
+    del cases, cublas, ws, wb, rows, k, v, q, qb
+
+    # -- each model at full width and depth through the batcher ----------
+    entries, split = [], {"kernels": time.perf_counter() - t_phase}
+    for model, cfg, tol, (n_req, new_tokens, forced) in (
+            ("moe", moe, MOE_LOGIT_TOL, MOE_SERVE),
+            ("mla", mla, MLA_LOGIT_TOL, MLA_SERVE)):
+        gc.collect()                   # the other model is gone
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = M.init(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in PROMPT_LENS[:n_req]]
+        n = cfg.n_layers
+        counters = {"flash_attention": flash_attention,
+                    "decode_attention": decode_attention}
+        if model == "mla":
+            counters["fused_mlp"] = fused_mlp
+
+        def expected(prefills, steps, model=model, n=n):
+            want = {"flash_attention": n * prefills,
+                    "flash_attention.tc": n * prefills,
+                    "flash_attention.simt": 0,
+                    "decode_attention": n * steps,
+                    "decode_attention.mla": 0}
+            if model == "mla":         # the latent instance, and the MLP
+                want.update({"decode_attention.mla": n * steps,
+                             "fused_mlp": n * (prefills + steps),
+                             "fused_mlp.tc": n * prefills,
+                             "fused_mlp.stream": n * steps,
+                             "fused_mlp.simt": 0})
+            return want
+        t0 = time.perf_counter()
+        done, launches = serve_requests(torch, cfg, params, prompts,
+                                        new_tokens, counters, smi, init_s,
+                                        expected)
+        t1 = time.perf_counter()
+        # device ms, idle share and launches of the captured step, from
+        # an unprofiled window and a profiled one
+        summary, _ = profile_decode(torch, cfg, params,
+                                    np.random.default_rng(seed), smi)
+        print(json.dumps({"serving_profile": cfg.name, **{
+            k: v for k, v in summary.items() if k != "profile"}}),
+            flush=True)
+        t2 = time.perf_counter()
+        req = next(q for q in done if q.rid == forced)
+        teacher_force(torch, cfg, params, req, smi, tol=tol)
+        split[cfg.name] = {"serve": t1 - t0, "profile": t2 - t1,
+                           "teacher_force": time.perf_counter() - t2}
+        entries += kernel_entries(timed[model], launches)
+        del params, done, req
+    print(json.dumps({"serving": "phase 11", "split_s": split,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return entries
 
 
 # ----------------------------------------------------------------------

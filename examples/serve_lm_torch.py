@@ -3,14 +3,15 @@ decode with a KV cache (the twin of ``examples/serve_lm.py``).
 
 A batch of prompts -> prefill (cache fill) -> token-by-token greedy
 decode, with per-phase timing and the cache's size, for the families the
-port serves: granite-3-2b (dense), mamba2-2.7b (ssm) and zamba2-1.2b
-(hybrid), at their smoke size; the other configs raise
-``NotPortedError``.  As the reference jits its decode step, the decode
+port serves: granite-3-2b (dense), granite-moe-3b-a800m and
+qwen3-moe-235b-a22b (moe), minicpm3-4b (dense with MLA, its latent
+cache), mamba2-2.7b (ssm) and zamba2-1.2b (hybrid), at their smoke size;
+the other configs raise ``NotPortedError``.  As the reference jits its decode step, the decode
 step here is one CUDA graph on the card (``CompiledStep``); with
 ``--device cpu`` it runs eagerly on the plain PyTorch versions.
 
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2_2p7b
-      [--device cpu]
+      [--device cpu]    (or --arch granite_moe_3b_a800m, minicpm3_4b, ...)
 """
 import os
 import sys

@@ -36,9 +36,12 @@
 //   memory (distributed shared memory) and merges them in split order.  No
 //   scratch in device memory, no counter, no atomics: the output is the same
 //   bits from run to run, and a CUDA graph can replay the launch as it is.
+// MLA's latent cache (one KV head for 40 query heads, Dk 288, Dv 256) takes
+// the latent instance further down (namespace mla).
 #include <cooperative_groups.h>
 
 #include "lm_common.cuh"
+#include "tensor_core.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -360,6 +363,344 @@ int launch_g(const void* q, const void* k, const void* v, const float* bias,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The latent instance: MLA's absorbed decode, MQA over the latent cache.
+//
+// One KV head (Hkv = 1) serves G query heads (minicpm3-4b: G = 40), with
+// keys of Dk = kv_lora_rank + rope_head_dim (288) and values of Dv =
+// kv_lora_rank (256); the TPU kernel takes Dv != Dk for this case
+// (decode_attention.py:71-75).  The split instance above keeps the (G, Dv)
+// accumulator in registers per lane group, which does not scale to 40 x 256.
+// Here:
+// - a block is one (slot, split).  Its G query rows, padded to GP = 16 x MT,
+//   sit in shared memory as float32 (48 x 288 for minicpm3);
+// - the split's keys go through shared memory 32 rows at a time, each live
+//   row loaded once, 16 bytes a load, a thread's loads all issued before
+//   its stores.  When v is the first Dv columns of the same rows (the
+//   serving path's cache holds [c_kv ; k_rope] in one row, and v is c_kv),
+//   the V rows are not loaded again: the cache is read once per slot for
+//   all G heads, which is the point of MLA;
+// - both products run on the tensor cores, m16n8k8 TF32 in three passes
+//   (3xTF32: hi x hi + hi x lo + lo x hi, about float32's accuracy; an
+//   operand that is exact in TF32, a bf16 query or cache, skips its lo
+//   pass): the logits (GP x 32) = Q K^T by 2 x MT warps, each a 16 x 16
+//   tile; P V (GP x Dv) with warp w owning columns 32 w .. 32 w + 31 of
+//   every head, its accumulator in mma fragments;
+// - between them the online softmax of each head runs across the lanes of
+//   one warp (lane = key; shuffles), in place in shared memory;
+// - masked keys (bias <= NEG_INF / 2) are not read: their rows are zero in
+//   shared memory and their p is 0; a tile with no live key is skipped; a
+//   row whose keys are all masked gives 0;
+// - the splits of a slot are one thread-block cluster (at most 16, a
+//   non-portable size the instance opts into: 4 slots x 16 splits of one
+//   32-key tile at 512 positions).  After a cluster barrier, block r merges
+//   the heads h = r, r + splits, ... from every split's shared memory, in
+//   split order: no scratch, no atomics, the same bits on every replay.
+// What bounds it: at the served shapes the live latent rows are a few MB,
+// about a microsecond of HBM time; the products are 2 G (Dk + Dv) operations
+// a key.
+namespace mla {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;       // keys a step: one per lane in the softmax
+constexpr int kMaxSplits = 16;  // a cluster of 16: non-portable, opted in
+constexpr int kMaxDk = 320, kMaxDv = kWarps * 32;
+constexpr int kMaxRow = kMaxDk + 4;  // the widest shared-memory row
+constexpr int kPS = kTile + 4;       // a logits / p row (4 mod 32 words)
+
+struct Args {
+  int B, G, S, Dk, Dv, keys_per_split, splits;
+  int vec;     // K and V rows may be read with 16-byte loads
+  int q_vec;   // so may q's rows
+  int v_in_k;  // v is k[..., :Dv]: the V rows are the K rows
+  int ks;      // shared-memory row of q and K, in floats: Dk rounded up to
+               // 8, 4 mod 32 (a fragment load free of bank conflicts)
+  float scale;
+  long long qb, qh, kb, kpos, vb, vpos, ob, oh, bias_b;
+};
+
+// ``rows`` rows of D elements (row r at src + r * stride) into shared memory
+// (row r at dst + r * ds) as float32, zeros from D to Dpad; a row with bit r
+// of ``live`` clear is zeros, and is not read.  With ``vec`` each thread
+// issues 16-byte loads for up to 32 floats before it stores any, so a tile
+// costs about one memory latency, not one per load; D must then be a
+// multiple of Vec<T>::n.  Without, element by element.
+template <typename T>
+__device__ __forceinline__ void rows_to_smem(float* dst, int ds, const T* src,
+                                             long long stride, int rows,
+                                             int D, int Dpad,
+                                             unsigned long long live,
+                                             bool vec, int t) {
+  if (vec) {
+    constexpr int V = Vec<T>::n, kBatch = 32 / V;  // 32 floats in flight
+    const int per = D / V, total = rows * per;
+    for (int base = 0; base < total; base += kBatch * kThreads) {
+      float r[kBatch][V];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int u = base + i * kThreads + t;
+        const int row = u / per;
+        if (u < total && ((live >> row) & 1ull))
+          load_row(r[i], src + row * stride, (u - row * per) * V, D, true);
+        else
+#pragma unroll
+          for (int j = 0; j < V; ++j) r[i][j] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int u = base + i * kThreads + t;
+        if (u >= total) break;
+        const int row = u / per;
+        float* out = dst + row * ds + (u - row * per) * V;
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          *reinterpret_cast<float4*>(out + j) =
+              make_float4(r[i][j], r[i][j + 1], r[i][j + 2], r[i][j + 3]);
+      }
+    }
+    const int pad = Dpad - D;
+    for (int e = t; e < rows * pad; e += kThreads)
+      dst[(e / pad) * ds + D + e % pad] = 0.f;
+    return;
+  }
+#pragma unroll 4
+  for (int e = t; e < rows * Dpad; e += kThreads) {
+    const int row = e / Dpad, d = e - row * Dpad;
+    dst[row * ds + d] = d < D && ((live >> row) & 1ull)
+                            ? lm::to_f(src[row * stride + d]) : 0.f;
+  }
+}
+
+template <typename T>
+constexpr bool kExact = sizeof(T) == 2;  // bf16 values are TF32 values
+
+template <typename TQ, typename TKV, int MT>
+__global__ void __launch_bounds__(kThreads)
+mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                  const TKV* __restrict__ v, const float* __restrict__ bias,
+                  TQ* __restrict__ o, const Args a) {
+  constexpr int GP = 16 * MT;        // heads, padded to the mma's rows
+  constexpr int HPW = GP / kWarps;   // heads a warp in the softmax
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  __shared__ float salpha[GP], bm[GP], bl[GP];
+
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tg = lane & 3;   // an mma fragment's row, column
+  const int b = blockIdx.x;
+  const int KS = a.ks, Dk8 = (a.Dk + 7) & ~7, Dv = a.Dv;
+  const bool vec = a.vec != 0, v_in_k = a.v_in_k != 0;
+  const int VS = v_in_k ? KS : Dv + 8;                 // 8 mod 32 words
+  float* const qs = smem;                              // GP x KS
+  float* const kt = qs + GP * KS;                      // kTile x KS
+  float* const vt = kt + kTile * KS;                   // kTile x VS
+  float* const ps = vt + (v_in_k ? 0 : kTile * VS);    // GP x kPS
+  const float* const vrows = v_in_k ? kt : vt;
+
+  rows_to_smem(qs, KS, q + b * a.qb, a.qh, GP, a.Dk, Dk8,
+               a.G >= 64 ? ~0ull : (1ull << a.G) - 1, a.q_vec != 0, t);
+  float m[HPW], l[HPW];             // heads w + 8 j, in every lane
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    m[j] = lm::kNegInf;
+    l[j] = 0.f;
+  }
+  // P V: warp w's columns 32 w + 8 n of the heads 16 mt + g (+ 8)
+  const int n0 = 32 * w;
+  const int nt = n0 < Dv ? min(4, (Dv - n0) / 8) : 0;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+
+  const TKV* kp = k + b * a.kb;
+  const TKV* vp = v + b * a.vb;
+  const float* bp = bias != nullptr ? bias + b * a.bias_b : nullptr;
+  const int k_begin = blockIdx.y * a.keys_per_split;
+  const int k_end = min(a.S, k_begin + a.keys_per_split);
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
+    // this lane's key: the bias first, a masked key's row is never loaded
+    const int key = k0 + lane;
+    const float bv = key < k_end && bp != nullptr ? bp[key] : 0.f;
+    const bool on = key < k_end && bv > kSkip;
+    const unsigned live = __ballot_sync(0xffffffffu, on);  // the same in
+    // every warp; the barrier also ends the last tile's reads of kt, vt, ps
+    if (!__syncthreads_or(on)) continue;
+    // masked rows are zeros: p = 0 must not meet a NaN
+    rows_to_smem(kt, KS, kp + (long long)k0 * a.kpos, a.kpos, kTile, a.Dk,
+                 Dk8, live, vec, t);
+    if (!v_in_k)
+      rows_to_smem(vt, VS, vp + (long long)k0 * a.vpos, a.vpos, kTile, Dv,
+                   Dv, live, vec, t);
+    __syncthreads();
+
+    // logits: warp w < 2 MT, heads 16 (w / 2) .., keys 16 (w % 2) ..
+    if (w < 2 * MT) {
+      const int m0 = 16 * (w >> 1), c0 = 16 * (w & 1);
+      float s[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      tcore::warp_mma<2, kExact<TQ>, kExact<TKV>, false, false>(
+          s, qs, KS, m0, kt, KS, c0, 2, Dk8);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float* r0 = ps + (m0 + g) * kPS + c0 + 8 * n + 2 * tg;
+        r0[0] = s[n][0];
+        r0[1] = s[n][1];
+        r0[8 * kPS] = s[n][2];
+        r0[8 * kPS + 1] = s[n][3];
+      }
+    }
+    __syncthreads();
+    // each head's online softmax across its warp's lanes, p in place
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) {
+      const int h = w + kWarps * j;
+      const float sv = on ? ps[h * kPS + lane] * a.scale + bv : -INFINITY;
+      const float mn = fmaxf(m[j], lm::warp_max(sv));
+      const bool alive = mn > kSkip;
+      const float p = alive ? expf(sv - mn) : 0.f;
+      const float alpha = expf(m[j] - mn);
+      l[j] = alpha * l[j] + lm::warp_sum(p);
+      m[j] = mn;
+      ps[h * kPS + lane] = p;
+      if (lane == 0) salpha[h] = alpha;
+    }
+    __syncthreads();
+
+    // P V into warp w's columns of every head
+    if (nt > 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float a0 = salpha[16 * mt + g], a1 = salpha[16 * mt + g + 8];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          acc[mt][n][0] *= a0;
+          acc[mt][n][1] *= a0;
+          acc[mt][n][2] *= a1;
+          acc[mt][n][3] *= a1;
+        }
+        tcore::warp_mma<4, false, kExact<TKV>, false, true>(
+            acc[mt], ps, kPS, 16 * mt, vrows, VS, n0, nt, kTile);
+      }
+    }
+  }
+
+  // this split's state, for the cluster: m and l per head, the accumulator
+  // over the tiles' shared memory
+  __syncthreads();
+  float* const bacc = smem;                            // GP x Dv
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < HPW; ++j) {
+      bm[w + kWarps * j] = m[j];
+      bl[w + kWarps * j] = l[j];
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      if (n < nt) {
+        float* r0 = bacc + (16 * mt + g) * Dv + n0 + 8 * n + 2 * tg;
+        r0[0] = acc[mt][n][0];
+        r0[1] = acc[mt][n][1];
+        r0[8 * Dv] = acc[mt][n][2];
+        r0[8 * Dv + 1] = acc[mt][n][3];
+      }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  // block r merges heads r, r + splits, ... from every split, in order
+  const int splits = a.splits;
+  for (int h = (int)cluster.block_rank(); h < a.G; h += splits) {
+    float ms[kMaxSplits], f[kMaxSplits];
+    float mx = lm::kNegInf;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      ms[sp] = sp < splits ? *cluster.map_shared_rank(&bm[h], sp)
+                           : lm::kNegInf;
+      mx = fmaxf(mx, ms[sp]);
+    }
+    float tot = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      f[sp] = expf(ms[sp] - mx);
+      if (sp < splits) tot += *cluster.map_shared_rank(&bl[h], sp) * f[sp];
+    }
+    tot = fmaxf(tot, 1e-30f);
+    for (int d = t; d < Dv; d += kThreads) {
+      float as = 0.f;
+#pragma unroll
+      for (int sp = 0; sp < kMaxSplits; ++sp)
+        if (sp < splits)
+          as += *cluster.map_shared_rank(&bacc[h * Dv + d], sp) * f[sp];
+      o[b * a.ob + (long long)h * a.oh + d] = lm::from_f<TQ>(as / tot);
+    }
+  }
+  cluster.sync();  // the other blocks' shared memory lives until read
+}
+
+// floats of dynamic shared memory: the tiles' and the merge's, overlaid
+inline int smem_floats(const Args& a, int GP) {
+  const int tiles = GP * a.ks + kTile * a.ks
+                    + (a.v_in_k ? 0 : kTile * (a.Dv + 8)) + GP * kPS;
+  const int merge = GP * a.Dv;
+  return tiles > merge ? tiles : merge;
+}
+
+template <typename TQ, typename TKV, int MT>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           void* o, const Args& a, cudaStream_t stream) {
+  static bool smem_ok = false, wide_ok = false;
+  auto kernel = mla_decode_kernel<TQ, TKV, MT>;
+  constexpr int GP = 16 * MT;
+  // opted into once, for the widest rows the instance takes
+  constexpr int most = 4 * (GP * kMaxRow + kTile * kMaxRow
+                            + kTile * (kMaxDv + 8) + GP * kPS);
+  int e = lm::allow_smem(kernel, most, &smem_ok);
+  if (e == 0 && !wide_ok) {
+    e = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    wide_ok = e == 0;
+  }
+  if (e != 0) return e;
+  const int bytes = 4 * smem_floats(a, GP);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B, a.splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.splits;  // a slot's splits: one cluster
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t r = cudaLaunchKernelEx(
+      &cfg, kernel, (const TQ*)q, (const TKV*)k, (const TKV*)v, bias, (TQ*)o,
+      a);
+  if (r != cudaSuccess) return (int)r;
+  return (int)cudaGetLastError();
+}
+
+// 16-row tiles of heads: the fewest of 1-4 (GP = 16, 32, 48, 64)
+template <typename TQ, typename TKV>
+int launch_g(const void* q, const void* k, const void* v, const float* bias,
+             void* o, const Args& a, cudaStream_t stream) {
+  if (a.G <= 16) return launch<TQ, TKV, 1>(q, k, v, bias, o, a, stream);
+  if (a.G <= 32) return launch<TQ, TKV, 2>(q, k, v, bias, o, a, stream);
+  if (a.G <= 48) return launch<TQ, TKV, 3>(q, k, v, bias, o, a, stream);
+  if (a.G <= 64) return launch<TQ, TKV, 4>(q, k, v, bias, o, a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace mla
+
 }  // namespace
 
 // dims: B, Hq, Hkv, S, Dk, Dv, keys_per_split, splits (at most 8), vec.
@@ -394,6 +735,45 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
     return launch_g<bf16, float>(q, k, v, bp, o, a, st);
   if (q_dtype == lm::kF32 && kv_dtype == lm::kBF16)
     return launch_g<float, bf16>(q, k, v, bp, o, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The latent instance.  dims: B, G (= Hq; Hkv is 1), S, Dk, Dv (a multiple
+// of 8), keys_per_split (a multiple of 32), splits (at most 16), vec,
+// v_in_k, the shared-memory row of q and K in floats (Dk rounded up to 8,
+// 4 mod 32), q_vec.  strides: qb, qh, kb, kpos, vb, vpos, ob, oh, bias_b.
+extern "C" int decode_attention_mla_launch(const void* q, const void* k,
+                                           const void* v, const void* bias,
+                                           void* o, int q_dtype,
+                                           int kv_dtype, const int* dims,
+                                           const long long* strides,
+                                           float scale, void* stream) {
+  mla::Args a;
+  a.B = dims[0]; a.G = dims[1]; a.S = dims[2]; a.Dk = dims[3];
+  a.Dv = dims[4]; a.keys_per_split = dims[5]; a.splits = dims[6];
+  a.vec = dims[7]; a.v_in_k = dims[8]; a.ks = dims[9]; a.q_vec = dims[10];
+  a.scale = scale;
+  if (a.splits < 1 || a.splits > mla::kMaxSplits ||
+      a.keys_per_split % mla::kTile != 0 || a.keys_per_split < 1 ||
+      (long long)a.splits * a.keys_per_split < a.S ||
+      a.Dk > mla::kMaxDk || a.Dv > mla::kMaxDv || a.Dv % 8 != 0 ||
+      a.ks % 32 != 4 || a.ks < a.Dk || a.ks > mla::kMaxRow ||
+      (a.v_in_k && a.Dv > a.Dk))
+    return (int)cudaErrorInvalidValue;
+  long long* s[] = {&a.qb, &a.qh, &a.kb, &a.kpos, &a.vb,
+                    &a.vpos, &a.ob, &a.oh, &a.bias_b};
+  for (int i = 0; i < 9; ++i) *s[i] = strides[i];
+  const float* bp = (const float*)bias;
+  const cudaStream_t st = (cudaStream_t)stream;
+  using bf16 = __nv_bfloat16;
+  if (q_dtype == lm::kF32 && kv_dtype == lm::kF32)
+    return mla::launch_g<float, float>(q, k, v, bp, o, a, st);
+  if (q_dtype == lm::kBF16 && kv_dtype == lm::kBF16)
+    return mla::launch_g<bf16, bf16>(q, k, v, bp, o, a, st);
+  if (q_dtype == lm::kBF16 && kv_dtype == lm::kF32)
+    return mla::launch_g<bf16, float>(q, k, v, bp, o, a, st);
+  if (q_dtype == lm::kF32 && kv_dtype == lm::kBF16)
+    return mla::launch_g<float, bf16>(q, k, v, bp, o, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,9 +21,27 @@ keeps the softmax state in registers, skips the keys the bias masks
 makes the splits of a KV head one thread-block cluster whose first
 block merges their states from distributed shared memory in split
 order, so the output is the same bits from run to run.
+
+MLA's absorbed decode is MQA over the latent cache: one KV head
+(Hkv = 1) for all G query heads, keys of Dk = kv_lora_rank +
+rope_head_dim and values of Dv = kv_lora_rank (minicpm3-4b: G = 40,
+Dk = 288, Dv = 256).  Those shapes take the kernel's latent instance
+(:func:`route` gives ``"mla"``): a block per (slot, split) holds the G
+query rows in shared memory, loads each live key row once for all of
+them, runs the logits and P V on the tensor cores in 3xTF32 (about
+float32's accuracy) with the (G, Dv) accumulator spread over its warps;
+the splits of a slot (at most 16, a non-portable cluster size) merge in
+a cluster as above.  When v is the first Dv columns of k's rows (the
+model's latent cache holds [c_kv ; k_rope] in one row, and v is c_kv),
+the rows are read once for both.  The limits:
+the split instance takes Dk, Dv <= :data:`MAX_HEAD_DIM` and G <=
+:data:`MAX_GROUP`; with Hkv = 1 the latent instance takes G <=
+:data:`MLA_MAX_GROUP`, Dk <= :data:`MLA_MAX_DK` and Dv <=
+:data:`MLA_MAX_DV`, a multiple of 8.  Other shapes raise.
+
 :func:`decode_attention` launches the kernel for CUDA tensors, adding
-one to ``decode_attention.launches``, and runs the plain version for
-CPU tensors.
+one to ``decode_attention.launches`` (and to ``mla_launches`` for the
+latent instance), and runs the plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -38,8 +56,9 @@ from repro_torch.kernels.launch import (call_device, dtype_code, sm_count,
                                         stream_of)
 from repro_torch.kernels.ref import decode_attention_ref
 
-__all__ = ["decode_attention", "DecodePlan", "plan", "MAX_HEAD_DIM",
-           "MAX_GROUP", "SPLIT_KEYS", "MAX_SPLITS"]
+__all__ = ["decode_attention", "DecodePlan", "plan", "mla_plan", "route",
+           "MAX_HEAD_DIM", "MAX_GROUP", "SPLIT_KEYS", "MAX_SPLITS",
+           "MLA_MAX_SPLITS", "MLA_MAX_GROUP", "MLA_MAX_DK", "MLA_MAX_DV"]
 
 #: the largest Dk or Dv the kernel takes
 MAX_HEAD_DIM = 128
@@ -49,6 +68,13 @@ MAX_GROUP = 16
 SPLIT_KEYS = 32
 #: the most splits of one KV head: a portable thread-block cluster
 MAX_SPLITS = 8
+#: the most splits of a slot in the latent instance: a non-portable
+#: cluster of 16, which the instance opts into
+MLA_MAX_SPLITS = 16
+#: the latent instance's limits (Hkv = 1): query heads, Dk and Dv
+MLA_MAX_GROUP = 64
+MLA_MAX_DK = 320
+MLA_MAX_DV = 256
 
 _SOURCE = build.CudaSource("decode_attention")
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
@@ -77,6 +103,32 @@ def plan(B: int, Hkv: int, S: int, n_sm: int) -> DecodePlan:
     return DecodePlan(kps, splits, heads * splits)
 
 
+def mla_plan(B: int, S: int) -> DecodePlan:
+    """The latent instance's cut: as many splits of a slot as a cluster
+    holds (at most :data:`MLA_MAX_SPLITS`), each a multiple of
+    :data:`SPLIT_KEYS` keys (one tile a step)."""
+    want = min(MLA_MAX_SPLITS, -(-S // SPLIT_KEYS))
+    kps = -(-S // want)
+    kps = -(-kps // SPLIT_KEYS) * SPLIT_KEYS
+    splits = -(-S // kps)
+    return DecodePlan(kps, splits, B * splits)
+
+
+def route(Hq: int, Hkv: int, Dk: int, Dv: int) -> str | None:
+    """The instance that takes these shapes: ``"split"`` (G = Hq / Hkv
+    <= 16, Dk and Dv <= 128), ``"mla"`` (Hkv = 1 past those limits, up
+    to G 64, Dk 320, Dv 256 and a multiple of 8), or None (refused)."""
+    if Hkv <= 0 or Hq % Hkv:
+        return None
+    G = Hq // Hkv
+    if G <= MAX_GROUP and max(Dk, Dv) <= MAX_HEAD_DIM:
+        return "split"
+    if (Hkv == 1 and G <= MLA_MAX_GROUP and Dk <= MLA_MAX_DK
+            and Dv <= MLA_MAX_DV and Dv % 8 == 0):
+        return "mla"
+    return None
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor | None = None,
                      scale: float | None = None) -> torch.Tensor:
@@ -88,15 +140,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = call_device("decode_attention", q, k, v, bias)
     if dev.type == "cpu":
         return decode_attention_ref(q, k, v, bias=bias, scale=scale)
-    out = _launch(q, k, v, bias, scale)
-    decode_attention.launches += 1
+    out, which = _launch(q, k, v, bias, scale)
+    if which is not None:                  # an empty output launches none
+        decode_attention.launches += 1
+        if which == "mla":
+            decode_attention.mla_launches += 1
     return out
 
 
+#: every launch, and the latent instance's own
 decode_attention.launches = 0
+decode_attention.mla_launches = 0
 
 
-def _launch(q, k, v, bias, scale) -> torch.Tensor:
+def _launch(q, k, v, bias, scale) -> tuple[torch.Tensor, str | None]:
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention: q must be (B, Hq, D) and k, v "
                          "(B, Hkv, S, D)")
@@ -106,10 +163,13 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
             or Hkv == 0 or Hq % Hkv):
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
-    if max(Dk, Dv) > MAX_HEAD_DIM or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention: head dim {max(Dk, Dv)} (max "
-                         f"{MAX_HEAD_DIM}) or group {Hq // Hkv} (max "
-                         f"{MAX_GROUP}) too large")
+    which = route(Hq, Hkv, Dk, Dv)
+    if which is None:
+        raise ValueError(
+            f"decode_attention: Dk {Dk}, Dv {Dv}, group {Hq // Hkv} of Hkv "
+            f"{Hkv} too large (max {MAX_HEAD_DIM} and {MAX_GROUP}; with "
+            f"Hkv = 1: Dk {MLA_MAX_DK}, Dv {MLA_MAX_DV}, group "
+            f"{MLA_MAX_GROUP})")
     if S == 0:
         raise ValueError("decode_attention: the cache is empty")
     if k.dtype != v.dtype:
@@ -122,13 +182,16 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
     kv_code = dtype_code("decode_attention", "k", k)
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out, None
     if bias is not None:
         if tuple(bias.shape) != (B, S):
             raise ValueError(f"decode_attention: bias must be ({B}, {S}), "
                              f"got {tuple(bias.shape)}")
         bias = bias.to(torch.float32).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
+    if which == "mla":
+        _launch_mla(q, k, v, bias, out, q_code, kv_code, float(scale))
+        return out, which
     p = plan(B, Hkv, S, sm_count(q.device.index or 0))
     dims = (ctypes.c_int * 9)(B, Hq, Hkv, S, Dk, Dv, p.keys_per_split,
                               p.splits, int(_wide_loads(k, v)))
@@ -142,7 +205,43 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
                 q_code, kv_code, dims, strides, float(scale),
                 stream_of(q.device))
     _SOURCE.check(rc)
-    return out
+    return out, which
+
+
+def _v_in_k(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether v's rows are the first Dv columns of k's (the latent
+    cache's c_kv inside [c_kv ; k_rope]): then each row is read once."""
+    return (v.data_ptr() == k.data_ptr() and v.shape[-1] <= k.shape[-1]
+            and v.stride(0) == k.stride(0) and v.stride(2) == k.stride(2))
+
+
+def _smem_row(Dk: int) -> int:
+    """The latent instance's shared-memory row of q and K, in floats: Dk
+    rounded up to 8 (the tensor cores' depth), then to 4 mod 32 words, so
+    an mma fragment's loads fall on distinct banks."""
+    d8 = -(-Dk // 8) * 8
+    return d8 + (4 - d8) % 32
+
+
+def _launch_mla(q, k, v, bias, out, q_code, kv_code, scale) -> None:
+    B, G, Dk = q.shape
+    S, Dv = v.shape[2], v.shape[3]
+    p = mla_plan(B, S)
+    per = 16 // q.element_size()
+    q_vec = (q.data_ptr() % 16 == 0 and Dk % per == 0
+             and all(st % per == 0 for st in q.stride()[:2]))
+    dims = (ctypes.c_int * 11)(B, G, S, Dk, Dv, p.keys_per_split, p.splits,
+                               int(_wide_loads(k, v)), int(_v_in_k(k, v)),
+                               _smem_row(Dk), int(q_vec))
+    strides = (ctypes.c_longlong * 9)(
+        *q.stride()[:2], k.stride(0), k.stride(2), v.stride(0), v.stride(2),
+        *out.stride()[:2], S if bias is None else bias.stride(0))
+    fn = _SOURCE.function("decode_attention_mla_launch", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr(),
+                q_code, kv_code, dims, strides, scale, stream_of(q.device))
+    _SOURCE.check(rc)
 
 
 def _wide_loads(k: torch.Tensor, v: torch.Tensor) -> bool:

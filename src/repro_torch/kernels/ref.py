@@ -63,7 +63,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor | None = None,
                          scale: float | None = None) -> torch.Tensor:
-    """Single-token attention.  q: (B, Hq, D); k/v: (B, Hkv, S, D).
+    """Single-token attention.  q: (B, Hq, Dk); k: (B, Hkv, S, Dk); v:
+    (B, Hkv, S, Dv), Dv may differ from Dk (MLA's latent cache: Hkv = 1,
+    Dk = r + kr, Dv = r).  Returns (B, Hq, Dv).
 
     ``bias`` (B, S) masks cache slots past each sequence's length.
     """

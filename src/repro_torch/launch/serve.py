@@ -3,8 +3,11 @@
 
 ``python -m repro_torch.launch.serve --arch granite_3_2b [--full]
 --batch 4 --prompt-len 32 --gen-len 32 [--device cpu]``; ``--arch``
-takes the dense ``granite_3_2b``, the SSM ``mamba2_2p7b`` and the hybrid
-``zamba2_1p2b`` (the other configs raise ``NotPortedError``).
+takes the dense ``granite_3_2b``, the MoE ``granite_moe_3b_a800m``, the
+MLA ``minicpm3_4b``, the SSM ``mamba2_2p7b``, the hybrid ``zamba2_1p2b``
+and, at its smoke size only (``--smoke``, the default),
+``qwen3_moe_235b_a22b``, whose 235 B parameters no one card holds (the
+other configs raise ``NotPortedError``).
 
 Builds random parameters from ``--seed`` and a cache in the config's
 type, prefills ``--batch`` random prompts at once and decodes

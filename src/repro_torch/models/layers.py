@@ -1,5 +1,5 @@
-"""Model building blocks for the dense, SSM and hybrid families (the
-port of ``repro.models.layers``).
+"""Model building blocks for the dense, MoE, MLA, SSM and hybrid
+families (the port of ``repro.models.layers``).
 
 Parameters are declared with :class:`ParamDef` (shape, logical axes,
 init law) and made by :func:`init_tree` from one ``torch.Generator`` on
@@ -10,14 +10,15 @@ reads nothing back to the host, so one CUDA graph can capture a whole
 decode step (:mod:`repro_torch.runtime.compiled_step`).
 
 Not here: the reference's ``shard_act`` / ``activation_rules`` (a no-op
-without a mesh, and the port has no mesh yet), MLA, MoE and the chunked
-XLA attention, which come with later slices.
+without a mesh, and the port has no mesh yet), the chunked XLA attention
+and ``mla_absorb="always"`` at prefill, which come with later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 
@@ -26,9 +27,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ParamDef", "init_tree", "rmsnorm", "rope", "embed_tokens",
-           "unembed", "attn_defs", "attention_block", "mlp_defs",
-           "mlp_block", "decode_attn_cache", "mamba2_defs", "mamba2_block",
-           "mamba2_decode_step"]
+           "unembed", "attn_defs", "attention_block", "mla_defs",
+           "mla_attention_block", "mlp_defs", "mlp_block", "moe_defs",
+           "moe_route", "moe_block", "ExpertChoices", "expert_choices",
+           "decode_attn_cache", "mamba2_defs",
+           "mamba2_block", "mamba2_decode_step"]
 
 
 # ----------------------------------------------------------------------
@@ -208,14 +211,7 @@ def attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     qh = q.transpose(1, 2)                            # (B, Hq, S, D)
     if S == 1:
-        Smax = k.shape[2]
-        idx = cache_index
-        if not isinstance(idx, torch.Tensor):
-            idx = torch.tensor(idx, device=x.device)
-        idxb = idx[:, None] if idx.dim() == 1 else idx
-        keep = torch.arange(Smax, device=x.device)[None, :] <= idxb
-        bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
-        bias = bias.expand(B, Smax)
+        bias = _length_bias(cache_index, B, k.shape[2], x.device)
         out = ops.decode_attention(qh[:, :, 0], k, v, bias=bias,
                                    impl=cfg.attn_impl)      # (B, Hq, D)
         out = out.reshape(B, 1, Hq * hd)
@@ -224,6 +220,127 @@ def attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                             impl=cfg.attn_impl)
         out = out.transpose(1, 2).reshape(B, S, Hq * hd)
     return x + (out @ p["wo"]).to(x.dtype), cache
+
+
+def _length_bias(index: int | torch.Tensor, B: int, Smax: int,
+                 device: torch.device) -> torch.Tensor:
+    """The decode mask (B, Smax) float32: 0 at positions <= ``index`` (a
+    scalar, or (B,) per slot), -1e30 past them."""
+    if not isinstance(index, torch.Tensor):
+        index = torch.tensor(index, device=device)
+    idxb = index[:, None] if index.dim() == 1 else index
+    keep = torch.arange(Smax, device=device)[None, :] <= idxb
+    return torch.where(keep, 0.0, -1e30).to(torch.float32).expand(B, Smax)
+
+
+# ----------------------------------------------------------------------
+# MLA: multi-head latent attention (minicpm3)
+# ----------------------------------------------------------------------
+def mla_defs(cfg: ModelConfig) -> dict:
+    d, hd, Hq = cfg.d_model, cfg.hd, cfg.n_heads
+    r, kr = cfg.kv_lora_rank, cfg.rope_head_dim
+    qr = cfg.q_lora_rank or cfg.d_model
+    return {
+        "ln": ParamDef((d,), ("embed",), "ones"),
+        "wdq": ParamDef((d, qr), ("embed", None)),
+        "q_ln": ParamDef((qr,), (None,), "ones"),
+        "wuq": ParamDef((qr, Hq * (hd + kr)), (None, "heads")),
+        "wdkv": ParamDef((d, r + kr), ("embed", None)),
+        "kv_ln": ParamDef((r,), (None,), "ones"),
+        "wuk": ParamDef((r, Hq * hd), (None, "heads")),
+        "wuv": ParamDef((r, Hq * hd), (None, "heads")),
+        "wo": ParamDef((Hq * hd, d), ("heads", "embed")),
+    }
+
+
+def _latent_rows(c_kv: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
+    """[c_kv ; k_rope] (B, S, r + kr).  When the two are the column
+    halves of one buffer's rows (:func:`decode_attn_cache`'s layout) this
+    is a view of that buffer; otherwise a copy."""
+    B, S, r = c_kv.shape
+    kr = k_rope.shape[-1]
+    joint = (k_rope.data_ptr() == c_kv.data_ptr() + r * c_kv.element_size()
+             and k_rope.dtype == c_kv.dtype and c_kv.stride(-1) == 1
+             and k_rope.stride() == c_kv.stride()
+             and c_kv.stride(1) >= r + kr)
+    if joint:
+        return c_kv.as_strided((B, S, r + kr), c_kv.stride())
+    return torch.cat([c_kv, k_rope], -1)
+
+
+def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        pos: torch.Tensor, cache: dict | None = None,
+                        cache_index: int | torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, dict | None]:
+    """Multi-head latent attention (MiniCPM3 / DeepSeek style).
+
+    cache: {"c_kv" (B, Smax, r), "k_rope" (B, Smax, kr)}, written at
+    ``cache_index`` in place.  At S == 1 (decode) the absorbed form: the
+    query projected into the latent space attends, as MQA (Hkv = 1,
+    Dk = r + kr, Dv = r), against [c_kv ; k_rope] read from the cache,
+    through ``ops.decode_attention``; the float32 ``wuv`` up-projection
+    follows.  At S > 1 (``mla_absorb="decode"``) K and V are
+    up-projected once and ``ops.attention`` runs causal at Dk = hd + kr,
+    Dv = hd.  ``mla_absorb="always"`` at prefill (flash at Dk = r + kr,
+    over its 256 limit) raises.  Returns (x + attn_out, cache).
+    """
+    B, S, _ = x.shape
+    hd, Hq = cfg.hd, cfg.n_heads
+    r, kr = cfg.kv_lora_rank, cfg.rope_head_dim
+    absorb = cfg.mla_absorb == "always" or S == 1
+    if cfg.attn_chunk:
+        raise NotPortedError("attn_chunk > 0 (the chunked XLA attention "
+                             "scan) is not ported yet")
+    if absorb and S > 1:
+        raise NotPortedError("mla_absorb='always' at prefill (flash "
+                             "attention at Dk = kv_lora_rank + "
+                             "rope_head_dim) is not ported yet")
+    f32 = torch.float32
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    cq = rmsnorm(h @ p["wdq"], p["q_ln"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(B, S, Hq, hd + kr)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = rope(q_rope, pos, cfg.rope_theta)
+
+    dkv = h @ p["wdkv"]                                 # (B, S, r + kr)
+    c_kv = rmsnorm(dkv[..., :r], p["kv_ln"], cfg.norm_eps)
+    k_rope = rope(dkv[..., None, r:], pos, cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:      # the (B, Smax, D) leaves as (B, 1, Smax, D)
+        _write_cache(cache["c_kv"][:, None], c_kv[:, None], cache_index)
+        _write_cache(cache["k_rope"][:, None], k_rope[:, None], cache_index)
+        if S == 1:
+            c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+
+    wuk = p["wuk"].reshape(r, Hq, hd)
+    wuv = p["wuv"].reshape(r, Hq, hd)
+    scale = 1.0 / math.sqrt(hd + kr)
+    if absorb:                 # decode: MQA over the latent cache
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(f32),
+                             wuk.to(f32)).to(x.dtype)
+        q_eff = torch.cat([q_lat, q_rope], -1)          # (B, 1, Hq, r+kr)
+        k_eff = _latent_rows(c_kv, k_rope)[:, None]     # (B, 1, Sk, r+kr)
+        v_eff = c_kv[:, None]                           # (B, 1, Sk, r)
+        bias = _length_bias(cache_index, B, k_eff.shape[2], x.device)
+        ctx = ops.decode_attention(q_eff[:, 0], k_eff, v_eff, bias=bias,
+                                   scale=scale, impl=cfg.attn_impl)
+        out = torch.einsum("bshr,rhd->bshd", ctx[:, None].to(f32),
+                           wuv.to(f32))
+    else:                      # prefill: K and V up-projected once
+        k_nope = torch.einsum("btr,rhd->bthd", c_kv.to(f32),
+                              wuk.to(f32)).to(x.dtype)
+        v = torch.einsum("btr,rhd->bthd", c_kv.to(f32),
+                         wuv.to(f32)).to(x.dtype)
+        Sk = c_kv.shape[1]
+        k_rope_h = k_rope[:, :, None].expand(B, Sk, Hq, kr).to(x.dtype)
+        k_full = torch.cat([k_nope, k_rope_h], -1)      # (B, Sk, Hq, hd+kr)
+        q_full = torch.cat([q_nope.to(x.dtype), q_rope], -1)
+        ctx = ops.attention(q_full.transpose(1, 2), k_full.transpose(1, 2),
+                            v.transpose(1, 2), causal=True,
+                            impl=cfg.attn_impl, scale=scale)
+        out = ctx.transpose(1, 2).to(f32)               # (B, S, Hq, hd)
+    out = out.reshape(B, S, Hq * hd).to(x.dtype)
+    return x + out @ p["wo"], cache
 
 
 # ----------------------------------------------------------------------
@@ -245,11 +362,174 @@ def mlp_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x + y.reshape(x.shape)
 
 
+# ----------------------------------------------------------------------
+# MoE: top-k experts with grouped capacity dispatch
+# ----------------------------------------------------------------------
+def moe_defs(cfg: ModelConfig) -> dict:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "ln": ParamDef((d,), ("embed",), "ones"),
+        "router": ParamDef((d, E), ("embed", None), scale=0.02),
+        "wg": ParamDef((E, d, ff), ("experts", "embed", "expert_ff")),
+        "wu": ParamDef((E, d, ff), ("experts", "embed", "expert_ff")),
+        "wd": ParamDef((E, ff, d), ("experts", "expert_ff", "embed")),
+    }
+
+
+def moe_route(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The router: (h, gates, topw, tope).  h = rmsnorm(x) (B, S, d);
+    gates the float32 softmax over the E experts (B, S, E); tope the K
+    chosen experts of each token, best first, and topw their gates
+    renormalised to sum 1 (both (B, S, K))."""
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    gates = torch.softmax(h.to(torch.float32)
+                          @ p["router"].to(torch.float32), dim=-1)
+    topw, tope = torch.topk(gates, cfg.experts_per_token, dim=-1)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    return h, gates, topw, tope
+
+
+class ExpertChoices:
+    """What :func:`expert_choices` yields: ``chosen`` holds each
+    ``moe_block`` call's own router choices (B, S, K), best first, in
+    call order.  With ``replay`` (such a list) each call takes the next
+    entry as its choices instead, weighted by its own gates renormalised
+    to sum 1."""
+
+    def __init__(self, replay: list | None = None):
+        self.chosen: list[torch.Tensor] = []
+        self._replay = None if replay is None else iter(replay)
+
+    def take(self, gates: torch.Tensor, topw: torch.Tensor,
+             tope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        self.chosen.append(tope)
+        if self._replay is None:
+            return topw, tope
+        forced = next(self._replay)
+        topw = gates.gather(-1, forced)
+        return topw / topw.sum(-1, keepdim=True).clamp_min(1e-9), forced
+
+
+_CHOICES: ExpertChoices | None = None     # set only by expert_choices
+
+
+@contextlib.contextmanager
+def expert_choices(replay: list | None = None) -> Iterator[ExpertChoices]:
+    """Within the ``with``, every ``moe_block`` call records its router's
+    choices in the yielded :class:`ExpertChoices` and, given ``replay``,
+    takes the recorded choices of another run instead: to compare two
+    routes of one model on the same expert choices, and to count how
+    often their own routers differ.  An eager-only instrument: a CUDA
+    graph replays whatever its capture recorded."""
+    global _CHOICES
+    outer, _CHOICES = _CHOICES, ExpertChoices(replay)
+    try:
+        yield _CHOICES
+    finally:
+        _CHOICES = outer
+
+
+def _expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, M, k) @ (E, k, n) with float32 sums and a float32 result, as
+    the reference's ``preferred_element_type=float32``: bf16 operands
+    keep their type on the card; on the CPU (no ``bmm`` with an
+    ``out_dtype`` there) they are upcast, and a bf16 product is exact in
+    float32, so the two differ only in the order of the sums."""
+    if a.is_cuda:
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), w.to(torch.float32))
+
+
+def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity dispatch in ``G = cfg.moe_groups or B``
+    groups.  x: (B, S, d).  Returns (x + moe_out, aux), aux the Switch
+    load-balance loss E * sum_e f_e P_e.
+
+    The reference's semantics, kept exactly: per group of T tokens, each
+    expert takes ``cap = max(ceil(T K / E * capacity_factor), K)`` of
+    them in order (the exclusive rank of a one-hot cumsum), dropping the
+    rest.  Its (E, cap) token map is a scatter in which every dropped
+    choice of expert e writes "no token" to slot cap - 1, after the kept
+    token of rank cap - 1 wrote there; JAX applies it in order, so when
+    e overflows that kept token loses e's output too.  Here each (e,
+    slot) has one writer and that last-write-wins outcome is built in.
+    The combine adds a token's K scaled expert outputs in x's type, in
+    ascending expert id (the reference's scatter-add order over the
+    flat (expert, slot) map), one rounding an add, from zero: no
+    atomics, so graph and eager give the same bits.  The expert FFN is
+    three ``torch.bmm`` over (E, G * cap, d), as the reference leaves
+    its einsums to XLA.  No step reads the device on the host and no
+    shape depends on the data, so a CUDA graph can capture it.
+    """
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    G = cfg.moe_groups or B
+    T = (B * S) // G
+    cap = max(int(math.ceil(T * K / E * cfg.capacity_factor)), K)
+    dev = x.device
+
+    h, gates, topw, tope = moe_route(p, cfg, x)
+    if _CHOICES is not None:
+        topw, tope = _CHOICES.take(gates, topw, tope)
+    h = h.reshape(G, T, d)
+    flat_e = tope.reshape(G, T * K)
+    onehot = (flat_e[..., None] == torch.arange(E, device=dev)).long()
+    pos = (onehot.cumsum(1) - onehot).gather(2, flat_e[..., None])[..., 0]
+    keep = pos < cap
+    # expert e overflows: its slot cap - 1 ends up empty (see above)
+    over = onehot.sum(1) > cap                                # (G, E)
+    kept = keep & ~(over.gather(1, flat_e) & (pos == cap - 1))
+    slot = torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    cell = flat_e * cap + slot                                # (G, T*K)
+    # the (E * cap) token map, one writer a cell; the rest point at the
+    # zero row T (dropped choices go to a spare cell past the map)
+    tok = torch.arange(T * K, device=dev).expand(G, -1) // K
+    idx = torch.full((G, E * cap + 1), T, dtype=torch.long, device=dev)
+    idx.scatter_(1, torch.where(kept, cell, E * cap), tok)
+    idx = idx[:, :E * cap]
+    h_pad = torch.cat([h, h.new_zeros(G, 1, d)], 1)           # (G, T+1, d)
+    buf = h_pad.gather(1, idx[..., None].expand(-1, -1, d))   # (G, E*cap, d)
+
+    # the expert FFN over (E, G * cap, d): bf16 operands, float32 sums
+    buf = buf.reshape(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
+    g = _expert_matmul(buf, p["wg"])
+    u = _expert_matmul(buf, p["wu"])
+    a = (torch.nn.functional.silu(g) * u).to(x.dtype)
+    y = _expert_matmul(a, p["wd"]).to(x.dtype)
+    y = y.reshape(E, G, cap, d).transpose(0, 1).reshape(G, E * cap, d)
+
+    # combine: each token's K contributions in ascending expert id
+    yk = y.gather(1, cell[..., None].expand(-1, -1, d))       # (G, T*K, d)
+    w = torch.where(kept, topw.reshape(G, T * K), 0.0).to(x.dtype)
+    yk = (yk * w[..., None]).reshape(G, T, K, d)
+    order = tope.reshape(G, T, K).argsort(-1)
+    yk = yk.gather(2, order[..., None].expand(-1, -1, -1, d))
+    out = yk[:, :, 0]
+    for j in range(1, K):
+        out = out + yk[:, :, j]
+    out = out.reshape(B, S, d)
+
+    me = gates.mean((0, 1))                                   # (E,)
+    ce = (tope[..., 0, None] == torch.arange(E, device=dev)).to(
+        torch.float32).mean((0, 1))
+    return x + out, E * torch.sum(me * ce)
+
+
 def decode_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device: torch.device) -> dict:
-    """An empty per-layer KV cache (stacked over layers elsewhere)."""
+    """An empty per-layer KV cache (stacked over layers elsewhere).
+
+    MLA: {"c_kv" (batch, max_len, r), "k_rope" (batch, max_len, kr)}, the
+    two column halves of one (batch, max_len, r + kr) buffer, so the
+    absorbed decode reads [c_kv ; k_rope] as one strided tensor, each row
+    once, without a copy.  Otherwise {"k", "v"} (batch, Hkv, max_len, D).
+    """
     if cfg.use_mla:
-        raise NotPortedError("the MLA latent cache is not ported yet")
+        r = cfg.kv_lora_rank
+        rows = torch.zeros((batch, max_len, r + cfg.rope_head_dim),
+                           dtype=dtype, device=device)
+        return {"c_kv": rows[..., :r], "k_rope": rows[..., r:]}
     shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,5 +1,5 @@
-"""The dense, SSM and hybrid LMs: parameters, cache, prefill and decode
-(the port of ``repro.models.model``).
+"""The dense, MoE, MLA, SSM and hybrid LMs: parameters, cache, prefill
+and decode (the port of ``repro.models.model``).
 
 Public API (plain functions over dicts of tensors):
   param_defs(cfg)                          declarative parameter tree
@@ -12,11 +12,13 @@ Public API (plain functions over dicts of tensors):
 The parameters keep the reference's layout: every block parameter is
 stacked on a leading layer axis, and the layers run as a Python loop
 over it (the reference's ``_scan_or_loop`` unrolled, so the hybrid's
-shared-attention sites are static).  The serving paths of the ``dense``,
-``ssm`` (mamba2) and ``hybrid`` (zamba2) families are ported; the other
-families, MLA, MoE, encoder and vision inputs, and the training path
-(``loss_fn``) raise :class:`~repro_torch.device.NotPortedError`.  Caches
-are updated in place.
+shared-attention sites are static).  The serving paths of the ``dense``
+(with MLA attention: minicpm3), ``moe`` (granite-moe, qwen3-moe), ``ssm``
+(mamba2) and ``hybrid`` (zamba2) families are ported; the encoder
+(``encdec``) and vision (``vlm``) families, ``kv_repeat_to`` and the
+training path (``loss_fn``) raise
+:class:`~repro_torch.device.NotPortedError`.  Caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -44,14 +46,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise :class:`NotPortedError` for what this slice does not run."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotPortedError(f"{cfg.name}: the {cfg.family!r} family is not "
-                             f"ported yet (the port serves 'dense', 'ssm' "
-                             f"and 'hybrid')")
-    if cfg.use_mla:
-        raise NotPortedError(f"{cfg.name}: MLA attention is not ported yet")
-    if cfg.n_experts > 0:
-        raise NotPortedError(f"{cfg.name}: MoE blocks are not ported yet")
+                             f"ported yet (the port serves 'dense', 'moe', "
+                             f"'ssm' and 'hybrid')")
     if cfg.kv_repeat_to > 0:
         raise NotPortedError(f"{cfg.name}: kv_repeat_to is not ported yet")
 
@@ -70,7 +68,9 @@ def _stack(defs: Any, n: int) -> Any:
 def _block_defs(cfg: ModelConfig) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         return {"mamba": L.mamba2_defs(cfg)}
-    return {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
+    attn = L.mla_defs(cfg) if cfg.use_mla else L.attn_defs(cfg)
+    mlp = L.moe_defs(cfg) if cfg.n_experts else L.mlp_defs(cfg)
+    return {"attn": attn, "mlp": mlp}
 
 
 def param_defs(cfg: ModelConfig) -> dict:
@@ -149,15 +149,33 @@ def _layer(tree: Any, i: int) -> Any:
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
+def _dense_block(p, cfg, x, pos, cache=None, idx=None, causal=True):
+    """One decoder block of the dense and moe families: attention (MLA
+    where ``use_mla``), then the MLP (MoE where ``n_experts``).  Returns
+    (x, cache, aux), aux the MoE's load-balance loss (0 without one)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.use_mla:
+        x, cache = L.mla_attention_block(p["attn"], cfg, x, pos, cache, idx)
+    else:
+        x, cache = L.attention_block(p["attn"], cfg, x, pos, cache, idx,
+                                     causal=causal)
+    if cfg.n_experts:
+        x, aux = L.moe_block(p["mlp"], cfg, x)
+    else:
+        x = L.mlp_block(p["mlp"], cfg, x)
+    return x, cache, aux
+
+
 def _run_blocks(params, cfg, x, pos, cache=None, index=None,
                 decode=False):
+    """The layer loop; serving drops the blocks' aux, as the reference's
+    prefill and decode do."""
     if cfg.family in ("ssm", "hybrid"):
         return _iterate_ssm(params, cfg, x, pos, cache, index, decode)
     for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
         cache_l = None if cache is None else _layer(cache["attn"], i)
-        x, _ = L.attention_block(p["attn"], cfg, x, pos, cache_l, index)
-        x = L.mlp_block(p["mlp"], cfg, x)
+        x, _, _ = _dense_block(_layer(params["blocks"], i), cfg, x, pos,
+                               cache_l, index)
     return x
 
 
@@ -216,7 +234,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
     """The decode cache; every leaf but ``index`` has the batch on axis 1.
 
-    dense: {"index", "attn": {"k", "v"} (layers, batch, Hkv, max_len, D)};
+    dense and moe: {"index", "attn": {"k", "v"} (layers, batch, Hkv,
+    max_len, D)}, or with MLA {"c_kv" (layers, batch, max_len, r),
+    "k_rope" (layers, batch, max_len, kr)} (views of one buffer, see
+    :func:`L.decode_attn_cache`);
     ssm: {"index", "conv" (layers, batch, W-1, conv_ch) in ``dtype``,
     "ssm" (layers, batch, H, P, N) float32}; hybrid: the ssm cache plus
     "attn" for its ``n_layers // attn_every`` shared-attention sites.

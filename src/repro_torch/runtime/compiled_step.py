@@ -25,8 +25,9 @@ state update is not idempotent (the SSM's) still runs once a call.  The
 capture uses ``capture_error_mode="thread_local"``: an unsafe CUDA call
 from this thread (a host read such as ``.item()``, a pageable copy)
 fails the capture, while other threads of the process may go on
-working.  A failed capture or replay raises, and the step stays broken;
-nothing falls back to the eager step on the card.
+working; Python's cycle collector is off while it runs, so no dead
+object is freed inside it.  A failed capture or replay raises, and the
+step stays broken; nothing falls back to the eager step on the card.
 
 What the step function may do: take its inputs as positional tensors,
 close over tensors that keep their addresses for the step's life (the
@@ -45,6 +46,7 @@ thread's counted launches during the capture would be taken back too.)
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Sequence
 
@@ -180,11 +182,21 @@ class CompiledStep:
         self._broken = None
 
     def _record(self):
-        """Captures the step on the warm-up's stream: (graph, outputs)."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            out = self.fn(*self._inputs)
+        """Captures the step on the warm-up's stream: (graph, outputs).
+        Python's cycle collector runs just before and is off during the
+        capture: a dead cycle holding CUDA objects (another step's graph,
+        pinned staging) freed inside the capture would invalidate it."""
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                out = self.fn(*self._inputs)
+        finally:
+            if was_enabled:
+                gc.enable()
         return graph, out
 
     def _replay(self) -> None:

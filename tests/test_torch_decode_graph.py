@@ -4,7 +4,8 @@ decode through it (``ContinuousBatcher``, ``repro_torch.launch.serve``,
 
 On the CPU the step runs eagerly through the same static buffers and
 pinned-staging logic (not pinned here): the batcher on the ``SMOKE``
-configs of granite-3-2b, mamba2-2.7b and zamba2-1.2b gives the JAX
+configs of granite-3-2b, mamba2-2.7b, zamba2-1.2b, granite-moe-3b-a800m
+and minicpm3-4b gives the JAX
 batcher's tokens, and each step's logits within 1e-5 * max|logits|, for
 5 requests on 2 slots (admissions and retirements between steps).  The
 graph's bookkeeping runs on the CPU against a stand-in graph that
@@ -24,6 +25,7 @@ capture and returns nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 from pathlib import Path
 
@@ -54,7 +56,8 @@ try:                                 # the card's machine has no JAX
 except ImportError:
     jax = None
 
-ARCHS = ("granite_3_2b", "mamba2_2p7b", "zamba2_1p2b")
+ARCHS = ("granite_3_2b", "mamba2_2p7b", "zamba2_1p2b",
+         "granite_moe_3b_a800m", "minicpm3_4b")
 TOL = 1e-5                           # relative to max|logits|
 EXAMPLE = Path(__file__).resolve().parents[1] / "examples" / \
     "serve_lm_torch.py"
@@ -245,6 +248,50 @@ def test_launch_accounting_counts_executed_steps_not_the_capture():
     assert _stub.launches == 2 and step.captures == 1
 
 
+def test_the_capture_runs_with_the_cycle_collector_off(monkeypatch):
+    """A dead cycle is collected before the capture, none during it (a
+    CUDA graph or pinned tensor freed inside a capture invalidates it),
+    and the collector is back on after it, also when the step raises."""
+    import gc
+    import weakref
+
+    class Graph:                       # stand-ins for the CUDA calls
+        pass
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None, capture_error_mode=None):
+        yield
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+
+    class Node:
+        pass
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        if x.sum() < 0:
+            raise RuntimeError("the step failed")
+        return x + 1
+
+    step = CS.CompiledStep(fn, device="cpu", counters=())
+    step._stream = None
+    for x, fails in ((torch.ones(2), False), (-torch.ones(2), True)):
+        cycle = Node()
+        cycle.me = cycle
+        dead = weakref.ref(cycle)
+        del cycle
+        step._inputs = (x,)
+        if fails:
+            with pytest.raises(RuntimeError):
+                step._record()
+        else:
+            graph, out = step._record()
+            assert isinstance(graph, Graph) and torch.equal(out, x + 1)
+        assert dead() is None
+        assert seen[-1] is False and gc.isenabled()
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype"])
 @pytest.mark.parametrize("graphed", [False, True])
 def test_a_call_with_other_inputs_raises(bad, graphed):
@@ -345,7 +392,9 @@ def _card_batchers(arch, dtype, classes=(_Recorded, _Eager),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,dtype", [(a, "float32") for a in ARCHS]
-                         + [("granite_3_2b", "bfloat16")])
+                         + [(a, "bfloat16") for a in (
+                             "granite_3_2b", "granite_moe_3b_a800m",
+                             "minicpm3_4b")])
 def test_graph_logits_equal_the_eager_step_on_card(arch, dtype):
     _needs_card()
     graph, eager = _card_batchers(arch, dtype)

@@ -656,9 +656,9 @@ def test_kernel_sources_export_their_launchers():
         assert f"LM_ERROR_STRING({name})" in src
         assert "src/repro/kernels/" in src          # names the TPU kernel
         heads = [h.name for h in build.included_headers(src)]
-        # the bf16 routes share the tensor-core helpers
-        assert heads == (["lm_common.cuh"] if name == "decode_attention"
-                         else ["lm_common.cuh", "tensor_core.cuh"])
+        # the bf16 routes and decode's latent instance share the
+        # tensor-core helpers
+        assert heads == ["lm_common.cuh", "tensor_core.cuh"]
     src = build.CudaSource("fused_mlp").source
     for launcher in ("fused_mlp_stream_launch", "fused_mlp_tc_launch"):
         assert f'extern "C" int {launcher}(' in src
@@ -730,14 +730,16 @@ def test_flash_kernel_matches_plain_on_card(S, dtype):
     (0, 3, 40, 100),                     # most of the cache masked
 ])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_matches_plain_on_card(q_dtype, lens):
-    """granite-3-2b's decode shapes against a float32 cache.  The keys
-    the bias masks hold NaN: the kernel must not read them.  Two calls
-    give the same bits; each counts one launch."""
+@pytest.mark.parametrize("Hq", [32, 24])
+def test_decode_kernel_matches_plain_on_card(q_dtype, lens, Hq):
+    """granite-3-2b's decode shapes against a float32 cache, and
+    granite-moe-3b-a800m's 24 query heads (G = 3 fills the group of 4
+    only in part).  The keys the bias masks hold NaN: the kernel must not
+    read them.  Two calls give the same bits; each counts one launch."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     B, S = 4, 512
-    q = torch.randn(B, 32, 64, device="cuda", generator=gen).to(q_dtype)
+    q = torch.randn(B, Hq, 64, device="cuda", generator=gen).to(q_dtype)
     k = torch.randn(B, 8, S, 64, device="cuda", generator=gen)
     v = torch.randn(B, 8, S, 64, device="cuda", generator=gen)
     keep = (torch.arange(S, device="cuda")[None]

@@ -5,8 +5,9 @@ parameters carried across by ``from_jax_params``: prefill logits and
 cache, then decode steps with a scalar and a per-slot cache index, agree
 within 1e-5 * max|logits|.  The JAX side uses ``attn_impl="auto"``,
 which on the CPU is its oracle path.  The port's own ``init`` follows
-the declared laws, and what this slice does not port raises
-``NotPortedError``.
+the declared laws, and what the port does not run yet (the encoder and
+vision families, ``kv_repeat_to``, ``attn_chunk``, MLA's absorbed
+prefill, training, a mesh) raises ``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -166,10 +167,15 @@ def test_init_follows_the_declared_laws():
 
 
 def test_what_is_not_ported_raises():
-    for name in ("granite_moe_3b_a800m", "minicpm3_4b", "whisper_base",
-                 "internvl2_26b"):
+    for name in ("whisper_base", "internvl2_26b"):
         with pytest.raises(NotPortedError):
             TM.init(tconfigs.get_smoke(name), 0, device="cpu")
+    mla = dataclasses.replace(tconfigs.get_smoke("minicpm3_4b"),
+                              mla_absorb="always")
+    with pytest.raises(NotPortedError, match="mla_absorb='always'"):
+        TM.prefill(TM.init(mla, 0, device="cpu"), mla,
+                   torch.zeros(1, 3, dtype=torch.long),
+                   TM.init_cache(mla, 1, 8, device="cpu"))
     cfg = tconfigs.get_smoke(ARCH)
     with pytest.raises(NotPortedError, match="kv_repeat_to"):
         TM.init_cache(dataclasses.replace(cfg, kv_repeat_to=4), 1, 8,

@@ -385,7 +385,8 @@ def test_kernel_source_exports_its_launcher():
     assert 'extern "C" int ssd_scan_launch(' in src
     assert "LM_ERROR_STRING(ssd_scan)" in src
     assert "src/repro/kernels/ssd_scan.py" in src    # names the TPU kernel
-    assert [h.name for h in build.included_headers(src)] == ["lm_common.cuh"]
+    assert [h.name for h in build.included_headers(src)] == [
+        "lm_common.cuh", "tensor_core.cuh"]    # its 3xTF32 products
     assert f"kPS = {SK.BLOCK_P};" in src and f"kLMax = {SK.MAX_CHUNK};" in src
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a decode step's (or a prefill's) time goes: an LM served by the
 port on one NVIDIA GPU (``--arch``: granite-3-2b by default, or
-mamba2-2.7b or zamba2-1.2b, at full width and depth).
+mamba2-2.7b, zamba2-1.2b, granite-moe-3b-a800m or minicpm3-4b, at full
+width and depth).
 
 Fills the 4 slots of ``repro_torch.runtime.batcher.ContinuousBatcher``
 (512 positions) with prompts of 17, 64, 100 and 128 tokens, runs 5 warm
@@ -22,8 +23,12 @@ activities), and reports per decode step:
 - the device's idle share, ``1 - device / wall``;
 - launches: device events per step; the counted kernel launches a step
   (``CompiledStep.step_launches``), the captures and the capture's ms;
-- the bound: every parameter byte, the live KV rows and the conv and
-  SSM states read once, the states written once, at 3.35 TB/s;
+- the bound: every parameter byte, the live KV rows (MLA: the live
+  latent rows, r + kr floats a position) and the conv and SSM states
+  read once, the states written once, at 3.35 TB/s; for an MoE model
+  only the experts that some slot chose in each layer (counted in the
+  first, eager step) are read, ``bound_ms`` counts those and
+  ``bound_all_experts_ms`` every expert;
 - the kernels by device time, with their launches per step, and the
   longest single launches (the head's float32 copy and the unembedding
   among them).
@@ -69,7 +74,8 @@ OUT = ROOT / "chiprun_out" / "serve_profile.json"
 FAMILIES = {"fused_mlp": ("mlp_",),
             "ssd_scan": ("ssd_kernel", "chunk_pass", "state_pass",
                          "output_pass"),
-            "decode_attention": ("decode_kernel", "decode_split_kernel")}
+            "decode_attention": ("decode_kernel", "decode_split_kernel",
+                                 "mla_decode_kernel")}
 
 
 def _device_us(evt) -> float:
@@ -82,7 +88,8 @@ def _device_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite_3_2b",
-                    help="granite_3_2b, mamba2_2p7b or zamba2_1p2b")
+                    help="granite_3_2b, mamba2_2p7b, zamba2_1p2b, "
+                         "granite_moe_3b_a800m or minicpm3_4b")
     ap.add_argument("--prefill", action="store_true",
                     help="profile B = 1 prefills instead of decode steps")
     ap.add_argument("--seed", type=int, default=0)
@@ -97,7 +104,6 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.runtime.batcher import ContinuousBatcher, Request
 
     smi, _ = card_line()
     cfg = get_config(args.arch)
@@ -107,6 +113,24 @@ def main() -> int:
     if args.prefill:
         return profile_prefills(torch, profile, ProfilerActivity, M, cfg,
                                 params, rng, smi, args.arch)
+    summary, rows = profile_decode(torch, cfg, params, rng, smi)
+    print(json.dumps(summary), flush=True)
+    out = (OUT if args.arch == "granite_3_2b"
+           else OUT.with_name(f"serve_profile_{args.arch}.json"))
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({**summary, "kernels": rows}, indent=1))
+    return 0
+
+
+def profile_decode(torch, cfg, params, rng, smi) -> tuple[dict, list]:
+    """Fills the batcher's slots, warms up, times STEPS unprofiled steps
+    and profiles STEPS more; returns (summary, kernel rows)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
     class Batcher(TimedSteps, ContinuousBatcher):
         """Records CUDA events around each decode call."""
 
@@ -124,7 +148,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / STEPS
 
-    for _ in range(WARM):
+    with L.expert_choices() as routing:
+        batcher.step()           # admits, then the eager first step
+    # each MoE layer's experts in that decode step, after the prefills'
+    chosen = routing.chosen[-cfg.n_layers:] if routing.chosen else []
+    for _ in range(WARM - 1):
         batcher.step()
     torch.cuda.synchronize()
     batcher.decode_events.clear()
@@ -146,21 +174,23 @@ def main() -> int:
         "launches_per_step": sum(r["launches_per_step"] for r in rows),
         "counted_launches_per_step": step.step_launches,
         "captures": step.captures, "capture_ms": step.capture_ms,
-        "bound_ms": step_bound_ms(torch, params, batcher),
+        "bound_ms": step_bound_ms(torch, params, batcher, chosen),
         "families": families(rows), "top": rows[:8],
         "longest": longest_launches(torch, prof, 6), "card": smi}
-    print(json.dumps(summary), flush=True)
-    out = (OUT if args.arch == "granite_3_2b"
-           else OUT.with_name(f"serve_profile_{args.arch}.json"))
-    out.parent.mkdir(exist_ok=True)
-    out.write_text(json.dumps({**summary, "kernels": rows}, indent=1))
-    return 0
+    if chosen:
+        summary["bound_all_experts_ms"] = step_bound_ms(torch, params,
+                                                        batcher)
+        summary["experts_read_per_layer"] = [
+            int(t.unique().numel()) for t in chosen]
+    return summary, rows
 
 
-def step_bound_ms(torch, params, batcher) -> float:
+def step_bound_ms(torch, params, batcher, chosen=()) -> float:
     """The least time of one decode step at the batcher's lengths: the
     parameters, each slot's live KV rows and the conv and SSM states
-    read once, the states written once, at the card's memory rate."""
+    read once, the states written once, at the card's memory rate.
+    ``chosen``: each MoE layer's chosen experts (B, 1, K); only those
+    experts' weights count then."""
     def nbytes(tree):
         if isinstance(tree, torch.Tensor):
             return tree.numel() * tree.element_size()
@@ -168,10 +198,22 @@ def step_bound_ms(torch, params, batcher) -> float:
     cache = batcher.cache
     n = nbytes(params) + 2 * sum(nbytes(cache[k]) for k in ("conv", "ssm")
                                  if k in cache)
-    if "attn" in cache:                  # (sites, slots, Hkv, S, D) each
+    if chosen:                           # (layers, E, ...) expert weights
+        mlp = params["blocks"]["mlp"]
+        per_expert = sum(nbytes(mlp[k]) for k in ("wg", "wu", "wd")) / (
+            mlp["wg"].shape[0] * mlp["wg"].shape[1])
+        unread = sum(mlp["wg"].shape[1] - t.unique().numel()
+                     for t in chosen)
+        n -= unread * per_expert
+    live = int(batcher.lengths.sum() + N_SLOTS)
+    if "attn" in cache and "c_kv" in cache["attn"]:  # MLA: one latent row
+        c, r = cache["attn"]["c_kv"], cache["attn"]["k_rope"]
+        row = (c.shape[3] + r.shape[3]) * c.element_size()
+        n += c.shape[0] * row * live
+    elif "attn" in cache:                # (sites, slots, Hkv, S, D) each
         k = cache["attn"]["k"]
         row = k.shape[2] * k.shape[4] * k.element_size()
-        n += 2 * k.shape[0] * row * int(batcher.lengths.sum() + N_SLOTS)
+        n += 2 * k.shape[0] * row * live
     return n / HBM_BYTES_PER_S * 1e3
 
 
