@@ -160,14 +160,42 @@ no result line) on any error:
    expert choices and the choices its own router would flip counted,
    the plain route on its own choices reported beside it unchecked;
    minicpm3 within 6e-2); the phase's line splits its seconds;
-12. prints the ``kernels`` line; each route of flash and the MLP has its
+12. encoder-decoder and vision-prefix serving: holds the kernels at the
+   shapes of whisper-base and internvl2-26b against their plain versions
+   (float32 within 1e-5 * max|plain|, bf16 within 8e-3) and times them
+   beside their bounds, SDPA and, for the MLP, the bf16 cuBLAS
+   composition: flash's tensor-core route over whisper's 1500 frames (4
+   x 8 heads of 64, not causal, no bias: the ragged last key tile masked
+   by the key count alone), its cross-attention prefill (32 queries
+   against the 1500 frames) and internvl2's causal prefill (4 x 288
+   positions, 48 / 8 heads of 128, G = 6); ``decode_attention`` at
+   whisper's self-attention (72 positions), its cross-attention over the
+   frames with no bias and internvl2's G = 6 at D = 128 (bf16 q and
+   cache); the MLP at d 512 / f 2048 (T = 4, 128, 6000) and d 6144 / f
+   16384 (T = 4, 1152); then serves each model at full width and depth
+   (random weights from ``--seed``) in lock step as
+   ``launch/serve.py`` does, with the encoder's frames or the vision
+   prefix drawn from the seed (normal, std 1; the reference's zeros
+   would hide a wrong encoder): 4 slots x 32 prompt tokens x 32 new
+   tokens for whisper, x 16 for internvl2, through the prefill step and
+   one ``CompiledStep``; checks the launch counts against those the code
+   implies (whisper: 18 flash and 12 MLP launches a prefill, 12 decode
+   attention and 6 MLP launches a step), the same steps eagerly (logits
+   max abs 0, tokens equal), prints a ``serving_profile`` line each
+   (``tools/serve_profile.py``'s lock-step profile) and teacher-forces
+   row 0 against ``impl="ref"`` within 5e-2 * max|logits|; the phase's
+   line splits its seconds;
+13. prints the ``kernels`` line; each route of flash and the MLP has its
    own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
    each served app its ``stream_group_b8[...]``, each tuned app its
    ``stream_group.tuned[...]``, each replicated app and k its
    ``stream_group.replicated[<app>,k=<k>]``, phase 11's kernels theirs
    (``decode_attention[moe ...]``, ``decode_attention.mla[...]``,
    ``flash_attention.tc[moe ...]`` /
-   ``[mla ...]``, ``fused_mlp.*[minicpm3 ...]``).
+   ``[mla ...]``, ``fused_mlp.*[minicpm3 ...]``), phase 12's theirs
+   (``flash_attention.tc[whisper encoder ...]``,
+   ``decode_attention[whisper cross ... no bias]``,
+   ``fused_mlp.tc[internvl2 T=1152]``, ...).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -484,6 +512,9 @@ def main() -> int:
     # -- phase 11: MoE and MLA serving, granite-moe and minicpm3 ---------
     lm_entries += moe_mla_serving(torch, timer, smi, args.seed)
 
+    # -- phase 12: encoder-decoder and vision-prefix serving -------------
+    lm_entries += frontend_serving(torch, timer, smi, args.seed)
+
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -764,9 +795,11 @@ def serve_requests(torch, cfg, params, prompts, new_tokens, counters, smi,
 
 
 def teacher_force(torch, cfg, params, r, smi, tol=None,
-                  spread_factor=None) -> None:
+                  spread_factor=None, inputs=None) -> None:
     """Feeds request ``r``'s prompt and tokens through ``prefill`` /
-    ``decode_step`` with the kernels and with ``impl="ref"``; fails
+    ``decode_step`` with the kernels and with ``impl="ref"`` (``inputs``:
+    the prefill's frontend, ``enc_embeds`` or ``extra_embeds`` of one
+    row); fails
     unless every step's logits agree within ``tol * max|logits|`` or,
     with ``spread_factor``, within that many times the largest
     difference between two plain versions: ``impl="ref"`` and the same
@@ -796,7 +829,8 @@ def teacher_force(torch, cfg, params, r, smi, tol=None,
             cache = M.init_cache(c, 1, MAX_LEN, dtype=torch.float32,
                                  device="cuda")
             tok = torch.tensor(r.prompt, device="cuda", dtype=torch.long)
-            logits, cache = M.prefill(params, c, tok[None], cache)
+            logits, cache = M.prefill(params, c, tok[None], cache,
+                                      **(inputs or {}))
             out = [logits[0]]
             for t in r.tokens[:-1]:
                 tok = torch.tensor([t], device="cuda")
@@ -1447,6 +1481,315 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     print(json.dumps({"serving": "phase 11", "split_s": split,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     return entries
+
+
+# ----------------------------------------------------------------------
+# phase 12: encoder-decoder and vision-prefix serving
+# ----------------------------------------------------------------------
+FRONTEND_ARCHS = ("whisper_base", "internvl2_26b")
+# (slots, prompt tokens, new tokens), served in lock step as
+# launch/serve.py serves them
+FRONTEND_SERVE = {"whisper_base": (4, 32, 32), "internvl2_26b": (4, 32, 16)}
+# Teacher-forced logits, kernels vs impl="ref", by phase 11's rule (one
+# bf16 step, 0.4 %, a kernel call, adding up like a random walk over the
+# calls on a token's path): whisper's prefill runs 30 kernel calls (6
+# encoder and 12 decoder flash, 12 MLP) and a decode step 18, sqrt(30) x
+# 0.4 % = 2.2 %; internvl2's 96 a token (48 attention, 48 MLP), sqrt(96)
+# x 0.4 % = 3.9 %: both within phase 5's 5e-2 of the largest logit.
+FRONTEND_LOGIT_TOL = 5e-2
+
+
+def frontend_serving(torch, timer, smi: str, seed: int) -> list[dict]:
+    """Phase 12; returns its kernels' entries of the kernels line."""
+    import gc
+
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.fused_mlp import route as mlp_route
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.models import model as M
+    from repro_torch.runtime.batcher import Request
+    sys.path.insert(0, str(ROOT / "tools"))
+    from serve_profile import frontend_inputs, profile_lockstep
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 11's models are gone
+    torch.cuda.empty_cache()
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    wh, vl = (get_config(a) for a in FRONTEND_ARCHS)
+
+    def randn(*shape, std=1.0, dtype=f32):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * std).to(dtype)
+
+    def bound(n_bytes, n_ops):
+        return lm_bound(n_bytes, n_ops, BF16_OPS_PER_S)
+
+    # -- kernels against their plain versions, then timed ----------------
+    cases = {a: [] for a in FRONTEND_ARCHS}
+    nb, P = 4, 32                      # slots, prompt tokens
+    frames, Sv = wh.n_frontend_tokens, vl.n_frontend_tokens + P
+    # flash: whisper's encoder over 1500 frames (the ragged last key tile
+    # masked by Sk alone: no bias, not causal), its cross-attention
+    # prefill (32 queries against the frames) and internvl2's causal
+    # prefill of 256 patches + 32 tokens, G = 6 at D = 128
+    for arch, label, Hq, Hkv, Sq, Sk, D, causal in (
+            ("whisper_base", "whisper encoder", wh.n_heads, wh.n_kv_heads,
+             frames, frames, wh.hd, False),
+            ("whisper_base", "whisper cross", wh.n_heads, wh.n_kv_heads, P,
+             frames, wh.hd, False),
+            ("internvl2_26b", "internvl2", vl.n_heads, vl.n_kv_heads, Sv, Sv,
+             vl.hd, True)):
+        q = randn(nb, Sq, Hq, D).transpose(1, 2)       # the model's views
+        k, v = (randn(nb, Sk, Hkv, D).transpose(1, 2) for _ in range(2))
+        compare_close(torch, f"flash_attention[{label}] f32",
+                      flash_attention(q, k, v, causal=causal),
+                      R.flash_attention_ref(q, k, v, causal=causal),
+                      LM_F32_TOL)
+        qb, kb, vb = (t.to(bf16) for t in (q, k, v))
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        cases[arch].append((
+            "flash_attention.tc", f"{label} {nb}x{Hq}/{Hkv}x{Sq}x{Sk}",
+            lambda qb=qb, kb=kb, vb=vb, c=causal: flash_attention(
+                qb, kb, vb, causal=c),
+            lambda qb=qb, kb=kb, vb=vb, c=causal: R.flash_attention_ref(
+                qb, kb, vb, causal=c),
+            lambda qb=qb, kb=kb, vb=vb, c=causal:
+            F.scaled_dot_product_attention(qb, kb, vb, is_causal=c,
+                                           enable_gqa=True),
+            bound(2 * nb * D * (2 * Hq * Sq + 2 * Hkv * Sk),
+                  4 * nb * Hq * D * pairs)))
+    # decode with bf16 q and the served bf16 cache: whisper's
+    # self-attention (72 positions), its cross-attention over the 1500
+    # frames with no bias, internvl2's 48 / 8 heads of 128 (G = 6) over
+    # 256 + 32 + 16 + 8 positions
+    for arch, label, Hq, Hkv, S, D, lens in (
+            ("whisper_base", "whisper self", wh.n_heads, wh.n_kv_heads,
+             cache_len(wh, P, FRONTEND_SERVE["whisper_base"][2]), wh.hd,
+             (32, 47, 55, 62)),
+            ("whisper_base", "whisper cross", wh.n_heads, wh.n_kv_heads,
+             frames, wh.hd, None),
+            ("internvl2_26b", "internvl2", vl.n_heads, vl.n_kv_heads,
+             cache_len(vl, P, FRONTEND_SERVE["internvl2_26b"][2]), vl.hd,
+             (288, 295, 300, 303))):
+        q = randn(nb, Hq, D)
+        k, v = randn(nb, Hkv, S, D), randn(nb, Hkv, S, D)
+        bias, live = None, nb * S
+        if lens is not None:
+            keep = (torch.arange(S, device="cuda")[None]
+                    <= torch.tensor(lens, device="cuda")[:, None])
+            bias, live = torch.where(keep, 0.0, -1e30), int(keep.sum())
+        compare_close(torch, f"decode_attention[{label}] f32",
+                      decode_attention(q, k, v, bias=bias),
+                      R.decode_attention_ref(q, k, v, bias=bias), LM_F32_TOL)
+        qb, kb, vb = q.to(bf16), k.to(bf16), v.to(bf16)
+        # SDPA's bf16 route takes the mask as booleans (keep)
+        mask = None if bias is None else keep[:, None, None]
+        cases[arch].append((
+            "decode_attention", f"{label} {nb}x{Hq}/{Hkv}x{S}"
+            + (" no bias" if bias is None else ""),
+            lambda qb=qb, kb=kb, vb=vb, b=bias: decode_attention(
+                qb, kb, vb, bias=b),
+            lambda qb=qb, kb=kb, vb=vb, b=bias: R.decode_attention_ref(
+                qb, kb, vb, bias=b),
+            lambda qb=qb, kb=kb, vb=vb, m=mask: F.scaled_dot_product_attention(
+                qb[:, :, None], kb, vb, attn_mask=m, enable_gqa=True)[:, :, 0],
+            # q and out, the live keys and values, the bias
+            bound(2 * nb * Hq * D * 2 + live * Hkv * D * 2 * 2
+                  + (0 if bias is None else nb * S * 4), 4 * Hq * D * live)))
+    # the MLP at each model's width: decode (stream), the prefills (tc)
+    cublas = {}
+    for arch, cfg, Ts in (("whisper_base", wh, (4, nb * P, nb * frames)),
+                          ("internvl2_26b", vl, (4, nb * Sv))):
+        d, f = cfg.d_model, cfg.d_ff
+        ws = [randn(d), randn(d, f, std=d ** -0.5),
+              randn(d, f, std=d ** -0.5), randn(f, d, std=f ** -0.5)]
+        wb = [w.to(bf16) for w in ws]
+        for T in Ts:
+            x = randn(T, d)
+            label = f"{arch.split('_')[0]} T={T}"
+            compare_close(torch, f"fused_mlp[{label}] f32", fused_mlp(x, *ws),
+                          R.fused_mlp_ref(x, *ws), LM_F32_TOL)
+            xb = x.to(bf16)
+            cublas[label] = (
+                lambda xb=xb, wb=wb, d=d:
+                (F.silu((h := F.rms_norm(xb, (d,), wb[0], 1e-6)) @ wb[1])
+                 * (h @ wb[2])) @ wb[3],
+                lambda xb=xb, wb=wb: R.fused_mlp_ref(xb, *wb))
+            cases[arch].append((
+                f"fused_mlp.{mlp_route(bf16, T, d, f)}", label,
+                lambda xb=xb, wb=wb: fused_mlp(xb, *wb),
+                lambda xb=xb, wb=wb: R.fused_mlp_ref(xb, *wb), None,
+                bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)))
+        del ws
+    timed = {a: time_cases(torch, timer, smi, c, LM_PATH_TOL)
+             for a, c in cases.items()}
+    for rows in timed.values():     # composes three GEMMs: not a library
+        for row in rows:
+            if row["kernel"].startswith("fused_mlp"):
+                fn, plain = cublas[row["shape"]]
+                compare_close(torch, f"cuBLAS composition [{row['shape']}]",
+                              fn(), plain(), LM_PATH_TOL)
+                row["cublas_bf16_ms"] = timer(fn)
+    del cases, cublas, wb, q, k, v, qb, kb, vb, x, xb
+
+    # -- each model at full width and depth, in lock step ----------------
+    counters = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_mlp": fused_mlp}
+    entries, split = [], {"kernels": time.perf_counter() - t_phase}
+    for arch, cfg in zip(FRONTEND_ARCHS, (wh, vl)):
+        gc.collect()                   # the other model is gone
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = M.init(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches, (prompt, tokens) = serve_lockstep(
+            torch, arch, cfg, params, seed, counters, smi, t1 - t0)
+        t2 = time.perf_counter()
+        # device ms, idle share and launches of the captured step
+        summary, _ = profile_lockstep(torch, cfg, params, seed, smi)
+        print(json.dumps({"serving_profile": cfg.name, **{
+            k: v for k, v in summary.items() if k != "profile"}}),
+            flush=True)
+        t3 = time.perf_counter()
+        # row 0 teacher-forced, with its served frontend
+        req = Request(rid=0, prompt=prompt, max_new_tokens=len(tokens))
+        req.tokens = tokens
+        inputs = {k: v[:1] for k, v in frontend_inputs(
+            torch, cfg, FRONTEND_SERVE[arch][0], seed + 2).items()}
+        teacher_force(torch, cfg, params, req, smi, tol=FRONTEND_LOGIT_TOL,
+                      inputs=inputs)
+        split[cfg.name] = {"init": t1 - t0, "serve": t2 - t1,
+                           "profile": t3 - t2,
+                           "teacher_force": time.perf_counter() - t3}
+        entries += kernel_entries(timed[arch], launches)
+        del params, inputs
+    print(json.dumps({"serving": "phase 12", "split_s": split,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return entries
+
+
+def serve_lockstep(torch, arch, cfg, params, seed, counters, smi,
+                   init_s) -> tuple[dict, tuple]:
+    """Serves ``FRONTEND_SERVE[arch]`` as ``launch/serve.py`` does, with
+    the frontend drawn from ``seed`` (normal, std 1; the reference feeds
+    zeros, which leave the encoder's output and the prefix rows 0) and
+    every launch counter of ``counters`` at 0 just before: one batched
+    prefill through ``make_prefill_step``, then the decode steps through
+    one ``CompiledStep`` over ``make_decode_step``.  Checks the tokens,
+    one capture, and the counts against what the code implies (flash once
+    an encoder layer, decoder layer and cross-attention block per
+    prefill, decode attention once a decoder layer and cross-attention
+    block per step, the MLP once a layer on the tensor-core route at
+    prefill and on the decode route per step).  Then runs the same steps
+    eagerly from the cache as the prefill left it, on the graph's tokens:
+    logits equal (max abs 0), the same greedy tokens.  Prints the
+    ``serving`` line; returns (launches, (row 0's prompt, its tokens))."""
+    import numpy as np
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.models import model as M
+    from repro_torch.runtime.compiled_step import CompiledStep
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    from serve_profile import frontend_inputs
+
+    B, P, new = FRONTEND_SERVE[arch]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+    inputs = frontend_inputs(torch, cfg, B, seed + 2)
+    cache = M.init_cache(cfg, B, cache_len(cfg, P, new),
+                         dtype=M.torch_dtype(cfg.dtype), device="cuda")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def decode_fn(tok, index):         # the cache is updated in place
+        out, c = decode(params, {"token": tok}, {**cache, "index": index})
+        return out, c["index"]
+
+    def timed(fn, *a):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn(*a)
+        e1.record()
+        return out, (e0, e1)
+
+    step = CompiledStep(decode_fn, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    (logits, cache), prefill_ev = timed(
+        prefill, params, {"tokens": prompt, **inputs}, cache)
+    saved = {k: t.clone() for k, t in cache["attn"].items()}
+    tok, index = logits.argmax(-1), cache["index"]
+    toks, graph_logits, graph_ev = [tok], [], []
+    for _ in range(new - 1):
+        (out, index), ev = timed(step, tok, index)
+        graph_logits.append(out)
+        graph_ev.append(ev)
+        tok = out.argmax(-1)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    steps = new - 1
+    n, ne = cfg.n_layers, cfg.n_enc_layers
+    cross = n if cfg.family == "encdec" else 0
+    want = {"flash_attention": ne + n + cross,
+            "flash_attention.tc": ne + n + cross, "flash_attention.simt": 0,
+            "decode_attention": (n + cross) * steps,
+            "decode_attention.mla": 0,
+            "fused_mlp": ne + n + n * steps, "fused_mlp.tc": ne + n,
+            "fused_mlp.stream": n * steps, "fused_mlp.simt": 0}
+    check(launches == want, f"{cfg.name} lock-step launches {launches}, "
+          f"expected {want}")
+    check(step.captures == 1 and step.steps == steps,
+          f"{cfg.name}: {step.captures} captures over {step.steps} steps")
+    gen_tokens = torch.stack(toks, 1).cpu().numpy()
+    check(gen_tokens.shape == (B, new) and bool(np.all(
+        (gen_tokens >= 0) & (gen_tokens < cfg.vocab_size))),
+        f"{cfg.name}: generated tokens {gen_tokens.shape} outside the "
+        f"vocabulary")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same steps eagerly, from the prefill's cache, on the same tokens
+    for k, t in saved.items():
+        cache["attn"][k].copy_(t)
+    del saved
+    index, eager_ev, diff, same = cache["index"], [], 0.0, True
+    for i in range(steps):
+        (out, index), ev = timed(decode_fn, toks[i], index)
+        eager_ev.append(ev)
+        diff = max(diff, float((out - graph_logits[i]).abs().max()))
+        same = same and bool(torch.equal(out.argmax(-1), toks[i + 1]))
+    check(diff == 0.0 and same, f"{cfg.name}: graph vs eager logits differ "
+          f"by {diff:.3e} (tokens equal: {same})")
+    # a second prefill, warm (the first one set cuBLAS up for its shapes)
+    _, warm_ev = timed(prefill, params, {"tokens": prompt, **inputs}, cache)
+    torch.cuda.synchronize()
+    decode_ms = [a.elapsed_time(b) for a, b in graph_ev]
+    eager_ms = [a.elapsed_time(b) for a, b in eager_ev]
+    print(json.dumps({
+        "serving": cfg.name, "mode": "lock step", "layers": n,
+        "enc_layers": ne, "slots": B, "prompt_len": P,
+        "frontend_tokens": cfg.n_frontend_tokens,
+        "frontend": "normal(0, 1) from --seed",
+        "max_len": cache_len(cfg, P, new), "new_tokens": new,
+        "params": cfg.n_params(), "init_s": init_s,
+        "prefill_ms": prefill_ev[0].elapsed_time(prefill_ev[1]),
+        "prefill_warm_ms": warm_ev[0].elapsed_time(warm_ev[1]),
+        "decode_ms_per_step_median": statistics.median(decode_ms),
+        "decode_tokens_per_s": B * steps / (sum(decode_ms) / 1e3),
+        "eager_decode_ms_per_step_median": statistics.median(eager_ms),
+        "launches": launches, "captures": step.captures,
+        "capture_ms": step.capture_ms, "step_launches": step.step_launches,
+        "graph_vs_eager_max_abs": diff, "tokens_equal_eager": same,
+        "peak_mem_gb": peak_gb, "card": smi}), flush=True)
+    return launches, (prompt[0].cpu().numpy().astype(np.int32),
+                      [int(t) for t in gen_tokens[0]])
 
 
 # ----------------------------------------------------------------------

@@ -2,13 +2,16 @@
 decode with a KV cache (the twin of ``examples/serve_lm.py``).
 
 A batch of prompts -> prefill (cache fill) -> token-by-token greedy
-decode, with per-phase timing and the cache's size, for the families the
-port serves: granite-3-2b (dense), granite-moe-3b-a800m and
+decode, with per-phase timing and the cache's size, for every assigned
+config at its smoke size: granite-3-2b (dense), granite-moe-3b-a800m and
 qwen3-moe-235b-a22b (moe), minicpm3-4b (dense with MLA, its latent
-cache), mamba2-2.7b (ssm) and zamba2-1.2b (hybrid), at their smoke size;
-the other configs raise ``NotPortedError``.  As the reference jits its decode step, the decode
-step here is one CUDA graph on the card (``CompiledStep``); with
-``--device cpu`` it runs eagerly on the plain PyTorch versions.
+cache), mamba2-2.7b (ssm), zamba2-1.2b (hybrid), whisper-base (encdec:
+the encoder's frames) and internvl2-26b (vlm: a vision prefix).  As in
+the reference's example, the frames and the prefix are zeros; the cache
+also holds the prefix (``repro_torch.launch.serve.cache_len``).  As the
+reference jits its decode step, the decode step here is one CUDA graph
+on the card (``CompiledStep``); with ``--device cpu`` it runs eagerly on
+the plain PyTorch versions.
 
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2_2p7b
       [--device cpu]    (or --arch granite_moe_3b_a800m, minicpm3_4b, ...)
@@ -26,6 +29,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import ARCHS, get_smoke  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch.serve import cache_len  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime.compiled_step import CompiledStep  # noqa: E402
 
@@ -45,14 +49,20 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch)
-    M.check_ported(cfg)                  # NotPortedError for the others
     dev = resolve_device(args.device)
     params = M.init(cfg, 0, device=dev)
-    max_len = args.prompt_len + args.gen_len + 8
+    max_len = cache_len(cfg, args.prompt_len, args.gen_len)
     B = args.batch
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                            generator=gen, device=dev)
+    kw = {}
+    frontend = torch.zeros((B, cfg.n_frontend_tokens, cfg.d_model),
+                           device=dev)
+    if cfg.family == "encdec":
+        kw["enc_embeds"] = frontend
+    if cfg.family == "vlm":
+        kw["extra_embeds"] = frontend
 
     cache = M.init_cache(cfg, B, max_len, dtype=torch.float32, device=dev)
     cache_bytes = sum(x.numel() * x.element_size() for x in _leaves(cache))
@@ -64,7 +74,7 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    logits, cache = M.prefill(params, cfg, prompt, cache)
+    logits, cache = M.prefill(params, cfg, prompt, cache, **kw)
     sync()
     t_prefill = time.perf_counter() - t0
 

@@ -33,12 +33,12 @@ from repro_torch.kernels.fused_mlp import fused_mlp as _mlp_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
 __all__ = ["attention", "decode_attention", "mlp", "ssd", "rmsnorm",
-           "IMPLS"]
+           "uses_kernel", "IMPLS"]
 
 IMPLS = ("auto", "cuda", "ref")
 
 
-def _use_kernel(impl: str, x: torch.Tensor) -> bool:
+def uses_kernel(impl: str, x: torch.Tensor) -> bool:
     """Whether ``impl`` on tensors like ``x`` runs the kernel."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -57,7 +57,7 @@ def rmsnorm(x, w, eps: float = 1e-6):
 def attention(q, k, v, bias=None, causal=True, impl: str = "auto",
               scale=None):
     """q: (B, Hq, Sq, Dk); k: (B, Hkv, Sk, Dk); v: (B, Hkv, Sk, Dv)."""
-    if _use_kernel(impl, q):
+    if uses_kernel(impl, q):
         return _flash_kernel(q, k, v, bias=bias, causal=causal, scale=scale)
     return _ref.flash_attention_ref(q, k, v, bias=bias, causal=causal,
                                     scale=scale)
@@ -65,7 +65,7 @@ def attention(q, k, v, bias=None, causal=True, impl: str = "auto",
 
 def decode_attention(q, k, v, bias=None, impl: str = "auto", scale=None):
     """q: (B, Hq, Dk); k: (B, Hkv, S, Dk); v: (B, Hkv, S, Dv)."""
-    if _use_kernel(impl, q):
+    if uses_kernel(impl, q):
         return _decode_kernel(q, k, v, bias=bias, scale=scale)
     return _ref.decode_attention_ref(q, k, v, bias=bias, scale=scale)
 
@@ -75,7 +75,7 @@ def mlp(x, w_norm, w_gate, w_up, w_down, eps: float = 1e-6,
     """Fused rmsnorm + SwiGLU.  x: (..., d), leading dims flattened."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if _use_kernel(impl, x):
+    if uses_kernel(impl, x):
         y = _mlp_kernel(x2, w_norm, w_gate, w_up, w_down, eps=eps)
     else:
         y = _ref.fused_mlp_ref(x2, w_norm, w_gate, w_up, w_down, eps=eps)
@@ -91,7 +91,7 @@ def ssd(x, dt, A, B, C, chunk: int = 64, impl: str = "auto",
     crops y; the kernel masks the ragged chunk the same way.  Both start
     from ``init_state`` (zeros when None).
     """
-    if _use_kernel(impl, x):
+    if uses_kernel(impl, x):
         return _ssd_kernel(x, dt, A, B, C, chunk=chunk,
                            init_state=init_state)
     return _ref.ssd_ref(x, dt, A, B, C, chunk=chunk, init_state=init_state)

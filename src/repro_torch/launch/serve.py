@@ -3,15 +3,23 @@
 
 ``python -m repro_torch.launch.serve --arch granite_3_2b [--full]
 --batch 4 --prompt-len 32 --gen-len 32 [--device cpu]``; ``--arch``
-takes the dense ``granite_3_2b``, the MoE ``granite_moe_3b_a800m``, the
-MLA ``minicpm3_4b``, the SSM ``mamba2_2p7b``, the hybrid ``zamba2_1p2b``
-and, at its smoke size only (``--smoke``, the default),
-``qwen3_moe_235b_a22b``, whose 235 B parameters no one card holds (the
-other configs raise ``NotPortedError``).
+takes every assigned config: the dense ``granite_3_2b``, the MoE
+``granite_moe_3b_a800m``, the MLA ``minicpm3_4b``, the SSM
+``mamba2_2p7b``, the hybrid ``zamba2_1p2b``, the encoder-decoder
+``whisper_base``, the vision-prefix ``internvl2_26b`` and, at its smoke
+size only (``--smoke``, the default), ``qwen3_moe_235b_a22b``: a config
+whose parameters exceed one card (:data:`ONE_CARD_BYTES`) raises
+``NotPortedError``, as serving it needs model parallelism.
 
 Builds random parameters from ``--seed`` and a cache in the config's
 type, prefills ``--batch`` random prompts at once and decodes
-``--gen-len - 1`` more tokens in lock step.  The reference jits the
+``--gen-len - 1`` more tokens in lock step.  As in the reference, the
+encoder's frames (``encdec``) and the vision prefix (``vlm``) are zeros
+of ``n_frontend_tokens`` positions.  The cache holds
+:func:`cache_len` positions: the reference's ``prompt + gen + 8``, plus
+the vision prefix for a ``vlm``, which the reference leaves out (its
+prefill of internvl2 at ``--full``, 256 + 32 positions, then overflows
+its 72-position cache).  The reference jits the
 decode step with the cache donated; here a
 :class:`~repro_torch.runtime.compiled_step.CompiledStep` captures it as
 one CUDA graph on the card (the lock-step index is one of its input
@@ -36,7 +44,20 @@ from repro_torch.models import model as M
 from repro_torch.runtime.compiled_step import CompiledStep
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
-__all__ = ["main"]
+__all__ = ["main", "cache_len", "ONE_CARD_BYTES"]
+
+#: the parameter bytes one card holds (an H100's 80 GB); a config past it
+#: needs model parallelism, which is not ported
+ONE_CARD_BYTES = 80e9
+
+
+def cache_len(cfg, prompt_len: int, gen_len: int) -> int:
+    """The cache positions a served batch needs: the prompt, the
+    generated tokens and 8 spare, as the reference sizes it, and for a
+    ``vlm`` the vision prefix too (a deliberate difference: the reference
+    omits it)."""
+    prefix = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    return prefix + prompt_len + gen_len + 8
 
 
 class _Clock:
@@ -82,22 +103,36 @@ def main(argv: list[str] | None = None) -> dict:
     if args.mesh_data:
         raise NotPortedError("--mesh-data (sharded serving) is not ported "
                              "yet")
-    dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    dtype = M.torch_dtype(cfg.dtype)
+    need = cfg.n_params() * dtype.itemsize
+    if need > ONE_CARD_BYTES:
+        raise NotPortedError(f"{cfg.name}: {need / 1e9:.0f} GB of parameters "
+                             f"exceed one card's {ONE_CARD_BYTES / 1e9:.0f} "
+                             f"GB; serving it needs model parallelism, which "
+                             f"is not ported yet")
+    dev = resolve_device(args.device)
     params = M.init(cfg, args.seed, device=dev)
     B = args.batch
-    max_len = args.prompt_len + args.gen_len + 8
-    cache = M.init_cache(cfg, B, max_len, dtype=M.torch_dtype(cfg.dtype),
-                         device=dev)
+    cache = M.init_cache(cfg, B, cache_len(cfg, args.prompt_len,
+                                           args.gen_len),
+                         dtype=dtype, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                            generator=gen, device=dev)
+    batch = {"tokens": prompt}
+    frontend = torch.zeros((B, cfg.n_frontend_tokens, cfg.d_model),
+                           dtype=dtype, device=dev)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = frontend
+    if cfg.family == "vlm":
+        batch["extra_embeds"] = frontend
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
 
     clock = _Clock(dev)
     t0 = clock.start()
-    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    logits, cache = prefill(params, batch, cache)
     tp = clock.stop_ms(t0)
 
     def decode_fn(token, index):      # the cache is updated in place

@@ -3,9 +3,8 @@
 One :class:`ModelConfig` per assigned architecture lives in
 ``repro_torch/configs/<id>.py``; :class:`ShapeConfig` describes the four
 assigned input shapes.  The fields are the reference's, unchanged, so a
-config means the same model in both packages; the port serves the
-``dense``, ``ssm`` and ``hybrid`` families and refuses the rest with
-``NotPortedError`` (:mod:`repro_torch.models.model`).
+config means the same model in both packages; the port serves every
+family (:mod:`repro_torch.models.model`).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model building blocks for the dense, MoE, MLA, SSM and hybrid
-families (the port of ``repro.models.layers``).
+"""Model building blocks for the dense, MoE, MLA, SSM, hybrid,
+encoder-decoder and vision-prefix families (the port of
+``repro.models.layers``).
 
 Parameters are declared with :class:`ParamDef` (shape, logical axes,
 init law) and made by :func:`init_tree` from one ``torch.Generator`` on
@@ -9,9 +10,16 @@ decode path (``S == 1``) builds no device tensor from host data and
 reads nothing back to the host, so one CUDA graph can capture a whole
 decode step (:mod:`repro_torch.runtime.compiled_step`).
 
+Prefill attention takes the flash kernel wherever ``cfg.attn_impl``
+does (``"auto"`` on the card); the plain route is the reference's
+chunked online-softmax scan (:func:`_chunked_attention`) when
+``cfg.attn_chunk`` is set and the keys are longer than a chunk, else the
+oracle.  The two compute the same function.
+
 Not here: the reference's ``shard_act`` / ``activation_rules`` (a no-op
-without a mesh, and the port has no mesh yet), the chunked XLA attention
-and ``mla_absorb="always"`` at prefill, which come with later slices.
+without a mesh, and the port has no mesh yet) and ``mla_absorb="always"``
+at prefill (flash at Dk = kv_lora_rank + rope_head_dim, over the
+kernel's 256), which raises.
 """
 from __future__ import annotations
 
@@ -170,22 +178,22 @@ def _write_cache(c: torch.Tensor, new: torch.Tensor,
 def attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     pos: torch.Tensor, cache: dict | None = None,
                     cache_index: int | torch.Tensor | None = None,
+                    cross_kv: tuple | None = None,
                     causal: bool = True) -> tuple[torch.Tensor, dict | None]:
     """Pre-norm attention with residual.  x: (B, S, d).
 
     cache: {"k", "v"} (B, Hkv, Smax, D), written at ``cache_index`` (a
     scalar or a (B,) vector of per-slot positions) IN PLACE, where the
-    reference returns new arrays.  With S == 1 the query attends to the
-    cache under the mask ``arange(Smax) <= index``; otherwise to the
-    fresh keys and values (a prefill starts at 0).
+    reference returns new arrays.  With ``cfg.kv_repeat_to > n_kv_heads``
+    and a cache, the KV heads are repeated up to ``kv_repeat_to`` (the
+    cache is sized to match, :func:`decode_attn_cache`).  With S == 1 the
+    query attends to the cache under the mask ``arange(Smax) <= index``;
+    otherwise to the fresh keys and values (a prefill starts at 0).
+    cross_kv: the encoder's (k, v) (B, Hkv, Senc, D), not roped, for
+    whisper's cross-attention: the query (roped at ``pos``) attends to
+    all of them, no cache is written, and at S == 1 there is no bias.
     Returns (x + attn_out, cache).
     """
-    if cfg.attn_chunk:
-        raise NotPortedError("attn_chunk > 0 (the chunked XLA attention "
-                             "scan) is not ported yet")
-    if cfg.kv_repeat_to > cfg.n_kv_heads:
-        raise NotPortedError("kv_repeat_to (KV heads replicated for a mesh)"
-                             " is not ported yet")
     B, S, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
@@ -195,14 +203,23 @@ def attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"]
     q = rope(q.reshape(B, S, Hq, hd), pos, cfg.rope_theta)
 
-    k = h @ p["wk"]
-    v = h @ p["wv"]
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
-    k = rope(k.reshape(B, S, Hkv, hd), pos, cfg.rope_theta).transpose(1, 2)
-    v = v.reshape(B, S, Hkv, hd).transpose(1, 2)      # (B, Hkv, S, D)
+    if cross_kv is not None:
+        k, v = cross_kv
+    else:
+        k = h @ p["wk"]
+        v = h @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = rope(k.reshape(B, S, Hkv, hd), pos,
+                 cfg.rope_theta).transpose(1, 2)
+        v = v.reshape(B, S, Hkv, hd).transpose(1, 2)  # (B, Hkv, S, D)
+        if cfg.kv_repeat_to > Hkv and cache is not None:
+            # each KV head repeated rep times in a row, as jnp.repeat
+            rep = cfg.kv_repeat_to // Hkv
+            k, v = (t[:, :, None].expand(B, Hkv, rep, S, hd).reshape(
+                B, Hkv * rep, S, hd) for t in (k, v))
 
-    if cache is not None:
+    if cache is not None and cross_kv is None:
         _write_cache(cache["k"], k, cache_index)
         _write_cache(cache["v"], v, cache_index)
         if S == 1:                 # decode attends against the cache;
@@ -211,15 +228,84 @@ def attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     qh = q.transpose(1, 2)                            # (B, Hq, S, D)
     if S == 1:
-        bias = _length_bias(cache_index, B, k.shape[2], x.device)
+        bias = (None if cross_kv is not None       # every frame is valid
+                else _length_bias(cache_index, B, k.shape[2], x.device))
         out = ops.decode_attention(qh[:, :, 0], k, v, bias=bias,
                                    impl=cfg.attn_impl)      # (B, Hq, D)
         out = out.reshape(B, 1, Hq * hd)
     else:
-        out = ops.attention(qh, k, v, bias=None, causal=causal,
-                            impl=cfg.attn_impl)
+        out = _prefill_attention(qh, k, v, cfg, causal)
         out = out.transpose(1, 2).reshape(B, S, Hq * hd)
     return x + (out @ p["wo"]).to(x.dtype), cache
+
+
+def _prefill_attention(q, k, v, cfg: ModelConfig, causal: bool,
+                       scale: float | None = None) -> torch.Tensor:
+    """Attention over S > 1 queries: the flash kernel where
+    ``cfg.attn_impl`` takes it, else the plain route, the reference's
+    chunked scan when ``cfg.attn_chunk`` is set and Sk > attn_chunk (its
+    ``attention_xla``), else the oracle."""
+    chunk = cfg.attn_chunk
+    if (chunk and k.shape[2] > chunk
+            and not ops.uses_kernel(cfg.attn_impl, q)):
+        return _chunked_attention(q, k, v, None, causal, chunk, scale)
+    return ops.attention(q, k, v, causal=causal, impl=cfg.attn_impl,
+                         scale=scale)
+
+
+def _chunked_attention(q, k, v, bias, causal: bool, chunk: int,
+                       scale: float | None = None) -> torch.Tensor:
+    """The reference's online-softmax scan over key blocks of ``chunk``
+    (``repro.models.layers._chunked_attention``), the flash dataflow in
+    plain PyTorch: the (Sq, Sk) logits never exist at once.  Ragged keys
+    (whisper's 1500 frames) are padded to a chunk multiple and masked by
+    a -1e30 bias; a row whose keys are all masked gives 0.  q: (B, Hq,
+    Sq, Dk); k: (B, Hkv, Sk, Dk); v: (B, Hkv, Sk, Dv); bias (B, Sk) or
+    None.  Returns (B, Hq, Sq, Dv) in q's type."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    f32 = torch.float32
+    dev = q.device
+    offs = Sk - Sq                 # queries sit at the end of the keys
+    pad = (-Sk) % chunk
+    if pad:
+        if bias is None:
+            bias = torch.zeros((B, Sk), dtype=f32, device=dev)
+        bias = torch.nn.functional.pad(bias.to(f32), (0, pad),
+                                       value=-1e30)
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        Sk += pad
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = q.to(f32) * scale
+    qpos = torch.arange(Sq, device=dev)[:, None] + offs
+    m = torch.full((B, Hq, Sq), -1e30, dtype=f32, device=dev)
+    l = torch.zeros((B, Hq, Sq), dtype=f32, device=dev)
+    acc = torch.zeros((B, Hq, Sq, Dv), dtype=f32, device=dev)
+    for k0 in range(0, Sk, chunk):
+        kb, vb = k[:, :, k0:k0 + chunk], v[:, :, k0:k0 + chunk]
+        if G > 1:                  # each KV head serves G query heads
+            kb = kb[:, :, None].expand(B, Hkv, G, chunk, D).reshape(
+                B, Hq, chunk, D)
+            vb = vb[:, :, None].expand(B, Hkv, G, chunk, Dv).reshape(
+                B, Hq, chunk, Dv)
+        logits = torch.einsum("bhqd,bhkd->bhqk", qf, kb.to(f32))
+        if bias is not None:
+            logits = logits + bias[:, None, None, k0:k0 + chunk].to(f32)
+        if causal:
+            kpos = k0 + torch.arange(chunk, device=dev)[None, :]
+            logits = torch.where(kpos <= qpos, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        p = torch.where(m_new[..., None] > -5e29, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                    vb.to(f32))
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def _length_bias(index: int | torch.Tensor, B: int, Smax: int,
@@ -288,9 +374,6 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     hd, Hq = cfg.hd, cfg.n_heads
     r, kr = cfg.kv_lora_rank, cfg.rope_head_dim
     absorb = cfg.mla_absorb == "always" or S == 1
-    if cfg.attn_chunk:
-        raise NotPortedError("attn_chunk > 0 (the chunked XLA attention "
-                             "scan) is not ported yet")
     if absorb and S > 1:
         raise NotPortedError("mla_absorb='always' at prefill (flash "
                              "attention at Dk = kv_lora_rank + "
@@ -335,9 +418,9 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         k_rope_h = k_rope[:, :, None].expand(B, Sk, Hq, kr).to(x.dtype)
         k_full = torch.cat([k_nope, k_rope_h], -1)      # (B, Sk, Hq, hd+kr)
         q_full = torch.cat([q_nope.to(x.dtype), q_rope], -1)
-        ctx = ops.attention(q_full.transpose(1, 2), k_full.transpose(1, 2),
-                            v.transpose(1, 2), causal=True,
-                            impl=cfg.attn_impl, scale=scale)
+        ctx = _prefill_attention(q_full.transpose(1, 2),
+                                 k_full.transpose(1, 2), v.transpose(1, 2),
+                                 cfg, causal=True, scale=scale)
         out = ctx.transpose(1, 2).to(f32)               # (B, S, Hq, hd)
     out = out.reshape(B, S, Hq * hd).to(x.dtype)
     return x + out @ p["wo"], cache
@@ -523,14 +606,15 @@ def decode_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
     MLA: {"c_kv" (batch, max_len, r), "k_rope" (batch, max_len, kr)}, the
     two column halves of one (batch, max_len, r + kr) buffer, so the
     absorbed decode reads [c_kv ; k_rope] as one strided tensor, each row
-    once, without a copy.  Otherwise {"k", "v"} (batch, Hkv, max_len, D).
+    once, without a copy.  Otherwise {"k", "v"} (batch, Hkv, max_len, D),
+    Hkv raised to ``kv_repeat_to`` where that is larger.
     """
     if cfg.use_mla:
         r = cfg.kv_lora_rank
         rows = torch.zeros((batch, max_len, r + cfg.rope_head_dim),
                            dtype=dtype, device=device)
         return {"c_kv": rows[..., :r], "k_rope": rows[..., r:]}
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    shape = (batch, max(cfg.n_kv_heads, cfg.kv_repeat_to), max_len, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -1,24 +1,27 @@
-"""The dense, MoE, MLA, SSM and hybrid LMs: parameters, cache, prefill
-and decode (the port of ``repro.models.model``).
+"""The LMs of every family: parameters, cache, prefill and decode (the
+port of ``repro.models.model``).
 
 Public API (plain functions over dicts of tensors):
   param_defs(cfg)                          declarative parameter tree
   init(cfg, rng, device)                   parameter values
   from_jax_params(cfg, params_np, device)  the reference's values, carried over
   init_cache(cfg, batch, max_len, dtype, device)   decode cache
-  prefill(params, cfg, tokens, cache)      fill the cache, last-position logits
+  prefill(params, cfg, tokens, cache, enc_embeds=, extra_embeds=)
+                                           fill the cache, last-position logits
   decode_step(params, cfg, token, cache)   one token for every sequence
 
 The parameters keep the reference's layout: every block parameter is
 stacked on a leading layer axis, and the layers run as a Python loop
 over it (the reference's ``_scan_or_loop`` unrolled, so the hybrid's
-shared-attention sites are static).  The serving paths of the ``dense``
-(with MLA attention: minicpm3), ``moe`` (granite-moe, qwen3-moe), ``ssm``
-(mamba2) and ``hybrid`` (zamba2) families are ported; the encoder
-(``encdec``) and vision (``vlm``) families, ``kv_repeat_to`` and the
-training path (``loss_fn``) raise
-:class:`~repro_torch.device.NotPortedError`.  Caches are updated in
-place.
+shared-attention sites are static).  The serving paths of every family
+are ported: ``dense`` (with MLA attention: minicpm3), ``moe``
+(granite-moe, qwen3-moe), ``ssm`` (mamba2), ``hybrid`` (zamba2),
+``encdec`` (whisper: a non-causal encoder over ``enc_embeds``, then
+cross-attention in every decoder block to K and V projected from its
+output, which the cache keeps as ``enc_out``) and ``vlm`` (internvl2:
+``extra_embeds`` prepended to the prompt's embeddings).  The training
+path (``loss_fn``) raises :class:`~repro_torch.device.NotPortedError`.
+Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["param_defs", "init", "from_jax_params", "loss_fn",
            "init_cache", "prefill", "decode_step", "torch_dtype",
-           "check_ported"]
+           "L_cross_kv"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -42,16 +45,6 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise :class:`NotPortedError` for what this slice does not run."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotPortedError(f"{cfg.name}: the {cfg.family!r} family is not "
-                             f"ported yet (the port serves 'dense', 'moe', "
-                             f"'ssm' and 'hybrid')")
-    if cfg.kv_repeat_to > 0:
-        raise NotPortedError(f"{cfg.name}: kv_repeat_to is not ported yet")
 
 
 # ----------------------------------------------------------------------
@@ -74,7 +67,6 @@ def _block_defs(cfg: ModelConfig) -> dict:
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     defs: dict[str, Any] = {
         "embed": L.ParamDef((V, d), ("vocab", "embed"), scale=0.02),
@@ -86,6 +78,11 @@ def param_defs(cfg: ModelConfig) -> dict:
     if cfg.family == "hybrid":
         defs["shared_attn"] = L.attn_defs(cfg)
         defs["shared_mlp"] = L.mlp_defs(cfg)
+    if cfg.family == "encdec":
+        enc = {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
+        defs["enc_blocks"] = _stack(enc, cfg.n_enc_layers)
+        defs["enc_final_ln"] = L.ParamDef((d,), ("embed",), "ones")
+        defs["cross_blocks"] = _stack(L.attn_defs(cfg), cfg.n_layers)
     return defs
 
 
@@ -167,16 +164,46 @@ def _dense_block(p, cfg, x, pos, cache=None, idx=None, causal=True):
 
 
 def _run_blocks(params, cfg, x, pos, cache=None, index=None,
-                decode=False):
+                decode=False, enc_out=None):
     """The layer loop; serving drops the blocks' aux, as the reference's
-    prefill and decode do."""
+    prefill and decode do.  With ``enc_out`` (encdec) each decoder block
+    is followed by its cross-attention block."""
     if cfg.family in ("ssm", "hybrid"):
         return _iterate_ssm(params, cfg, x, pos, cache, index, decode)
     for i in range(cfg.n_layers):
         cache_l = None if cache is None else _layer(cache["attn"], i)
         x, _, _ = _dense_block(_layer(params["blocks"], i), cfg, x, pos,
                                cache_l, index)
+        if enc_out is not None:
+            cross = _layer(params["cross_blocks"], i)
+            x, _ = L.attention_block(cross, cfg, x, pos,
+                                     cross_kv=L_cross_kv(cross, cfg, enc_out),
+                                     causal=False)
     return x
+
+
+def _encode(params, cfg, enc_embeds):
+    """whisper's encoder: non-causal dense blocks over the frames, then
+    the final norm.  (B, Senc, d) in the config's type."""
+    x = enc_embeds.to(torch_dtype(cfg.dtype))
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_enc_layers):
+        x, _, _ = _dense_block(_layer(params["enc_blocks"], i), cfg, x, pos,
+                               causal=False)
+    return L.rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def L_cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """Project the encoder output to one cross-attention block's K and V,
+    (B, Hkv, Senc, D) each, not roped.  The product takes the promoted
+    type of ``enc_out`` and the weights, as ``jnp.matmul`` does: float32
+    from a float32 cache under bf16 weights."""
+    B, Se, _ = enc_out.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    dt = torch.promote_types(enc_out.dtype, p["wk"].dtype)
+    k = (enc_out.to(dt) @ p["wk"].to(dt)).reshape(B, Se, Hkv, hd)
+    v = (enc_out.to(dt) @ p["wv"].to(dt)).reshape(B, Se, Hkv, hd)
+    return k.transpose(1, 2), v.transpose(1, 2)
 
 
 def _maybe_shared_attn(cfg, params, x, pos, i, attn_cache, cache_index):
@@ -215,13 +242,6 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _check_inputs(cfg, enc_embeds, extra_embeds):
-    check_ported(cfg)
-    if enc_embeds is not None or extra_embeds is not None:
-        raise NotPortedError("encoder (enc_embeds) and vision "
-                             "(extra_embeds) inputs are not ported yet")
-
-
 def loss_fn(params, cfg, batch):
     """The training path comes with a later slice."""
     raise NotPortedError("loss_fn (the training path) is not ported yet")
@@ -232,17 +252,20 @@ def loss_fn(params, cfg, batch):
 # ----------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """The decode cache; every leaf but ``index`` has the batch on axis 1.
+    """The decode cache; every leaf but ``index`` and ``enc_out`` has the
+    batch on axis 1.
 
-    dense and moe: {"index", "attn": {"k", "v"} (layers, batch, Hkv,
-    max_len, D)}, or with MLA {"c_kv" (layers, batch, max_len, r),
+    dense, moe, encdec and vlm: {"index", "attn": {"k", "v"} (layers,
+    batch, Hkv, max_len, D)} (Hkv raised to ``kv_repeat_to`` where that
+    is larger), or with MLA {"c_kv" (layers, batch, max_len, r),
     "k_rope" (layers, batch, max_len, kr)} (views of one buffer, see
     :func:`L.decode_attn_cache`);
     ssm: {"index", "conv" (layers, batch, W-1, conv_ch) in ``dtype``,
     "ssm" (layers, batch, H, P, N) float32}; hybrid: the ssm cache plus
-    "attn" for its ``n_layers // attn_every`` shared-attention sites.
+    "attn" for its ``n_layers // attn_every`` shared-attention sites;
+    encdec: also "enc_out" (batch, n_frontend_tokens or 1500, d), the
+    encoder's output, which a prefill writes and decode projects.
     """
-    check_ported(cfg)
     dev = resolve_device(device)
     cache: dict[str, Any] = {
         "index": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -262,19 +285,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                     dev)
     cache["attn"] = {k: c.view(n_attn, batch, *c.shape[1:])
                      for k, c in per_layer.items()}
+    if cfg.family == "encdec":
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.n_frontend_tokens or 1500, cfg.d_model), dtype=dtype,
+            device=dev)
     return cache
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: dict, enc_embeds=None, extra_embeds=None
+            cache: dict, enc_embeds: torch.Tensor | None = None,
+            extra_embeds: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, dict]:
     """Run the prompt through the model, filling the cache (in place).
-    Returns (last-position logits (B, V) float32, cache)."""
-    _check_inputs(cfg, enc_embeds, extra_embeds)
+
+    extra_embeds: (B, S_vis, d), a vision prefix put before the prompt's
+    embeddings (the cache index is then S_vis + S).  enc_embeds: (B,
+    Senc, d), the encoder's frames, which an encdec model needs; the
+    encoder's output is written into ``cache["enc_out"]`` (of the same
+    shape).  Returns (last-position logits (B, V) float32, cache)."""
     x = L.embed_tokens(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
-    x = _run_blocks(params, cfg, x, pos, cache, 0)
+    enc_out = None
+    if cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
+                             f"enc_embeds, the encoder's frames (B, frames, "
+                             f"d_model)")
+        enc_out = _encode(params, cfg, enc_embeds)
+        if cache["enc_out"].shape != enc_out.shape:
+            raise ValueError(f"{cfg.name}: enc_embeds gives an encoder output "
+                             f"{tuple(enc_out.shape)}; the cache holds "
+                             f"{tuple(cache['enc_out'].shape)}")
+        cache["enc_out"].copy_(enc_out)
+    x = _run_blocks(params, cfg, x, pos, cache, 0, enc_out=enc_out)
     cache = {**cache, "index": torch.tensor(S, dtype=torch.int32,
                                             device=x.device)}
     x = L.rmsnorm(x[:, -1:], params["final_ln"], cfg.norm_eps)
@@ -285,13 +331,15 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict) -> tuple[torch.Tensor, dict]:
     """One token for every sequence.  token: (B,) int.  ``cache["index"]``
     is a scalar (lock-step) or a (B,) vector of per-slot lengths
-    (continuous batching).  Returns (logits (B, V) float32, cache)."""
-    check_ported(cfg)
+    (continuous batching).  An encdec model projects ``cache["enc_out"]``
+    to each cross-attention block's K and V every step, as the reference
+    does.  Returns (logits (B, V) float32, cache)."""
     idx = cache["index"]
     x = L.embed_tokens(params["embed"], token[:, None]).to(
         torch_dtype(cfg.dtype))
     pos = idx[None] if idx.dim() == 0 else idx[:, None]
-    x = _run_blocks(params, cfg, x, pos, cache, idx, decode=True)
+    x = _run_blocks(params, cfg, x, pos, cache, idx, decode=True,
+                    enc_out=cache.get("enc_out"))
     cache = {**cache, "index": idx + 1}
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return L.unembed(x, _head(params, cfg))[:, 0], cache

@@ -19,6 +19,12 @@ buffers, and the cache's tensors keep their addresses for the batcher's
 life (admission writes a slot in place).  On the CPU the step runs
 eagerly through the same buffers.  Prefill stays eager and B = 1, as the
 reference's is not jitted.
+
+As in the reference, a request is its prompt alone: a ``vlm`` model
+(internvl2) is served text-only, and an ``encdec`` model (whisper)
+cannot be admitted, since a ``Request`` carries no encoder frames; its
+prefill raises ``ValueError`` naming the missing ``enc_embeds`` (the
+reference's fails inside its encoder).
 """
 from __future__ import annotations
 
@@ -118,18 +124,27 @@ class ContinuousBatcher:
             self.prefills += 1
 
     def _copy_slot(self, src_cache: dict, slot: int) -> None:
-        """Copy a B = 1 cache into slot ``slot`` of the pool cache.
-
-        Every leaf but ``index`` (the KV cache, and the conv and SSM
-        states of the ssm and hybrid families) has the batch on axis 1;
-        copying them all is what resets the slot's state on admission.
+        """Copy a B = 1 cache into slot ``slot`` of the pool cache, in
+        place, each leaf along its batch axis, found as the reference
+        finds it: the axis where the pool has ``n_slots``, the B = 1
+        cache 1, and every other dim matches (axis 1 for the stacked
+        (layers, batch, ...) leaves, axis 0 for ``enc_out``).  A leaf
+        with no such axis is left as it is.  Copying them all is what
+        resets the slot's state (the conv and SSM states) on admission.
         """
         def copy(pool, one):
             if isinstance(pool, dict):
                 for name in pool:
                     copy(pool[name], one[name])
-            else:
-                pool[:, slot:slot + 1] = one
+                return
+            if pool.dim() == 0 or pool.dim() != one.dim():
+                return
+            for a in range(pool.dim()):
+                if (pool.shape[a] == self.n_slots and one.shape[a] == 1
+                        and pool.shape[:a] == one.shape[:a]
+                        and pool.shape[a + 1:] == one.shape[a + 1:]):
+                    pool.narrow(a, slot, 1).copy_(one)
+                    return
 
         copy({k: v for k, v in self.cache.items() if k != "index"},
              src_cache)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a decode step's (or a prefill's) time goes: an LM served by the
 port on one NVIDIA GPU (``--arch``: granite-3-2b by default, or
-mamba2-2.7b, zamba2-1.2b, granite-moe-3b-a800m or minicpm3-4b, at full
-width and depth).
+mamba2-2.7b, zamba2-1.2b, granite-moe-3b-a800m, minicpm3-4b, whisper-base
+or internvl2-26b, at full width and depth).
 
 Fills the 4 slots of ``repro_torch.runtime.batcher.ContinuousBatcher``
 (512 positions) with prompts of 17, 64, 100 and 128 tokens, runs 5 warm
@@ -32,6 +32,16 @@ activities), and reports per decode step:
 - the kernels by device time, with their launches per step, and the
   longest single launches (the head's float32 copy and the unembedding
   among them).
+
+whisper-base and internvl2-26b are served in lock step instead, as
+``repro_torch.launch.serve`` serves them (the batcher's requests carry
+no encoder frames): 4 prompts of 32 tokens with encoder frames
+(whisper, 1,500) or a vision prefix (internvl2, 256 patches) drawn from
+``--seed`` (normal, std 1), one batched prefill, then the decode steps
+through one ``CompiledStep``, warmed, timed and profiled as above.  Their
+bound adds the encoder output read once and, as an operation bound at
+the bf16 tensor-core rate, whisper's cross-attention K and V projected
+from it in every layer each step.
 
 Prints one JSON line with the card's ``nvidia-smi`` name and power limit
 and writes the full kernel table to ``chiprun_out/serve_profile.json``.
@@ -63,9 +73,13 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import HBM_BYTES_PER_S, TimedSteps, card_line  # noqa: E402
+from chip_smoke import (BF16_OPS_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                        TimedSteps, card_line)
 
 PROMPT_LENS = (17, 64, 100, 128)
+# the configs served in lock step with seeded frontends; their prompt
+FRONTEND_ARCHS = ("whisper_base", "internvl2_26b")
+FRONTEND_PROMPT = 32
 PREFILL_LENS = (17, 100, 255)     # chip_smoke.py's shortest, middle, longest
 N_SLOTS, MAX_LEN = 4, 512
 WARM, STEPS = 5, 10
@@ -89,7 +103,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite_3_2b",
                     help="granite_3_2b, mamba2_2p7b, zamba2_1p2b, "
-                         "granite_moe_3b_a800m or minicpm3_4b")
+                         "granite_moe_3b_a800m, minicpm3_4b, whisper_base "
+                         "or internvl2_26b")
     ap.add_argument("--prefill", action="store_true",
                     help="profile B = 1 prefills instead of decode steps")
     ap.add_argument("--seed", type=int, default=0)
@@ -113,7 +128,10 @@ def main() -> int:
     if args.prefill:
         return profile_prefills(torch, profile, ProfilerActivity, M, cfg,
                                 params, rng, smi, args.arch)
-    summary, rows = profile_decode(torch, cfg, params, rng, smi)
+    if args.arch in FRONTEND_ARCHS:
+        summary, rows = profile_lockstep(torch, cfg, params, args.seed, smi)
+    else:
+        summary, rows = profile_decode(torch, cfg, params, rng, smi)
     print(json.dumps(summary), flush=True)
     out = (OUT if args.arch == "granite_3_2b"
            else OUT.with_name(f"serve_profile_{args.arch}.json"))
@@ -162,10 +180,109 @@ def profile_decode(torch, cfg, params, rng, smi) -> tuple[dict, list]:
                              ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = run_steps()
     rows = device_rows(torch, prof, STEPS)
+    summary = {"profile": cfg.name, "slots": N_SLOTS, "max_len": MAX_LEN,
+               **step_summary(torch, prof, rows, batcher.compiled, wall_ms,
+                              profiled_wall_ms, event_ms, smi),
+               "bound_ms": step_bound_ms(torch, params, batcher, chosen)}
+    if chosen:
+        summary["bound_all_experts_ms"] = step_bound_ms(torch, params,
+                                                        batcher)
+        summary["experts_read_per_layer"] = [
+            int(t.unique().numel()) for t in chosen]
+    return summary, rows
+
+
+def frontend_inputs(torch, cfg, batch: int, seed: int) -> dict:
+    """The frontend of ``cfg``'s family, ``batch`` rows of
+    ``n_frontend_tokens`` drawn from ``seed`` (normal, std 1) in the
+    config's type: {"enc_embeds": ...} (encdec), {"extra_embeds": ...}
+    (vlm) or {}."""
+    from repro_torch.models import model as M
+    name = {"encdec": "enc_embeds", "vlm": "extra_embeds"}.get(cfg.family)
+    if name is None:
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(batch, cfg.n_frontend_tokens, cfg.d_model,
+                    generator=gen, device="cuda")
+    return {name: x.to(M.torch_dtype(cfg.dtype))}
+
+
+def profile_lockstep(torch, cfg, params, seed, smi) -> tuple[dict, list]:
+    """Lock-step serving of N_SLOTS prompts of FRONTEND_PROMPT tokens with
+    seeded frontends (``launch.serve``'s path): prefill, WARM warm steps
+    through one ``CompiledStep``, STEPS timed unprofiled, STEPS profiled;
+    returns (summary, kernel rows) as :func:`profile_decode` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.models import model as M
+    from repro_torch.runtime.compiled_step import CompiledStep
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (N_SLOTS, FRONTEND_PROMPT),
+                           generator=gen, device="cuda")
+    inputs = frontend_inputs(torch, cfg, N_SLOTS, seed + 2)
+    n_steps = WARM + 2 * STEPS
+    cache = M.init_cache(cfg, N_SLOTS,
+                         cache_len(cfg, FRONTEND_PROMPT, n_steps + 1),
+                         dtype=M.torch_dtype(cfg.dtype), device="cuda")
+    logits, cache = M.prefill(params, cfg, prompt, cache, **inputs)
+
+    def decode_fn(tok, index):
+        out, new = M.decode_step(params, cfg, tok, {**cache, "index": index})
+        return out, new["index"]
+
+    step = CompiledStep(decode_fn, device="cuda")
+    state = {"tok": logits.argmax(-1), "index": cache["index"]}
+    events = []
+
+    def one_step():
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out, state["index"] = step(state["tok"], state["index"])
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        events.append((ev0, ev1))
+        state["tok"] = out.argmax(-1)
+
+    def run_steps() -> float:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            one_step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / STEPS
+
+    index0 = int(cache["index"])
+    for _ in range(WARM):
+        one_step()
+    torch.cuda.synchronize()
+    events.clear()
+    wall_ms = run_steps()
+    event_ms = sorted(a.elapsed_time(b) for a, b in events)
+    # the bound at the middle of the timed window's lengths
+    live = N_SLOTS * (index0 + WARM + STEPS // 2 + 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = run_steps()
+    rows = device_rows(torch, prof, STEPS)
+    summary = {"profile": cfg.name, "slots": N_SLOTS,
+               "prompt_len": FRONTEND_PROMPT,
+               "frontend_tokens": cfg.n_frontend_tokens,
+               "max_len": cache["attn"]["k"].shape[3],
+               **step_summary(torch, prof, rows, step, wall_ms,
+                              profiled_wall_ms, event_ms, smi),
+               **lockstep_bound(torch, cfg, params, cache, live)}
+    return summary, rows
+
+
+def step_summary(torch, prof, rows, step, wall_ms, profiled_wall_ms,
+                 event_ms, smi) -> dict:
+    """A profiled window's per-step numbers: wall, device and event ms,
+    the idle share, launches (the profiler's and the counted ones of
+    ``step``, a ``CompiledStep``), the kernel families and the top and
+    longest kernels."""
     device_ms = sum(r["ms_per_step"] for r in rows)
-    step = batcher.compiled
-    summary = {
-        "profile": cfg.name, "slots": N_SLOTS, "max_len": MAX_LEN,
+    return {
         "steps": STEPS, "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": profiled_wall_ms,
         "event_ms_per_step": event_ms,
@@ -174,15 +291,34 @@ def profile_decode(torch, cfg, params, rng, smi) -> tuple[dict, list]:
         "launches_per_step": sum(r["launches_per_step"] for r in rows),
         "counted_launches_per_step": step.step_launches,
         "captures": step.captures, "capture_ms": step.capture_ms,
-        "bound_ms": step_bound_ms(torch, params, batcher, chosen),
         "families": families(rows), "top": rows[:8],
         "longest": longest_launches(torch, prof, 6), "card": smi}
-    if chosen:
-        summary["bound_all_experts_ms"] = step_bound_ms(torch, params,
-                                                        batcher)
-        summary["experts_read_per_layer"] = [
-            int(t.unique().numel()) for t in chosen]
-    return summary, rows
+
+
+def lockstep_bound(torch, cfg, params, cache, live: int) -> dict:
+    """The least time of one lock-step decode step: every parameter, the
+    ``live`` KV rows and the encoder output read once at the card's
+    memory rate, against whisper's cross-attention K and V projected
+    from the encoder output in every decoder layer at the bf16
+    tensor-core rate; the larger bounds it."""
+    def nbytes(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.numel() * tree.element_size()
+        return sum(nbytes(v) for v in tree.values())
+    k = cache["attn"]["k"]               # (layers, slots, Hkv, S, D)
+    n = nbytes(params) + 2 * k.shape[0] * k.shape[2] * k.shape[4] * \
+        k.element_size() * live
+    ops = 0
+    if "enc_out" in cache:
+        enc = cache["enc_out"]
+        n += enc.numel() * enc.element_size()
+        ops = (cfg.n_layers * 2 * 2 * enc.shape[0] * enc.shape[1]
+               * cfg.d_model * cfg.n_kv_heads * cfg.hd)
+    bytes_ms = n / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_bytes_ms": bytes_ms,
+            "bound_ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def step_bound_ms(torch, params, batcher, chosen=()) -> float:
