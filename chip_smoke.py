@@ -185,7 +185,27 @@ no result line) on any error:
    (``tools/serve_profile.py``'s lock-step profile) and teacher-forces
    row 0 against ``impl="ref"`` within 5e-2 * max|logits|; the phase's
    line splits its seconds;
-13. prints the ``kernels`` line; each route of flash and the MLP has its
+13. training: granite-3-2b and zamba2-1.2b at full width and depth
+   (random weights from ``--seed``, ``SyntheticLM`` batches of 8 x 512,
+   the configs' remat "dots"): one batch's ``loss_fn`` + backward on the
+   kernel route (flash, ``fused_mlp`` and the scan inside their
+   ``torch.autograd.Function``s) against ``impl="ref"``, every parameter
+   leaf with a finite gradient, nonzero where the plain route's is,
+   within 5e-2 relative Frobenius (or twice the plain route's own bf16
+   error against float32, its spread, up to 0.12), the kernel route's
+   own bf16 error against float32 within 1.15 x the spread + 2e-3, and
+   the same in float32 within 1e-3; then 1
+   + 5 steps through ``make_train_step`` with AdamW: exact launches a
+   step (each kernel twice a layer, remat's recompute, and one plain
+   backward), finite losses, the step counter; step ms (CUDA events,
+   median), one step split into forward, backward and optimizer,
+   tokens/s, MFU, peak memory and the step's bound; then the ``tiny``
+   preset through ``Trainer`` with a checkpoint and a resume (losses
+   equal, max abs 0; float32 gradients within 1e-4 of ``impl="ref"``);
+   then the three kernels at their training shapes against their plain
+   versions, bounds and yardsticks, with each Function's plain backward
+   timed;
+14. prints the ``kernels`` line; each route of flash and the MLP has its
    own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
    each served app its ``stream_group_b8[...]``, each tuned app its
    ``stream_group.tuned[...]``, each replicated app and k its
@@ -195,7 +215,11 @@ no result line) on any error:
    ``[mla ...]``, ``fused_mlp.*[minicpm3 ...]``), phase 12's theirs
    (``flash_attention.tc[whisper encoder ...]``,
    ``decode_attention[whisper cross ... no bias]``,
-   ``fused_mlp.tc[internvl2 T=1152]``, ...).
+   ``fused_mlp.tc[internvl2 T=1152]``, ...), phase 13's theirs
+   (``flash_attention.tc[train granite B=8 S=512]``,
+   ``flash_attention.tc[train zamba2 B=8 S=512 G=1]``,
+   ``fused_mlp.tc[train granite T=4096]``,
+   ``ssd_scan[train zamba2 b=8 s=512]``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -205,6 +229,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -515,6 +541,9 @@ def main() -> int:
     # -- phase 12: encoder-decoder and vision-prefix serving -------------
     lm_entries += frontend_serving(torch, timer, smi, args.seed)
 
+    # -- phase 13: training, granite-3-2b and zamba2-1.2b ----------------
+    lm_entries += training_phase(torch, timer, smi, args.seed)
+
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -577,10 +606,13 @@ def time_cases(torch, timer, smi, cases, tol) -> list[dict]:
 
 def kernel_entries(rows, launches) -> list[dict]:
     """Prints each case row with its kernel's launches on the main path
-    and returns the rows' entries of the kernels line."""
+    (``launches`` by (kernel, shape), else by kernel) and returns the
+    rows' entries of the kernels line."""
     entries = []
     for row in rows:
-        row["launches"] = launches[row["kernel"]]
+        key = (row["kernel"], row["shape"])
+        row["launches"] = launches[key if key in launches
+                                   else row["kernel"]]
         print(json.dumps(row), flush=True)
         base = row["kernel"].split(".")[0]       # flash_attention.tc
         entries.append({
@@ -1790,6 +1822,518 @@ def serve_lockstep(torch, arch, cfg, params, seed, counters, smi,
         "peak_mem_gb": peak_gb, "card": smi}), flush=True)
     return launches, (prompt[0].cpu().numpy().astype(np.int32),
                       [int(t) for t in gen_tokens[0]])
+
+
+# ----------------------------------------------------------------------
+# phase 13: training
+# ----------------------------------------------------------------------
+TRAIN_ARCHS = ("granite_3_2b", "zamba2_1p2b")
+TRAIN_B, TRAIN_S = 8, 512        # global batch x sequence, SyntheticLM
+TRAIN_STEPS = 5                  # timed, after one warm-up step
+# Kernel route vs impl="ref" on one batch, full width in bf16.  The
+# forward kernels round at other places than the plain versions (one
+# bf16 step is 0.4 %) and the backward recomputes the plain versions
+# from the kernel route's activations, so the two losses and gradients
+# differ by such roundings carried through the layers: the loss within
+# 1e-3 relative, the global gradient norm within 0.5 % (tightened from
+# 1e-2 and 2 % after the first runs: 1.1e-6 / 5.6e-5 and 1.1e-4 / 1.7e-4
+# for granite / zamba2), each leaf's
+# relative Frobenius error within 5e-2, or, for a leaf that bf16 itself
+# moves more, within twice the plain route's own error in bf16 against
+# the plain route in float32 (its spread), capped at TRAIN_LEAF_CAP
+# (zamba2: the bf16 plain route is 4-13 % off its float32 self on every
+# leaf, the kernel route 3-9 % off the bf16 plain route; granite 1.0-3.0 %
+# and 1.2-3.2 %).  The kernel route's own bf16 error is held too: its
+# gradients against the plain route in float32 within
+# TRAIN_SPREAD_MARGIN x that leaf's spread + TRAIN_SPREAD_SLACK, so a
+# kernel that rounded more than the plain version would show (read at
+# 1.028-1.056 x the spread on granite's leaves, 0.947-1.002 on
+# zamba2's; the capped rule's worst zamba2 leaf 0.0897).  In
+# float32 the kernel route (the CUDA-core routes, the scan in 3xTF32)
+# holds the plain route to 1e-3 per leaf: the wiring at full width.
+TRAIN_LOSS_REL = 1e-3
+TRAIN_NORM_REL = 5e-3
+TRAIN_LEAF_REL = 5e-2
+TRAIN_SPREAD_FACTOR = 2.0
+TRAIN_LEAF_CAP = 0.12
+TRAIN_SPREAD_MARGIN = 1.15
+TRAIN_SPREAD_SLACK = 2e-3
+TRAIN_F32_LEAF_REL = 1e-3
+# the tiny preset in float32 (the CUDA-core routes): summation order only
+TINY_GRAD_REL = 1e-4
+TINY = dict(name="tiny-llama", family="dense", n_layers=4, d_model=128,
+            n_heads=4, n_kv_heads=2, d_ff=512, vocab_size=2048,
+            dtype="float32", remat="none")
+ADAMW_BYTES_PER_PARAM = 28       # g read, master, m, v read and written,
+                                 # the bf16 weight written
+
+
+def train_counts(cfg) -> dict:
+    """Launches and plain backwards of one training forward + backward:
+    each kernel once per layer that runs it in the forward, once more in
+    the recompute of ``remat`` "full" or "dots", one backward each."""
+    passes = 1 if cfg.remat == "none" else 2
+    if cfg.family == "hybrid":
+        per = {"ssd_scan": cfg.n_layers,
+               "flash_attention": cfg.n_layers // cfg.attn_every,
+               "fused_mlp": cfg.n_layers // cfg.attn_every}
+    else:
+        per = {"flash_attention": cfg.n_layers, "fused_mlp": cfg.n_layers}
+    out = {}
+    for name, n in per.items():
+        out[name] = passes * n
+        out[f"{name}.backward"] = n
+    return out
+
+
+def read_train_counts(counters) -> dict:
+    """:func:`read_counts` (each route's launches too) and each kernel's
+    plain backwards, as ``name.backward``."""
+    return {**read_counts(counters),
+            **{f"{k}.backward": fn.backward_calls
+               for k, fn in counters.items()}}
+
+
+def check_train_counts(label, got, want, route, times=1) -> None:
+    """``got`` holds ``times`` x ``want``, every launch on ``route``."""
+    sub = {k: got[k] for k in want}
+    check(sub == {k: times * v for k, v in want.items()},
+          f"{label}: launches {sub}, expected {times} x {want}")
+    for k in ("flash_attention", "fused_mlp"):
+        check(got[f"{k}.{route}"] == got[k],
+              f"{label}: {k} launches {got[k]}, on {route} "
+              f"{got[f'{k}.{route}']}")
+
+
+def reset_train_counts(counters) -> None:
+    reset_counts(counters)
+    for fn in counters.values():
+        fn.backward_calls = 0
+
+
+def loss_and_grads(torch, M, cfg, params, batch):
+    """(total, metrics, gradients by dotted name; None where the loss did
+    not reach a leaf) of one ``loss_fn`` + backward."""
+    from repro_torch.optim.adamw import tree_leaves
+    names = leaf_names(params)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    total, metrics = M.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(names, grads)))
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted names of a dict tree's leaves in sorted-key order."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [n for k in sorted(tree)
+            for n in leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)]
+
+
+def leaf_errors(torch, label, got, want) -> tuple[dict, float, float]:
+    """Every leaf has a finite gradient on both routes, nonzero in
+    ``got`` where ``want``'s is; returns (each leaf's relative Frobenius
+    error, the global norms of ``got`` and ``want``)."""
+    errs, sq_got, sq_want = {}, 0.0, 0.0
+    for name, w in want.items():
+        g = got[name]
+        check(g is not None and w is not None,
+              f"{label}: {name} has no gradient (kernel route "
+              f"{g is not None}, plain route {w is not None})")
+        gf, wf = g.float(), w.float()
+        check(bool(torch.isfinite(gf).all() and torch.isfinite(wf).all()),
+              f"{label}: {name}'s gradient is not finite")
+        n_got, n_want = float(gf.norm()), float(wf.norm())
+        check(n_want == 0.0 or n_got > 0.0,
+              f"{label}: {name}'s gradient is 0 on the kernel route, "
+              f"{n_want:.3e} on the plain route")
+        errs[name] = float((gf - wf).norm()) / max(n_want, 1e-30)
+        sq_got += n_got ** 2
+        sq_want += n_want ** 2
+    return errs, sq_got ** 0.5, sq_want ** 0.5
+
+
+def check_leaves(label, errs, norms, leaf_rel, norm_rel=None,
+                 bounds=None) -> dict:
+    """Each leaf's error (:func:`leaf_errors`) within ``bounds[leaf]``
+    (default ``leaf_rel``), the global norms (got, want) within
+    ``norm_rel``.  Returns the worst leaf against its bound and the
+    norms."""
+    bounds = bounds or {}
+    for name, e in errs.items():
+        check(e <= bounds.get(name, leaf_rel),
+              f"{label}: {name}'s gradient differs by {e:.3e} (relative "
+              f"Frobenius) > {bounds.get(name, leaf_rel):.3e}")
+    n_got, n_want = norms
+    norm_err = abs(n_got - n_want) / n_want
+    if norm_rel is not None:
+        check(norm_err <= norm_rel, f"{label}: global gradient norm "
+              f"{n_got:.6e} vs {n_want:.6e}")
+    worst = max(errs, key=lambda k: errs[k] / bounds.get(k, leaf_rel))
+    return {"leaves": len(errs), "worst_leaf": worst,
+            "worst_leaf_rel": errs[worst],
+            "worst_leaf_bound": bounds.get(worst, leaf_rel),
+            "grad_norm": n_got, "grad_norm_ref": n_want,
+            "grad_norm_rel": norm_err}
+
+
+def compare_grads(torch, label, got, want, leaf_rel) -> dict:
+    errs, n_got, n_want = leaf_errors(torch, label, got, want)
+    return check_leaves(label, errs, (n_got, n_want), leaf_rel)
+
+
+def train_batch(torch, cfg, seed, step=0) -> dict:
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                       global_batch=TRAIN_B, seed=seed)
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in data.batch(step).items()}
+
+
+def train_full(torch, smi: str, seed: int, arch: str) -> dict:
+    """One model at full width and depth: the gradient wiring on one
+    batch (kernel route against impl="ref"), then 1 + TRAIN_STEPS steps
+    through ``make_train_step`` with AdamW, then one step by its parts
+    (forward, backward, optimizer) for the split.  Prints the
+    ``training`` line; returns the main path's launches."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_apply
+    from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
+    from repro_torch.runtime.steps import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    counters = {"flash_attention": flash_attention, "fused_mlp": fused_mlp}
+    if cfg.family == "hybrid":
+        counters["ssd_scan"] = ssd_scan
+    want = train_counts(cfg)
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    batch = train_batch(torch, cfg, seed)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+
+    # -- gradient wiring: every leaf, kernel route vs impl="ref" ---------
+    reset_train_counts(counters)
+    loss_k, met_k, grads_k = loss_and_grads(torch, M, cfg, params, batch)
+    torch.cuda.synchronize()
+    check_train_counts(f"{arch} loss_fn + backward",
+                       read_train_counts(counters), want, "tc")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    loss_r, _, grads_r = loss_and_grads(torch, M, ref_cfg, params, batch)
+    check(bool(torch.isfinite(loss_k)) and bool(torch.isfinite(loss_r)),
+          f"{arch}: loss not finite")
+    loss_rel = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+    check(loss_rel <= TRAIN_LOSS_REL, f"{arch}: loss {float(loss_k)} vs "
+          f"{float(loss_r)} (impl='ref')")
+    errs_k, n_k, n_r = leaf_errors(torch, arch, grads_k, grads_r)
+    # float32: the kernel route against the plain route; each bf16
+    # route's own error per leaf against the float32 plain route (the
+    # plain route's is its spread)
+    p32 = tree_map(lambda t: t.float(), params)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    _, _, g32_r = loss_and_grads(
+        torch, M, dataclasses.replace(c32, attn_impl="ref"), p32, batch)
+    spread, _, _ = leaf_errors(torch, f"{arch} bf16 vs f32 plain", grads_r,
+                               g32_r)
+    to_f32, _, n32 = leaf_errors(torch, f"{arch} bf16 kernel vs f32 plain",
+                                 grads_k, g32_r)
+    del grads_k, grads_r
+    _, _, g32_k = loss_and_grads(torch, M, c32, p32, batch)
+    f32 = compare_grads(torch, f"{arch} float32", g32_k, g32_r,
+                        TRAIN_F32_LEAF_REL)
+    del g32_k, g32_r, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    bounds = {k: max(TRAIN_LEAF_REL,
+                     min(TRAIN_SPREAD_FACTOR * v, TRAIN_LEAF_CAP))
+              for k, v in spread.items()}
+    wiring = check_leaves(arch, errs_k, (n_k, n_r), TRAIN_LEAF_REL,
+                          TRAIN_NORM_REL, bounds)
+    own = check_leaves(
+        f"{arch} bf16 kernel route vs f32 plain", to_f32, (n_k, n32),
+        TRAIN_LEAF_REL, bounds={k: TRAIN_SPREAD_MARGIN * v
+                                + TRAIN_SPREAD_SLACK
+                                for k, v in spread.items()})
+    wiring.update({"leaf_rel": errs_k, "bf16_spread": spread,
+                   "kernel_vs_f32": to_f32,
+                   "kernel_vs_f32_worst_leaf": own["worst_leaf"],
+                   "kernel_vs_f32_worst_rel": own["worst_leaf_rel"],
+                   "kernel_vs_f32_worst_bound": own["worst_leaf_bound"],
+                   "f32_worst_leaf": f32["worst_leaf"],
+                   "f32_worst_leaf_rel": f32["worst_leaf_rel"]})
+
+    # -- the train step: warm-up, then TRAIN_STEPS timed -----------------
+    opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=2, decay_steps=100)
+    state = {"params": params, "opt": adamw_init(params)}
+    step_fn = make_train_step(cfg, opt_cfg)
+    state, m0 = step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts(counters)
+    events, losses = [], [float(m0["loss"])]
+    for i in range(TRAIN_STEPS):
+        b = train_batch(torch, cfg, seed, i + 1)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, met = step_fn(state, b)
+        e1.record()
+        events.append((e0, e1))
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    launches = read_train_counts(counters)
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    check_train_counts(f"{arch} {TRAIN_STEPS} steps", launches, want, "tc",
+                       TRAIN_STEPS)
+    check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    check(int(state["opt"]["step"]) == 1 + TRAIN_STEPS,
+          f"{arch}: step counter {int(state['opt']['step'])}")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+
+    # -- one step by its parts: forward, backward, optimizer -------------
+    b = train_batch(torch, cfg, seed, TRAIN_STEPS + 1)
+    leaves = tree_leaves(params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in leaves:
+        p.requires_grad_(True)
+    ev[0].record()
+    total, _ = M.loss_fn(params, cfg, b)
+    ev[1].record()
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(total, leaves, allow_unused=True))]
+    ev[2].record()
+    adamw_apply(opt_cfg, params, grads, state["opt"])
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in
+             enumerate(("forward", "backward", "optimizer"))}
+    for p in leaves:
+        p.requires_grad_(False)
+
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6 * n_params * tokens
+    bound_ms = (flops / BF16_OPS_PER_S
+                + ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S) * 1e3
+    row = {"training": cfg.name, "card": smi, "params": n_params,
+           "batch": [TRAIN_B, TRAIN_S], "remat": cfg.remat,
+           "loss": float(loss_k), "loss_ref": float(loss_r),
+           "loss_rel": loss_rel, **wiring,
+           "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+           "step_ms_each": [s.elapsed_time(e) for s, e in events],
+           "split_ms": split, "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_mem_gb": peak / 1e9,
+           "bound_ms": bound_ms, "bound_flops": flops,
+           "mfu": flops / (step_ms * 1e-3 * BF16_OPS_PER_S),
+           "launches_per_step": want,
+           "seconds": time.perf_counter() - t_model}
+    print(json.dumps(row), flush=True)
+    del state, params, grads, total
+    return launches
+
+
+def train_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
+    """The three kernels at their training shapes (granite's attention
+    and MLP, zamba2's attention (G = 1; its MLP sites have granite's
+    shape) and scan) against their plain versions, bounds and
+    yardsticks, and each Function's plain backward, timed."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp, tc_plan
+    from repro_torch.kernels.fused_mlp import route as mlp_route
+    from repro_torch.kernels.launch import sm_count
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    g, z = get_config("granite_3_2b"), get_config("zamba2_1p2b")
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * std).to(bf16)
+
+    def bound(n_bytes, n_ops):
+        return lm_bound(n_bytes, n_ops, BF16_OPS_PER_S)
+
+    B, S, Hq, Hkv, D = TRAIN_B, TRAIN_S, g.n_heads, g.n_kv_heads, g.hd
+    q, k, v = (randn(B, S, h, D).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+    zH = z.n_kv_heads                       # zamba2's sites: G = 1
+    zq, zk, zv = (randn(B, S, h, z.hd).transpose(1, 2)
+                  for h in (z.n_heads, zH, zH))
+    T, d, f = B * S, g.d_model, g.d_ff
+    x = randn(T, d)
+    ws = [randn(d), randn(d, f, std=d ** -0.5), randn(d, f, std=d ** -0.5),
+          randn(f, d, std=f ** -0.5)]
+    b, h, p, n = TRAIN_B, z.ssm_heads, z.ssm_head_dim, z.ssm_state
+    sx = randn(b, S, h, p)
+    sdt = torch.rand(b, S, h, device="cuda", generator=gen) * 0.19 + 0.01
+    sA = -(torch.rand(h, device="cuda", generator=gen) * 1.5 + 0.5)
+    sB, sC = randn(b, S, z.ssm_groups, n), randn(b, S, z.ssm_groups, n)
+    sargs = (sx, sdt, sA, sB, sC)
+    chunk = z.ssm_chunk
+    pl = tc_plan(T, f, sm_count(0))
+    print(json.dumps({"fused_mlp.tc plan": {"T": T, "d": d, "f": f,
+                                            "mt": pl.mt, "fs": pl.fs,
+                                            "nsplit": pl.nsplit,
+                                            "partial_bytes":
+                                                pl.nsplit * T * d * 4}}),
+          flush=True)
+    check(mlp_route(bf16, T, d, f) == "tc", "fused_mlp at T=4096: not tc")
+    cases = [
+        ("flash_attention.tc", f"train granite B={B} S={S}",
+         lambda: flash_attention(q, k, v, causal=True),
+         lambda: R.flash_attention_ref(q, k, v, causal=True),
+         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                enable_gqa=True),
+         bound(2 * B * S * D * (2 * Hq + 2 * Hkv),
+               4 * B * Hq * D * S * (S + 1) // 2)),
+        ("flash_attention.tc",
+         f"train zamba2 B={B} S={S} G={z.n_heads // zH}",
+         lambda: flash_attention(zq, zk, zv, causal=True),
+         lambda: R.flash_attention_ref(zq, zk, zv, causal=True),
+         lambda: F.scaled_dot_product_attention(zq, zk, zv, is_causal=True),
+         bound(2 * B * S * z.hd * (2 * z.n_heads + 2 * zH),
+               4 * B * z.n_heads * z.hd * S * (S + 1) // 2)),
+        ("fused_mlp.tc", f"train granite T={T}",
+         lambda: fused_mlp(x, *ws), lambda: R.fused_mlp_ref(x, *ws), None,
+         bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)),
+        ("ssd_scan", f"train zamba2 b={b} s={S}",
+         lambda: ssd_scan(*sargs, chunk=chunk)[0],
+         lambda: R.ssd_ref(*sargs, chunk=chunk)[0], None,
+         ssd_bound(b, S, h, p, z.ssm_groups, n, 2, False)),
+    ]
+    # the scan's final state, float32, against its plain version
+    compare_close(torch, "ssd_scan[train zamba2] final state",
+                  ssd_scan(*sargs, chunk=chunk)[1],
+                  R.ssd_ref(*sargs, chunk=chunk)[1], LM_F32_TOL)
+    rows = time_cases(torch, timer, smi, cases, LM_PATH_TOL)
+    cublas = lambda: (F.silu((hh := F.rms_norm(x, (d,), ws[0], 1e-6))
+                             @ ws[1]) * (hh @ ws[2])) @ ws[3]
+    compare_close(torch, "cuBLAS composition [train T=4096]", cublas(),
+                  R.fused_mlp_ref(x, *ws), LM_PATH_TOL)
+    rows[2]["cublas_bf16_ms"] = timer(cublas)
+    # each Function's backward: the plain version recomputed and
+    # differentiated, for every input (not on the main path's counts)
+    fns = {
+        "flash_attention": (AG.FlashAttentionFn,
+                            (q, k, v, None, True, None), 3),
+        "fused_mlp": (AG.FusedMlpFn, (x, *ws, 1e-6), 5),
+        "ssd_scan": (AG.SsdScanFn, (*sargs, chunk, None), 5)}
+    for row, (fn, args, n_in) in zip((rows[0], *rows[2:]), fns.values()):
+        ins = [a.detach().requires_grad_(True) if i < n_in else a
+               for i, a in enumerate(args)]
+        with torch.enable_grad():
+            out = fn.apply(*ins)
+            y = out[0] if isinstance(out, tuple) else out
+            gy = torch.randn_like(y)
+            row["backward_ms"] = timer(lambda: torch.autograd.grad(
+                y, ins[:n_in], gy, retain_graph=True))
+        row["backward"] = "plain version, recomputed"
+        del out, y, gy, ins
+    return rows
+
+
+def trainer_resume(torch, smi: str, seed: int) -> dict:
+    """The tiny preset (float32, the CUDA-core routes) through
+    ``Trainer``: 4 steps with checkpoints at 2 and 4; the step-4
+    checkpoint is removed (a run lost after its fourth step) and a fresh
+    ``Trainer`` on the directory resumes at step 2 and repeats steps 3-4:
+    equal losses (max abs 0).  Then the kernel-route gradients against
+    impl="ref" within TINY_GRAD_REL."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = ModelConfig(**TINY)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=128,
+                       global_batch=8, seed=seed)
+    opt = AdamWConfig(lr_peak=3e-3, warmup_steps=2, decay_steps=4)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tcfg = TrainerConfig(total_steps=4, ckpt_every=2, ckpt_dir=ckpt,
+                             log_every=2, seed=seed, device="cuda")
+        counters = {"flash_attention": flash_attention,
+                    "fused_mlp": fused_mlp}
+        reset_train_counts(counters)
+        first = [h["loss"] for h in Trainer(cfg, opt, tcfg, data).run()]
+        launches = read_train_counts(counters)
+        check_train_counts("tiny Trainer", launches, train_counts(cfg),
+                           "simt", 4)
+        shutil.rmtree(os.path.join(ckpt, "step_00000004"))
+        again = Trainer(cfg, opt, tcfg, data)
+        check(again.step == 2, f"resumed at step {again.step}, not 2")
+        resumed = [h["loss"] for h in again.run()]
+        diff = max(abs(a - b) for a, b in zip(resumed, first[2:]))
+        check(len(resumed) == 2 and diff == 0.0,
+              f"resumed losses {resumed} vs {first[2:]}")
+        params = again.state["params"]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch(4).items()}
+    _, _, gk = loss_and_grads(torch, M, cfg, params, batch)
+    _, _, gr = loss_and_grads(
+        torch, M, dataclasses.replace(cfg, attn_impl="ref"), params, batch)
+    wiring = compare_grads(torch, "tiny", gk, gr, TINY_GRAD_REL)
+    row = {"training": "trainer resume", "config": cfg.name, "card": smi,
+           "losses": first, "resumed": resumed, "resume_max_abs": diff,
+           **wiring}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def training_phase(torch, timer, smi: str, seed: int) -> list[dict]:
+    """Phase 13; returns the training rows' entries of the kernels
+    line."""
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 12's models are gone
+    torch.cuda.empty_cache()
+    split, by_arch = {}, {}
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        by_arch[arch] = train_full(torch, smi, seed, arch)
+        split[arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer_resume(torch, smi, seed)
+    split["trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = train_kernel_rows(torch, timer, smi, seed)
+    split["kernels"] = time.perf_counter() - t0
+    print(json.dumps({"training": "phase 13", "split_s": split,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    # each row's launches: its model's 5 timed steps (granite's attention
+    # and MLP, zamba2's attention and scan)
+    g, z = by_arch["granite_3_2b"], by_arch["zamba2_1p2b"]
+    return kernel_entries(rows, {
+        "flash_attention.tc": g["flash_attention.tc"],
+        ("flash_attention.tc", rows[1]["shape"]): z["flash_attention.tc"],
+        "fused_mlp.tc": g["fused_mlp.tc"], "ssd_scan": z["ssd_scan"]})
 
 
 # ----------------------------------------------------------------------

@@ -18,12 +18,19 @@ choice is a config knob (``ModelConfig.attn_impl``).
 
 ``ssd`` departs from the reference too: its Pallas route refuses
 ``init_state``; the port's kernel starts from it, on both routes.
+
+Training: where the kernel runs, grad mode is on and some input
+requires a gradient, ``attention``, ``mlp`` and ``ssd`` go through the
+``torch.autograd.Function`` of :mod:`repro_torch.kernels.autograd`
+(the kernel forward, the plain version's backward); every other call,
+serving's included, launches the kernel as before.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import DeviceUnavailableError
+from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import (decode_attention as
                                                   _decode_kernel)
@@ -58,6 +65,8 @@ def attention(q, k, v, bias=None, causal=True, impl: str = "auto",
               scale=None):
     """q: (B, Hq, Sq, Dk); k: (B, Hkv, Sk, Dk); v: (B, Hkv, Sk, Dv)."""
     if uses_kernel(impl, q):
+        if _ag.needs_grad(q, k, v, bias):
+            return _ag.FlashAttentionFn.apply(q, k, v, bias, causal, scale)
         return _flash_kernel(q, k, v, bias=bias, causal=causal, scale=scale)
     return _ref.flash_attention_ref(q, k, v, bias=bias, causal=causal,
                                     scale=scale)
@@ -76,7 +85,10 @@ def mlp(x, w_norm, w_gate, w_up, w_down, eps: float = 1e-6,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if uses_kernel(impl, x):
-        y = _mlp_kernel(x2, w_norm, w_gate, w_up, w_down, eps=eps)
+        if _ag.needs_grad(x2, w_norm, w_gate, w_up, w_down):
+            y = _ag.FusedMlpFn.apply(x2, w_norm, w_gate, w_up, w_down, eps)
+        else:
+            y = _mlp_kernel(x2, w_norm, w_gate, w_up, w_down, eps=eps)
     else:
         y = _ref.fused_mlp_ref(x2, w_norm, w_gate, w_up, w_down, eps=eps)
     return y.reshape(*lead, x.shape[-1])
@@ -92,6 +104,8 @@ def ssd(x, dt, A, B, C, chunk: int = 64, impl: str = "auto",
     from ``init_state`` (zeros when None).
     """
     if uses_kernel(impl, x):
+        if _ag.needs_grad(x, dt, A, B, C, init_state):
+            return _ag.SsdScanFn.apply(x, dt, A, B, C, chunk, init_state)
         return _ssd_kernel(x, dt, A, B, C, chunk=chunk,
                            init_state=init_state)
     return _ref.ssd_ref(x, dt, A, B, C, chunk=chunk, init_state=init_state)

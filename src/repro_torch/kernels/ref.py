@@ -5,14 +5,22 @@ Each ``*_ref`` function defines what its Hopper kernel computes.  The
 kernels' wrappers run them for CPU tensors, the models run them with
 ``impl="ref"``, and ``chip_smoke.py`` holds each kernel against its plain
 version on the card.  They follow ``repro.kernels.ref`` op for op, except
-where a docstring says otherwise.  The SSD scan's versions come with the
-SSM slice.
+where a docstring says otherwise.  They compute in float32 (float64
+for float64 inputs, which lets ``torch.autograd.gradcheck`` hold the
+training path's backward, ``kernels/autograd.py``, to them).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+def _acc(*tensors: torch.Tensor | None) -> torch.dtype:
+    """The type the plain versions compute in: float32, or float64 when
+    an input is float64."""
+    return (torch.float64 if any(t is not None and t.dtype == torch.float64
+                                 for t in tensors) else torch.float32)
+
 
 __all__ = ["rmsnorm_ref", "flash_attention_ref", "decode_attention_ref",
            "fused_mlp_ref", "ssd_scan_ref", "ssd_sequential_ref", "ssd_ref"]
@@ -46,17 +54,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k = _repeat_kv(k, Hq // Hkv)
     v = _repeat_kv(v, Hq // Hkv)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * scale
+    acc = _acc(q, k, v)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     if bias is not None:
-        logits = logits + bias[:, None, None, :].to(torch.float32)
+        logits = logits + bias[:, None, None, :].to(acc)
     if causal:
         Sk = k.shape[2]
         qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
         ki = torch.arange(Sk, device=q.device)[None, :]
         logits = torch.where(ki <= qi, logits, -torch.inf)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(acc))
     return out.to(q.dtype)
 
 
@@ -85,13 +93,14 @@ def fused_mlp_ref(x: torch.Tensor, w_norm: torch.Tensor,
     version rounds them to x's type first.  In float32 the two agree; in
     bfloat16 they differ by that one rounding.
     """
-    xf = x.to(torch.float32)
+    acc = _acc(x, w_norm, w_gate, w_up, w_down)
+    xf = x.to(acc)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    h = xf * torch.rsqrt(var + eps) * w_norm.to(torch.float32)
-    g = h @ w_gate.to(torch.float32)
-    u = h @ w_up.to(torch.float32)
+    h = xf * torch.rsqrt(var + eps) * w_norm.to(acc)
+    g = h @ w_gate.to(acc)
+    u = h @ w_up.to(acc)
     a = torch.nn.functional.silu(g) * u
-    return (a @ w_down.to(torch.float32)).to(x.dtype)
+    return (a @ w_down.to(acc)).to(x.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -112,10 +121,11 @@ def _heads(t: torch.Tensor, rep: int) -> torch.Tensor:
     return torch.repeat_interleave(t, rep, dim=2) if rep > 1 else t
 
 
-def _init(init_state, b, h, p, n, device) -> torch.Tensor:
+def _init(init_state, b, h, p, n, device, acc=torch.float32
+          ) -> torch.Tensor:
     if init_state is None:
-        return torch.zeros((b, h, p, n), dtype=torch.float32, device=device)
-    return init_state.to(torch.float32)
+        return torch.zeros((b, h, p, n), dtype=acc, device=device)
+    return init_state.to(acc)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -135,7 +145,7 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
     nc = s // chunk
     rep = h // g
-    f32 = torch.float32
+    f32 = _acc(x, dt, A, B, C, init_state)
     xc = x.reshape(b, nc, chunk, h, p).to(f32)
     dtc = dt.reshape(b, nc, chunk, h).to(f32)
     Bc = _heads(B, rep).reshape(b, nc, chunk, h, n).to(f32)
@@ -155,7 +165,7 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # 3. cross-chunk recurrence, emitting the state before each chunk
     chunk_decay = torch.exp(dA_cum[..., -1])                # (b,c,h)
-    carry = _init(init_state, b, h, p, n, x.device)
+    carry = _init(init_state, b, h, p, n, x.device, f32)
     prev = []
     for c in range(nc):
         prev.append(carry)

@@ -35,10 +35,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ParamDef", "init_tree", "rmsnorm", "rope", "embed_tokens",
-           "unembed", "attn_defs", "attention_block", "mla_defs",
-           "mla_attention_block", "mlp_defs", "mlp_block", "moe_defs",
-           "moe_route", "moe_block", "ExpertChoices", "expert_choices",
-           "decode_attn_cache", "mamba2_defs",
+           "unembed", "softmax_cross_entropy", "attn_defs",
+           "attention_block", "mla_defs", "mla_attention_block",
+           "mlp_defs", "mlp_block", "moe_defs", "moe_route", "moe_block",
+           "ExpertChoices", "expert_choices", "active_choices",
+           "recomputing", "decode_attn_cache", "mamba2_defs",
            "mamba2_block", "mamba2_decode_step"]
 
 
@@ -130,6 +131,15 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """Logits in float32, as the reference computes them."""
     return x.to(torch.float32) @ head.to(torch.float32)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """logsumexp minus the gold logit, in the logits' type (float32 as
+    :func:`unembed` gives them).  labels: integer, >= 0."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return lse - gold
 
 
 # ----------------------------------------------------------------------
@@ -472,6 +482,12 @@ def moe_route(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return h, gates, topw, tope
 
 
+def _renormalised(gates: torch.Tensor, experts: torch.Tensor) -> torch.Tensor:
+    """The gates of ``experts``, renormalised to sum 1."""
+    w = gates.gather(-1, experts)
+    return w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
 class ExpertChoices:
     """What :func:`expert_choices` yields: ``chosen`` holds each
     ``moe_block`` call's own router choices (B, S, K), best first, in
@@ -481,19 +497,37 @@ class ExpertChoices:
 
     def __init__(self, replay: list | None = None):
         self.chosen: list[torch.Tensor] = []
-        self._replay = None if replay is None else iter(replay)
+        self.replay = replay
 
     def take(self, gates: torch.Tensor, topw: torch.Tensor,
              tope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         self.chosen.append(tope)
+        if self.replay is None:
+            return topw, tope
+        forced = self.replay[len(self.chosen) - 1]
+        return _renormalised(gates, forced), forced
+
+
+class _Recompute:
+    """Stands in for the :class:`ExpertChoices` of an ``expert_choices``
+    block while a checkpoint recomputes a layer: the same operations as
+    the layer's first pass, recording nothing.  Its calls replay
+    ``replay`` (the entries the first pass replayed) or, where the first
+    pass took its own router's choices, take them again (the recompute
+    gives the same)."""
+
+    def __init__(self, replay: list | None):
+        self._replay = None if replay is None else iter(replay)
+
+    def take(self, gates: torch.Tensor, topw: torch.Tensor,
+             tope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if self._replay is None:
             return topw, tope
-        forced = next(self._replay)
-        topw = gates.gather(-1, forced)
-        return topw / topw.sum(-1, keepdim=True).clamp_min(1e-9), forced
+        tope = next(self._replay)
+        return _renormalised(gates, tope), tope
 
 
-_CHOICES: ExpertChoices | None = None     # set only by expert_choices
+_CHOICES: ExpertChoices | _Recompute | None = None   # set by the two below
 
 
 @contextlib.contextmanager
@@ -503,7 +537,9 @@ def expert_choices(replay: list | None = None) -> Iterator[ExpertChoices]:
     takes the recorded choices of another run instead: to compare two
     routes of one model on the same expert choices, and to count how
     often their own routers differ.  An eager-only instrument: a CUDA
-    graph replays whatever its capture recorded."""
+    graph replays whatever its capture recorded.  Under ``remat`` a
+    layer's recompute takes what its first pass took
+    (``models/model.py``'s ``_remat``, :func:`recomputing`)."""
     global _CHOICES
     outer, _CHOICES = _CHOICES, ExpertChoices(replay)
     try:
@@ -512,13 +548,57 @@ def expert_choices(replay: list | None = None) -> Iterator[ExpertChoices]:
         _CHOICES = outer
 
 
+def active_choices() -> ExpertChoices | None:
+    """The :class:`ExpertChoices` of the innermost ``expert_choices``
+    block, if any (None during a recompute)."""
+    return _CHOICES if isinstance(_CHOICES, ExpertChoices) else None
+
+
+@contextlib.contextmanager
+def recomputing(replay: list | None) -> Iterator[None]:
+    """Within the ``with``, ``moe_block`` calls repeat a layer's first
+    pass under ``expert_choices`` (see :class:`_Recompute`) and record
+    nothing."""
+    global _CHOICES
+    outer, _CHOICES = _CHOICES, _Recompute(replay)
+    try:
+        yield
+    finally:
+        _CHOICES = outer
+
+
+class _ExpertMatmul(torch.autograd.Function):
+    """``torch.bmm(a, w, out_dtype=torch.float32)`` with a backward (the
+    op has no derivative): the float32 products that the CPU route's
+    autograd forms, each gradient cast to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.bmm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        f32 = torch.float32
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, w.to(f32).transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.bmm(a.to(f32).transpose(1, 2), g).to(w.dtype)
+        return ga, gw
+
+
 def _expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, M, k) @ (E, k, n) with float32 sums and a float32 result, as
     the reference's ``preferred_element_type=float32``: bf16 operands
     keep their type on the card; on the CPU (no ``bmm`` with an
     ``out_dtype`` there) they are upcast, and a bf16 product is exact in
-    float32, so the two differ only in the order of the sums."""
+    float32, so the two differ only in the order of the sums.  A
+    training call on the card goes through :class:`_ExpertMatmul`."""
     if a.is_cuda:
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            return _ExpertMatmul.apply(a, w)
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.to(torch.float32), w.to(torch.float32))
 

@@ -9,6 +9,11 @@ Public API (plain functions over dicts of tensors):
   prefill(params, cfg, tokens, cache, enc_embeds=, extra_embeds=)
                                            fill the cache, last-position logits
   decode_step(params, cfg, token, cache)   one token for every sequence
+  forward(params, cfg, tokens, extra_embeds=, enc_embeds=)
+                                           logits, aux (training / scoring)
+  loss_fn(params, cfg, batch)              scalar + metrics
+  from_jax_train_state(cfg, state_np, device) / to_numpy(tree)
+                                           train states across the packages
 
 The parameters keep the reference's layout: every block parameter is
 stacked on a leading layer axis, and the layers run as a Python loop
@@ -19,24 +24,35 @@ are ported: ``dense`` (with MLA attention: minicpm3), ``moe``
 ``encdec`` (whisper: a non-causal encoder over ``enc_embeds``, then
 cross-attention in every decoder block to K and V projected from its
 output, which the cache keeps as ``enc_out``) and ``vlm`` (internvl2:
-``extra_embeds`` prepended to the prompt's embeddings).  The training
-path (``loss_fn``) raises :class:`~repro_torch.device.NotPortedError`.
-Caches are updated in place.
+``extra_embeds`` prepended to the prompt's embeddings).  Caches are
+updated in place.
+
+Training (``forward``, ``loss_fn``) runs every family without a cache,
+each layer under ``cfg.remat`` (:func:`_remat`): ``"none"``; ``"full"``,
+``torch.utils.checkpoint`` per layer; ``"dots"``, the same with the
+outputs of matrix products without a batch dim (``aten.mm``) saved, as
+the reference's ``dots_with_no_batch_dims_saveable``.  The stacked block
+parameters are unbound once per forward, so the backward stacks each
+leaf's gradient in one op.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.kernels.autograd import needs_grad
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import tree_leaves
 
-__all__ = ["param_defs", "init", "from_jax_params", "loss_fn",
-           "init_cache", "prefill", "decode_step", "torch_dtype",
-           "L_cross_kv"]
+__all__ = ["param_defs", "init", "from_jax_params", "from_jax_train_state",
+           "to_numpy", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step", "torch_dtype", "L_cross_kv"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -119,22 +135,50 @@ def from_jax_params(cfg: ModelConfig, params_np: Mapping,
     bfloat16 arrays are read through an int16 view by their dtype's name,
     so this needs neither JAX nor ``ml_dtypes``.
     """
+    return _carry(param_defs(cfg), params_np, resolve_device(device), ())
+
+
+def _carry(d, p, dev: torch.device, path: tuple) -> Any:
+    """``p`` (numpy) as tensors on ``dev``, checked against the ParamDef
+    tree ``d``."""
+    if isinstance(d, L.ParamDef):
+        t = _from_numpy(p, dev)
+        if tuple(t.shape) != d.shape:
+            raise ValueError(f"{'/'.join(path)}: shape "
+                             f"{tuple(t.shape)}, expected {d.shape}")
+        return t
+    if set(d) != set(p):
+        raise ValueError(f"{'/'.join(path) or 'params'}: keys "
+                         f"{sorted(p)}, expected {sorted(d)}")
+    return {k: _carry(d[k], p[k], dev, path + (k,)) for k in d}
+
+
+def from_jax_train_state(cfg: ModelConfig, state_np: Mapping,
+                         device=None) -> dict:
+    """The reference's train state ``{"params", "opt": {"master", "m",
+    "v", "step"}, "ef"?}`` as numpy (``jax.tree.map(np.asarray, state)``)
+    as the port's (:mod:`repro_torch.optim.adamw`): the same tree, bit
+    for bit, ``step`` an int32 scalar."""
     dev = resolve_device(device)
     defs = param_defs(cfg)
+    opt = state_np["opt"]
+    state = {"params": _carry(defs, state_np["params"], dev, ("params",)),
+             "opt": {k: _carry(defs, opt[k], dev, ("opt", k))
+                     for k in ("master", "m", "v")}}
+    state["opt"]["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32, device=dev)
+    if "ef" in state_np:
+        state["ef"] = _carry(defs, state_np["ef"], dev, ("ef",))
+    return state
 
-    def carry(d, p, path):
-        if isinstance(d, L.ParamDef):
-            t = _from_numpy(p, dev)
-            if tuple(t.shape) != d.shape:
-                raise ValueError(f"{'/'.join(path)}: shape "
-                                 f"{tuple(t.shape)}, expected {d.shape}")
-            return t
-        if set(d) != set(p):
-            raise ValueError(f"{'/'.join(path) or 'params'}: keys "
-                             f"{sorted(p)}, expected {sorted(d)}")
-        return {k: carry(d[k], p[k], path + (k,)) for k in d}
 
-    return carry(defs, params_np, ())
+def to_numpy(tree: Any) -> Any:
+    """A tree of tensors as numpy on the host: bfloat16 as float32 (exact),
+    every other type as it is."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {k: to_numpy(v) for k, v in tree.items()}
 
 
 # ----------------------------------------------------------------------
@@ -183,13 +227,17 @@ def _run_blocks(params, cfg, x, pos, cache=None, index=None,
 
 
 def _encode(params, cfg, enc_embeds):
-    """whisper's encoder: non-causal dense blocks over the frames, then
-    the final norm.  (B, Senc, d) in the config's type."""
+    """whisper's encoder: non-causal dense blocks over the frames, each
+    under ``cfg.remat`` when it trains, then the final norm.  (B, Senc,
+    d) in the config's type."""
     x = enc_embeds.to(torch_dtype(cfg.dtype))
     pos = torch.arange(x.shape[1], device=x.device)
+    blocks = _unbind(params["enc_blocks"])
+    run = _remat(lambda x, i: _dense_block(blocks[i], cfg, x, pos,
+                                           causal=False)[0],
+                 cfg, _trains(params, x))
     for i in range(cfg.n_enc_layers):
-        x, _, _ = _dense_block(_layer(params["enc_blocks"], i), cfg, x, pos,
-                               causal=False)
+        x = run(x, i)
     return L.rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -206,15 +254,17 @@ def L_cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _maybe_shared_attn(cfg, params, x, pos, i, attn_cache, cache_index):
+def _maybe_shared_attn(cfg, params, x, pos, i, attn_cache=None,
+                       cache_index=None):
     """The hybrid's shared attention + MLP, at layers ``i`` with
     ``i % attn_every == attn_every - 1``; site ``i // attn_every`` of
-    the cache."""
+    the cache (none on the training forward)."""
     k = cfg.attn_every
     if i % k != k - 1:
         return x
-    x, _ = L.attention_block(params["shared_attn"], cfg, x, pos,
-                             _layer(attn_cache, i // k), cache_index)
+    site = None if attn_cache is None else _layer(attn_cache, i // k)
+    x, _ = L.attention_block(params["shared_attn"], cfg, x, pos, site,
+                             cache_index)
     return L.mlp_block(params["shared_mlp"], cfg, x)
 
 
@@ -242,9 +292,146 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def loss_fn(params, cfg, batch):
-    """The training path comes with a later slice."""
-    raise NotPortedError("loss_fn (the training path) is not ported yet")
+# ----------------------------------------------------------------------
+# forward (training / scoring; no cache)
+# ----------------------------------------------------------------------
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products without a batch dim (the
+    reference's ``dots_with_no_batch_dims_saveable``); recompute the
+    rest, the kernels' forwards among them."""
+    if op is torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _trains(params: dict, x: torch.Tensor) -> bool:
+    """Whether a forward over ``params`` from ``x`` is recorded for a
+    backward: grad mode on, and ``x`` or a parameter requires a
+    gradient."""
+    return needs_grad(x, *tree_leaves(params))
+
+
+def _remat(fn, cfg: ModelConfig, trains: bool):
+    """``fn`` (one layer) under ``cfg.remat``: ``"none"`` as it is;
+    ``"full"`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``); ``"dots"`` the same, with the products
+    of :func:`_dots_policy` saved.  Unless it ``trains``
+    (:func:`_trains`), ``fn``: serving runs no checkpoint.
+
+    Inside an ``expert_choices`` block the recompute repeats the
+    layer's first pass (:func:`L.recomputing`): a replay stays aligned
+    and nothing is recorded twice.  (A checkpoint with a policy insists
+    on the same operations in the recompute.)"""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not trains:
+        return fn
+    kw: dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        choices = L.active_choices()
+        if choices is None:
+            return _ckpt.checkpoint(fn, *args, **kw)
+        start, taken = len(choices.chosen), []
+
+        def body(*a):
+            if taken:                  # the recompute
+                replay = (None if choices.replay is None
+                          else choices.replay[start:start + taken[0]])
+                with L.recomputing(replay):
+                    return fn(*a)
+            out = fn(*a)
+            taken.append(len(choices.chosen) - start)
+            return out
+        return _ckpt.checkpoint(body, *args, **kw)
+    return run
+
+
+def _unbind(tree: Any) -> list:
+    """A tree of stacked (layers, ...) tensors as one tree per layer."""
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    per = {k: _unbind(v) for k, v in tree.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _train_blocks(params, cfg, x, pos, enc_out=None):
+    """The training forward's layer loop, no cache, each layer under
+    ``cfg.remat``.  Returns (x, aux): aux the mean of the layers'
+    load-balance losses (0 for the ssm and hybrid families), as the
+    reference's ``_run_blocks``."""
+    blocks = _unbind(params["blocks"])
+    cross = (_unbind(params["cross_blocks"]) if cfg.family == "encdec"
+             else None)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(x, i):
+        if cfg.family in ("ssm", "hybrid"):
+            x = L.mamba2_block(blocks[i]["mamba"], cfg, x)
+            if cfg.family == "hybrid":
+                x = _maybe_shared_attn(cfg, params, x, pos, i)
+            return x, zero
+        x, _, aux = _dense_block(blocks[i], cfg, x, pos)
+        if cross is not None:
+            x, _ = L.attention_block(
+                cross[i], cfg, x, pos,
+                cross_kv=L_cross_kv(cross[i], cfg, enc_out), causal=False)
+        return x, aux
+
+    run = _remat(layer, cfg, _trains(params, x))
+    auxs = []
+    for i in range(cfg.n_layers):
+        x, aux = run(x, i)
+        auxs.append(aux)
+    if cfg.family in ("ssm", "hybrid") or not auxs:
+        return x, zero
+    return x, torch.stack(auxs).mean()
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            extra_embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S_text).  extra_embeds: (B, S_vis, d), a vision prefix
+    (vlm).  enc_embeds: (B, S_enc, d), the encoder's frames (encdec).
+    Returns (logits (B, S_total, V) float32, aux float32)."""
+    x = L.embed_tokens(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    pos = torch.arange(x.shape[1], device=x.device)
+    enc_out = None
+    if cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                             f"enc_embeds, the encoder's frames")
+        enc_out = _encode(params, cfg, enc_embeds)
+    x, aux = _train_blocks(params, cfg, x, pos, enc_out=enc_out)
+    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return L.unembed(x, _head(params, cfg)), aux
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: Mapping
+            ) -> tuple[torch.Tensor, dict]:
+    """batch: tokens (B, S), labels (B, S) (-1 = ignore), optionally
+    extra_embeds / enc_embeds.  Returns (total, {"loss", "aux",
+    "tokens"}): the mean cross entropy over the labelled positions (a
+    vlm's prefix dropped), plus ``router_aux_loss`` x aux."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          extra_embeds=batch.get("extra_embeds"),
+                          enc_embeds=batch.get("enc_embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:     # vlm: drop the prefix
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    mask = (labels >= 0).to(torch.float32)
+    ce = L.softmax_cross_entropy(logits, labels.clamp_min(0))
+    loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    total = loss + cfg.router_aux_loss * aux
+    return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
 Every ``repro_torch`` module and everything ``chip_smoke.py`` imports
-must load in a process where importing ``jax`` fails, and must leave no
-``repro`` module behind.  Entry points default to the card and raise
+must load in a process where importing ``jax`` or ``ml_dtypes`` fails,
+and must leave no ``repro`` module behind.  Entry points default to the card and raise
 without one.
 """
 from __future__ import annotations
@@ -33,6 +33,7 @@ SRC = ROOT / "src"
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["ml_dtypes"] = None    # the card's machine has no ml_dtypes
 sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
 import repro_torch
@@ -47,7 +48,8 @@ for line in chip_smoke_src.splitlines():
     if line.startswith(("import repro_torch", "from repro_torch")):
         exec(line)
 bad = sorted(m for m, mod in sys.modules.items()
-             if m.split(".")[0] in ("repro", "jax") and mod is not None)
+             if m.split(".")[0] in ("repro", "jax", "ml_dtypes")
+             and mod is not None)
 print("modules", len(names))
 print("bad", bad)
 """
