@@ -149,8 +149,8 @@ no result line) on any error:
    columns of each row, read once) and the MLP at d 2560, f 6400 (T = 4
    on its decode route, 17-255 on its tensor-core route); then serves
    each model at full width and depth (random weights from ``--seed``)
-   as phase 5 serves granite (granite-moe 8 requests x 32 tokens,
-   minicpm3 4 x 16; graph and eager in turns, launch counts exact: flash and decode attention once a layer
+   as phase 5 serves granite (granite-moe and minicpm3 4 requests x 16
+   tokens; graph and eager in turns, launch counts exact: flash and decode attention once a layer
    per prefill and per step, minicpm3's on the latent instance, its MLP
    on the tensor-core and decode routes), prints a ``serving_profile``
    line (wall and device ms a step from an unprofiled and a profiled
@@ -195,7 +195,7 @@ no result line) on any error:
    error against float32, its spread, up to 0.12), the kernel route's
    own bf16 error against float32 within 1.15 x the spread + 2e-3, and
    the same in float32 within 1e-3; then 1
-   + 5 steps through ``make_train_step`` with AdamW: exact launches a
+   + 3 steps through ``make_train_step`` with AdamW: exact launches a
    step (each kernel twice a layer, remat's recompute, and one plain
    backward), finite losses, the step counter; step ms (CUDA events,
    median), one step split into forward, backward and optimizer,
@@ -205,7 +205,30 @@ no result line) on any error:
    then the three kernels at their training shapes against their plain
    versions, bounds and yardsticks, with each Function's plain backward
    timed;
-14. prints the ``kernels`` line; each route of flash and the MLP has its
+14. model parallelism (``repro_torch.parallel``, the sharded steps) on
+   one card standing for a mesh (distinct cards where the host has
+   them): (a) ``ring_allgather_matmul`` / ``ring_matmul_reducescatter``
+   on a 4-way ``model`` axis at granite's MLP, x (4096, 2048) @ w (2048,
+   8192) float32, within 1e-5 * max|x @ w|, timed beside one ``x @ w``
+   and their copies' byte bound; (b) ``pipeline_apply``, 4 stages of 10
+   granite-3-2b layers (``_dense_block``: flash and the MLP), 4
+   microbatches of 2 x 128, within 8e-3 * max|ref| of the 40 layers in
+   order on each microbatch (and 5e-2 of them over the whole batch), 7
+   stage calls a stage, timed against the 40 layers in order; (c) the
+   sharded train step, granite-3-2b at full width and depth on a 2 x 2
+   mesh, 8 x 512: its first step against the unsharded step from the
+   same seed and batch (loss within 1e-3 relative, every bf16 leaf within
+   1e-2 max abs and finite), each position's resident state equal to
+   its spec's share, exact launches (each data shard's forward twice a
+   layer and one plain backward), then 3 steps timed beside the
+   unsharded step, tokens/s, peak memory; (d) sharded serving on the
+   2 x 2 mesh, 4 slots x 512: a prefill of 128 tokens and 15 decode
+   steps through ``make_prefill_step`` / ``make_decode_step(mesh=)``, the
+   decode one CUDA graph, logits within 8e-3 * max|logits| of the
+   unsharded steps on each data shard's slots and within 5e-2 of them
+   over all slots, exact launches, the captured sharded and unsharded
+   steps in turns; then the kernels at the sharded paths' shapes;
+15. prints the ``kernels`` line; each route of flash and the MLP has its
    own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
    each served app its ``stream_group_b8[...]``, each tuned app its
    ``stream_group.tuned[...]``, each replicated app and k its
@@ -219,7 +242,10 @@ no result line) on any error:
    (``flash_attention.tc[train granite B=8 S=512]``,
    ``flash_attention.tc[train zamba2 B=8 S=512 G=1]``,
    ``fused_mlp.tc[train granite T=4096]``,
-   ``ssd_scan[train zamba2 b=8 s=512]``).
+   ``ssd_scan[train zamba2 b=8 s=512]``), phase 14's theirs
+   (``flash_attention.tc[train granite mesh=2x2 B=4 S=512]``,
+   ``fused_mlp.tc[pipeline granite stage T=256]``,
+   ``decode_attention[granite mesh=2x2 B=2 len=512]``, ...).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -544,6 +570,9 @@ def main() -> int:
     # -- phase 13: training, granite-3-2b and zamba2-1.2b ----------------
     lm_entries += training_phase(torch, timer, smi, args.seed)
 
+    # -- phase 14: model parallelism, granite-3-2b on a 2 x 2 mesh -------
+    lm_entries += model_parallel_phase(torch, timer, smi, args.seed)
+
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -707,7 +736,7 @@ def step_clock(torch, reps: int = 5):
 
 # the step's wall time, graph against eager: rounds in turns, and the
 # slots' lengths for them
-STEP_ROUNDS = 6
+STEP_ROUNDS = 4                  # 6 before phase 14, for the time budget
 STEP_LENGTHS = (17, 130, 301, 500)
 
 
@@ -1293,8 +1322,13 @@ MLA_LOGIT_TOL = 6e-2
 MOE_LOGIT_TOL = 5e-2
 # requests x new tokens served, and the request teacher-forced: minicpm3's
 # eager step is the slowest of the script (about 150 ms), so it serves 4
-# requests of 16 tokens, as zamba2 does in phase 6
-MOE_SERVE, MLA_SERVE = (8, NEW_TOKENS, 0), (4, 16, 3)
+# requests of 16 tokens, as zamba2 does in phase 6; granite-moe too since
+# phase 14 (8 x 32 before), for the script's time budget
+MOE_SERVE, MLA_SERVE = (4, 16, 0), (4, 16, 3)
+# decode steps in each of a serving_profile line's windows (timed, then
+# profiled), here and in phase 12: 5 since phase 14, for the time budget
+# (tools/serve_profile.py's own default is 10)
+PROFILE_STEPS = 5
 
 
 def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
@@ -1499,7 +1533,8 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
         # device ms, idle share and launches of the captured step, from
         # an unprofiled window and a profiled one
         summary, _ = profile_decode(torch, cfg, params,
-                                    np.random.default_rng(seed), smi)
+                                    np.random.default_rng(seed), smi,
+                                    PROFILE_STEPS)
         print(json.dumps({"serving_profile": cfg.name, **{
             k: v for k, v in summary.items() if k != "profile"}}),
             flush=True)
@@ -1686,7 +1721,8 @@ def frontend_serving(torch, timer, smi: str, seed: int) -> list[dict]:
             torch, arch, cfg, params, seed, counters, smi, t1 - t0)
         t2 = time.perf_counter()
         # device ms, idle share and launches of the captured step
-        summary, _ = profile_lockstep(torch, cfg, params, seed, smi)
+        summary, _ = profile_lockstep(torch, cfg, params, seed, smi,
+                                      PROFILE_STEPS)
         print(json.dumps({"serving_profile": cfg.name, **{
             k: v for k, v in summary.items() if k != "profile"}}),
             flush=True)
@@ -1829,7 +1865,8 @@ def serve_lockstep(torch, arch, cfg, params, seed, counters, smi,
 # ----------------------------------------------------------------------
 TRAIN_ARCHS = ("granite_3_2b", "zamba2_1p2b")
 TRAIN_B, TRAIN_S = 8, 512        # global batch x sequence, SyntheticLM
-TRAIN_STEPS = 5                  # timed, after one warm-up step
+TRAIN_STEPS = 3                  # timed, after one warm-up step (5 before
+                                 # phase 14, cut for the time budget)
 # Kernel route vs impl="ref" on one batch, full width in bf16.  The
 # forward kernels round at other places than the plain versions (one
 # bf16 step is 0.4 %) and the backward recomputes the plain versions
@@ -2327,13 +2364,629 @@ def training_phase(torch, timer, smi: str, seed: int) -> list[dict]:
     split["kernels"] = time.perf_counter() - t0
     print(json.dumps({"training": "phase 13", "split_s": split,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
-    # each row's launches: its model's 5 timed steps (granite's attention
+    # each row's launches: its model's 3 timed steps (granite's attention
     # and MLP, zamba2's attention and scan)
     g, z = by_arch["granite_3_2b"], by_arch["zamba2_1p2b"]
     return kernel_entries(rows, {
         "flash_attention.tc": g["flash_attention.tc"],
         ("flash_attention.tc", rows[1]["shape"]): z["flash_attention.tc"],
         "fused_mlp.tc": g["fused_mlp.tc"], "ssd_scan": z["ssd_scan"]})
+
+
+# ----------------------------------------------------------------------
+# phase 14: model parallelism
+# ----------------------------------------------------------------------
+RING_M, RING_K, RING_N = 4096, 2048, 8192   # granite's MLP, x @ w_gate
+RING_P = 4                       # the model axis of the ring products
+RING_TOL = 1e-5                  # float32, relative to max|x @ w|
+PIPE_STAGES, PIPE_MICRO = 4, 4   # 10 of granite's 40 layers a stage
+PIPE_B, PIPE_S = 8, 128          # hidden states into the pipeline
+# Pipeline vs the 40 layers in order on each microbatch (the same
+# kernel calls at the same shapes, so the schedule is what is held),
+# bf16, relative to max|ref|: two bf16 steps, phase 5's kernel-vs-plain
+# tolerance.  Against the 40 layers over the whole 8-row batch (also the
+# time's yardstick) within phase 5's teacher-forced 5e-2: the MLP's
+# tensor-core plan (its d_ff split) follows T, so the 2-row microbatches
+# round at other points, and 40 bf16 layers carry such differences on
+# like a random walk (the first run read 2.9e-2 x max|ref|).
+PIPE_TOL = 8e-3
+PIPE_REPS = 3                    # host-clock runs a median (a pipeline
+                                 # run is host-bound, ~0.3 s)
+MESH_SHAPE = (2, 2)              # data x model, on the one card
+# Sharded vs unsharded train step, granite at full width, same seed and
+# batch (the data shards' kernel calls at B = 4 round otherwise than at
+# B = 8): the loss and the reduced gradients' norm within 1e-3 relative;
+# each leaf of AdamW's m (0.1 x the clipped gradient after one step)
+# within MP_M_REL x max|ref|; the master weights, which one step moves
+# by about lr whatever the gradient's size, within 2.5 lr, and moved the
+# other way (a difference past lr / 2) on at most MP_MASTER_FLIPS of each
+# leaf's elements.  A dropped or doubled data shard, a piece updated
+# from another's moments, or zeros applied, fails these.  The limits
+# stand at 2-10x the first readings on an H100 (grad_norm 9.5e-5, m
+# 2.18e-2 on blocks.mlp.wu, master 2.002 lr and 0.29 % flipped).  Each
+# bf16 parameter leaf finite and within 1e-2 max abs
+# (tests/test_distribution.py:91-93), a guard of finiteness and shape.
+MP_LOSS_REL = 1e-3
+MP_NORM_REL = 1e-3
+MP_M_REL = 5e-2
+MP_MASTER_FLIPS = 1e-2
+MP_LEAF_ABS = 1e-2
+MP_STEPS = 3                     # timed, after the compared first step
+MP_SLOTS, MP_LEN, MP_PROMPT, MP_NEW = 4, 512, 128, 16
+# Sharded vs unsharded serving, relative to max|logits|: against the
+# unsharded steps run on each data shard's 2 slots alone (the same kernel
+# calls) two bf16 steps, 8e-3; against the unsharded steps over all 4
+# slots phase 5's teacher-forced 5e-2 (the MLP's tensor-core plan follows
+# T, so the prefill's rounding points move, and 40 bf16 layers carry the
+# differences on: the first run read 1.8e-2 x max|logits|).
+MP_LOGIT_TOL = 8e-3
+MP_TURNS = 3                     # captured steps timed in turns
+
+
+def mesh_devices(torch, n: int) -> list:
+    return replica_devices(torch, n)
+
+
+def ring_products(torch, timer, smi: str, seed: int) -> dict:
+    """(a) The two ring products on a 4-way model axis against one x @ w,
+    timed beside it and beside their copies' byte bound."""
+    from repro_torch.parallel.collectives import ring_allgather_shards
+    from repro_torch.parallel.collectives import ring_reducescatter_shards
+    from repro_torch.parallel.sharding import P, NamedSharding, make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    mesh = make_mesh((RING_P,), ("model",),
+                     devices=mesh_devices(torch, RING_P))
+    x = torch.randn(RING_M, RING_K, device="cuda", generator=gen)
+    w = torch.randn(RING_K, RING_N, device="cuda", generator=gen) \
+        * RING_K ** -0.5
+    ref = x @ w
+    scale = float(ref.abs().max())
+    ag_x = NamedSharding(mesh, P("model", None)).shard(x).pieces()
+    ag_w = NamedSharding(mesh, P(None, "model")).shard(w).pieces()
+    rs_x = NamedSharding(mesh, P(None, "model")).shard(x).pieces()
+    rs_w = NamedSharding(mesh, P("model", None)).shard(w).pieces()
+    ag = torch.cat([o.to("cuda") for o in ring_allgather_shards(ag_x, ag_w)],
+                   1)
+    rs = torch.cat([o.to("cuda") for o in
+                    ring_reducescatter_shards(rs_x, rs_w)], 0)
+    torch.cuda.synchronize()
+    ag_err = float((ag - ref).abs().max())
+    rs_err = float((rs - ref).abs().max())
+    check(ag_err <= RING_TOL * scale and rs_err <= RING_TOL * scale,
+          f"ring products vs x @ w: {ag_err:.3e} / {rs_err:.3e} > "
+          f"{RING_TOL} * {scale:.3e}")
+    del ag, rs
+    mb = RING_M // RING_P
+    hops = RING_P - 1
+    ag_bytes = hops * RING_P * mb * RING_K * 4     # x's row blocks
+    rs_bytes = hops * RING_P * mb * RING_N * 4     # the partial sums
+    flops = 2 * RING_M * RING_K * RING_N
+    row = {"model_parallel": "ring products", "mesh": mesh.shape,
+           "devices": [str(d) for d in mesh.distinct_devices],
+           "x": [RING_M, RING_K], "w": [RING_K, RING_N], "dtype": "float32",
+           "allgather_max_abs": ag_err, "reducescatter_max_abs": rs_err,
+           "max_abs_ref": scale,
+           "allgather_ms": timer(lambda: ring_allgather_shards(ag_x, ag_w)),
+           "reducescatter_ms": timer(
+               lambda: ring_reducescatter_shards(rs_x, rs_w)),
+           "matmul_ms": timer(lambda: x @ w),
+           "allgather_copy_bytes": ag_bytes,
+           "reducescatter_copy_bytes": rs_bytes,
+           "allgather_copy_bound_ms": ag_bytes / HBM_BYTES_PER_S * 1e3,
+           "reducescatter_copy_bound_ms": rs_bytes / HBM_BYTES_PER_S * 1e3,
+           "matmul_bound_ms": flops / FP32_OPS_PER_S * 1e3, "card": smi}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def granite_layers(torch, M, cfg, blocks, x, pos, start, n):
+    """Layers [start, start + n) of granite's stacked blocks on x."""
+    for i in range(start, start + n):
+        x = M._dense_block(M._layer(blocks, i), cfg, x, pos)[0]
+    return x
+
+
+def pipeline_granite(torch, timer, smi: str, seed: int, cfg, params,
+                     counters) -> dict:
+    """(b) pipeline_apply over 4 stages of 10 granite layers each, 4
+    microbatches, against the 40 layers in order; the stage calls and the
+    kernels' launches counted."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.parallel.sharding import P, NamedSharding, make_mesh
+    from repro_torch.parallel.sharding import shard_tree
+
+    per = cfg.n_layers // PIPE_STAGES
+    mesh = make_mesh((PIPE_STAGES,), ("stage",),
+                     devices=mesh_devices(torch, PIPE_STAGES))
+    # each stage's 10 layers placed on its device once
+    stacked = shard_tree(
+        tree_map(lambda t: t.reshape(PIPE_STAGES, per, *t.shape[1:]),
+                 params["blocks"]), NamedSharding(mesh, P("stage")))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    x = torch.randn(PIPE_B, PIPE_S, cfg.d_model, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    pos = torch.arange(PIPE_S, device="cuda")
+    calls: dict = {}
+
+    def stage(p, h):
+        key = p["attn"]["wq"].data_ptr()
+        calls[key] = calls.get(key, 0) + 1
+        return granite_layers(torch, M, cfg, p, h, pos, 0, per)
+
+    wall = step_clock(torch, PIPE_REPS)
+    reset_counts(counters)
+    got = pipeline_apply(stage, stacked, x, mesh, PIPE_MICRO)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    steps = PIPE_MICRO + PIPE_STAGES - 1
+    check(len(calls) == PIPE_STAGES and set(calls.values()) == {steps},
+          f"pipeline: stage calls {sorted(calls.values())}, expected "
+          f"{steps} for each of {PIPE_STAGES}")
+    want_l = PIPE_STAGES * steps * per
+    check(launches["flash_attention.tc"] == want_l
+          and launches["fused_mlp.tc"] == want_l,
+          f"pipeline: launches {launches}, expected {want_l} each on tc")
+    mb = PIPE_B // PIPE_MICRO
+    ref = torch.cat([granite_layers(torch, M, cfg, params["blocks"],
+                                    x[i:i + mb], pos, 0, cfg.n_layers)
+                     for i in range(0, PIPE_B, mb)])
+    whole = granite_layers(torch, M, cfg, params["blocks"], x, pos, 0,
+                           cfg.n_layers)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    check(bool(torch.isfinite(got.float()).all()) and err <= PIPE_TOL * scale,
+          f"pipeline vs sequential: max abs {err:.3e} > {PIPE_TOL} * "
+          f"{scale:.3e}")
+    whole_err = float((got.float() - whole.float()).abs().max())
+    whole_scale = float(whole.float().abs().max())
+    check(whole_err <= LM_LOGIT_TOL * whole_scale,
+          f"pipeline vs the whole batch in order: max abs {whole_err:.3e} > "
+          f"{LM_LOGIT_TOL} * {whole_scale:.3e}")
+    row = {"model_parallel": "pipeline", "config": cfg.name,
+           "stages": PIPE_STAGES, "layers_per_stage": per,
+           "n_micro": PIPE_MICRO, "batch": [PIPE_B, PIPE_S],
+           "steps": steps, "stage_calls": sum(calls.values()),
+           "stage_calls_each": sorted(calls.values()),
+           "launches": launches, "max_abs_err": err, "max_abs_ref": scale,
+           "whole_batch_max_abs_diff": whole_err,
+           "whole_batch_max_abs": whole_scale,
+           "pipeline_wall_ms": wall(lambda: pipeline_apply(
+               stage, stacked, x, mesh, PIPE_MICRO)),
+           "sequential_wall_ms": wall(lambda: granite_layers(
+               torch, M, cfg, params["blocks"], x, pos, 0, cfg.n_layers)),
+           "devices": [str(d) for d in mesh.distinct_devices], "card": smi}
+    row["pipeline_over_sequential"] = (row["pipeline_wall_ms"]
+                                       / row["sequential_wall_ms"])
+    print(json.dumps(row), flush=True)
+    return launches
+
+
+def sharded_training(torch, smi: str, seed: int, cfg, counters) -> dict:
+    """(c) granite at full width and depth on a 2 x 2 mesh: the unsharded
+    step first (its loss and gradient norm kept, and in bf16 its start,
+    master update and m; its state freed), then the sharded state from
+    the same seed; the first sharded step against it, then MP_STEPS
+    timed."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.parallel.sharding import make_mesh, resident_bytes
+    from repro_torch.runtime.steps import abstract_train_state
+    from repro_torch.runtime.steps import make_train_step, shard_train_state
+    from repro_torch.runtime.steps import train_state_shardings
+
+    opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=2, decay_steps=100)
+    batch = train_batch(torch, cfg, seed)
+
+    def init():
+        return M.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda")
+
+    def timed(fn, *a):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn(*a)
+        e1.record()
+        return out, (e0, e1)
+
+    # the unsharded step: the compared one, then one timed.  Kept on the
+    # card in bf16 (the limits are far above its rounding): the start,
+    # the step's master update (about +-lr), m.  Its new master and
+    # parameters are the start plus the update.
+    bf16 = torch.bfloat16
+    params = init()
+    start = [t.clone() for t in tree_leaves(params)]
+    state = {"params": params, "opt": adamw_init(params)}
+    step1 = make_train_step(cfg, opt_cfg)
+    state, m1 = step1(state, batch)
+    loss1, norm1 = float(m1["loss"]), float(m1["grad_norm"])
+    want_upd = [(t - p.float()).to(bf16) for t, p in
+                zip(tree_leaves(state["opt"]["master"]), start)]
+    want_m = [t.to(bf16) for t in tree_leaves(state["opt"]["m"])]
+    (state, _), ev = timed(step1, state, train_batch(torch, cfg, seed, 1))
+    torch.cuda.synchronize()
+    unsharded_ms = ev[0].elapsed_time(ev[1])
+    del state, params, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"),
+                     devices=mesh_devices(torch, int(np.prod(MESH_SHAPE))))
+    sh = train_state_shardings(cfg, mesh)
+    state = shard_train_state(init(), sh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt_cfg, mesh=mesh)
+    n_data = MESH_SHAPE[0]
+    per_step = {k: n_data * v for k, v in train_counts(cfg).items()}
+    reset_train_counts(counters)
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    check_train_counts("sharded granite first step",
+                       read_train_counts(counters), per_step, "tc")
+    t_cmp = time.perf_counter()
+    loss = float(m["loss"])
+    loss_rel = abs(loss - loss1) / abs(loss1)
+    check(math.isfinite(loss) and loss_rel <= MP_LOSS_REL,
+          f"sharded step loss {loss} vs unsharded {loss1}")
+    norm = float(m["grad_norm"])
+    norm_rel = abs(norm - norm1) / norm1
+    check(math.isfinite(norm) and norm_rel <= MP_NORM_REL,
+          f"sharded step grad_norm {norm} vs unsharded {norm1}")
+    lr = float(m["lr"])
+    names = leaf_names(state["params"])
+    worst, worst_leaf = 0.0, None
+    m_rel, master_over_lr, flips = {}, {}, {}
+    for name, p, mst, mom, p0, upd, wm in zip(
+            names, tree_leaves(state["params"]),
+            tree_leaves(state["opt"]["master"]),
+            tree_leaves(state["opt"]["m"]), start, want_upd, want_m):
+        want_mst = p0.float().add_(upd.float())
+        g = p.gather().float()
+        check(bool(torch.isfinite(g).all()), f"sharded step: {name} is not "
+              f"finite")
+        e = float((g - want_mst.to(bf16).float()).abs().max())
+        if e > worst:
+            worst, worst_leaf = e, name
+        d = want_mst.sub_(mst.gather()).abs_()
+        master_over_lr[name] = float(d.max()) / lr
+        flips[name] = int(torch.count_nonzero(d > lr / 2)) / d.numel()
+        wm = wm.float()
+        m_rel[name] = float((mom.gather() - wm).abs().max()) / float(
+            wm.abs().max())
+        del want_mst, g, d, wm
+    del start, want_upd, want_m
+    check(worst <= MP_LEAF_ABS, f"sharded step: {worst_leaf} differs by "
+          f"{worst:.3e} > {MP_LEAF_ABS}")
+    worst_m = max(m_rel, key=m_rel.get)
+    worst_flips = max(flips, key=flips.get)
+    check(all(math.isfinite(v) and v <= MP_M_REL for v in m_rel.values()),
+          f"sharded step: m of {worst_m} differs by {m_rel[worst_m]:.3e} > "
+          f"{MP_M_REL} x max|ref|")
+    check(max(master_over_lr.values()) <= 2.5
+          and flips[worst_flips] <= MP_MASTER_FLIPS,
+          f"sharded step: master differs by up to "
+          f"{max(master_over_lr.values()):.3f} lr, {worst_flips} moved the "
+          f"other way on {flips[worst_flips]:.3e} of its elements")
+    compare_s = time.perf_counter() - t_cmp
+    # each position's resident state is the spec's share
+    got = np.zeros(MESH_SHAPE, np.int64)
+    for leaf in tree_leaves(state):
+        for pos in mesh.positions():
+            got[pos] += leaf.nbytes_at(pos)
+    share = resident_bytes(sh, abstract_train_state(cfg))
+    check(np.array_equal(got, share), f"resident bytes {got.tolist()}, the "
+          f"spec's share {share.tolist()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts(counters)
+    events, losses = [], [loss]
+    for i in range(MP_STEPS):
+        (state, met), ev = timed(step, state,
+                                 train_batch(torch, cfg, seed, i + 1))
+        events.append(ev)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    launches = read_train_counts(counters)
+    check_train_counts(f"sharded granite {MP_STEPS} steps", launches,
+                       per_step, "tc", MP_STEPS)
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"sharded losses {losses}")
+    check(int(state["opt"]["step"]) == 1 + MP_STEPS,
+          f"sharded step counter {int(state['opt']['step'])}")
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    n_params = cfg.n_params()
+    tokens = TRAIN_B * TRAIN_S
+    row = {"model_parallel": "sharded train step", "config": cfg.name,
+           "mesh": mesh.shape,
+           "devices": [str(d) for d in mesh.distinct_devices],
+           "batch": [TRAIN_B, TRAIN_S], "remat": cfg.remat,
+           "loss": loss, "loss_unsharded": loss1, "loss_rel": loss_rel,
+           "worst_leaf": worst_leaf, "worst_leaf_max_abs": worst,
+           "grad_norm": norm, "grad_norm_unsharded": norm1,
+           "grad_norm_rel": norm_rel, "m_rel_each": m_rel,
+           "worst_m_leaf": worst_m, "worst_m_rel": m_rel[worst_m],
+           "lr": lr, "master_max_abs_over_lr": max(master_over_lr.values()),
+           "master_flips_each": flips, "worst_master_flips": flips[worst_flips],
+           "compare_s": compare_s,
+           "leaves": len(names), "losses": losses, "steps": MP_STEPS,
+           "step_ms": step_ms,
+           "step_ms_each": [a.elapsed_time(b) for a, b in events],
+           "unsharded_step_ms": unsharded_ms,
+           "sharded_over_unsharded": step_ms / unsharded_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "resident_state_bytes": got.tolist(),
+           "state_bytes": int(got.sum()),
+           "launches_per_step": per_step, "launches": launches,
+           "mfu": 6 * n_params * tokens / (step_ms * 1e-3 * BF16_OPS_PER_S),
+           "card": smi}
+    print(json.dumps(row), flush=True)
+    del state
+    return launches
+
+
+def sharded_serving(torch, timer, smi: str, seed: int, cfg, params,
+                    counters) -> dict:
+    """(d) granite at full width on a 2 x 2 mesh: 4 slots x 512, a
+    prefill and MP_NEW - 1 decode steps through the sharded steps (one
+    CUDA graph when the mesh is one card), held against the unsharded
+    steps on the same tokens; the two captured steps timed in turns."""
+    import numpy as np
+
+    from repro_torch.launch.serve import param_shardings
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.parallel.sharding import make_mesh, shard_tree
+    from repro_torch.runtime.compiled_step import CompiledStep
+    from repro_torch.runtime.steps import cache_shardings, make_decode_step
+    from repro_torch.runtime.steps import make_prefill_step
+
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"),
+                     devices=mesh_devices(torch, int(np.prod(MESH_SHAPE))))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    prompt = torch.randint(0, cfg.vocab_size, (MP_SLOTS, MP_PROMPT),
+                           generator=gen, device="cuda")
+    dtype = M.torch_dtype(cfg.dtype)
+
+    def cache():
+        return M.init_cache(cfg, MP_SLOTS, MP_LEN, dtype=dtype,
+                            device="cuda")
+
+    one = cache()
+    many = shard_tree(cache(), cache_shardings(
+        cfg, ShapeConfig("serve", MP_LEN, MP_SLOTS, "decode"), mesh))
+    sparams = shard_tree(params, param_shardings(cfg, mesh))
+    prefill1, decode1 = make_prefill_step(cfg), make_decode_step(cfg)
+    prefill4 = make_prefill_step(cfg, mesh=mesh)
+    decode4 = make_decode_step(cfg, mesh=mesh)
+
+    def fn1(tok, index):
+        out, c = decode1(params, {"token": tok}, {**one, "index": index})
+        return out, c["index"]
+
+    def fn4(tok, index):
+        out, c = decode4(sparams, {"token": tok}, {**many, "index": index})
+        return out, c["index"]
+
+    graphed = mesh.single_device
+    step1 = CompiledStep(fn1, device="cuda")
+    step4 = CompiledStep(fn4, device="cuda") if graphed else fn4
+    # the unsharded steps first, then the sharded ones on their tokens
+    want, one = prefill1(params, {"tokens": prompt}, one)
+    wants, toks, i1 = [want], [want.argmax(-1)], one["index"]
+    for _ in range(MP_NEW - 1):
+        w, i1 = step1(toks[-1], i1)
+        wants.append(w)
+        toks.append(w.argmax(-1))
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    got, many = prefill4(sparams, {"tokens": prompt}, many)
+    gots, i4 = [got], many["index"]
+    for tok in toks[:-1]:
+        g, i4 = step4(tok, i4)
+        gots.append(g)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    # the unsharded steps on each data shard's slots alone: the same
+    # kernel calls at the same shapes as the sharded step's
+    n_data = MESH_SHAPE[0]
+    half = MP_SLOTS // n_data
+    alone = []
+    for j in range(n_data):
+        rows = slice(j * half, (j + 1) * half)
+        c = M.init_cache(cfg, half, MP_LEN, dtype=dtype, device="cuda")
+        w, c = prefill1(params, {"tokens": prompt[rows]}, c)
+        outs = [w]
+        for t in toks[:-1]:
+            w, c = decode1(params, {"token": t[rows]}, c)
+            outs.append(w)
+        alone.append(outs)
+        del c
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max()) for g, w in zip(gots, wants)]
+    shard_errs = [float((g - torch.cat([a[i] for a in alone])).abs().max())
+                  for i, g in enumerate(gots)]
+    scale = max(float(w.abs().max()) for w in wants)
+    tok = toks[-2]
+    n, steps = cfg.n_layers, MP_NEW - 1
+    expect = {"flash_attention": n_data * n,
+              "flash_attention.tc": n_data * n, "flash_attention.simt": 0,
+              "decode_attention": n_data * n * steps,
+              "decode_attention.mla": 0,
+              "fused_mlp": n_data * n * (1 + steps),
+              "fused_mlp.tc": n_data * n,
+              "fused_mlp.stream": n_data * n * steps, "fused_mlp.simt": 0}
+    check(launches == expect, f"sharded serving launches {launches}, "
+          f"expected {expect}")
+    check(int(i4) == int(i1) == MP_PROMPT + steps,
+          f"sharded index {int(i4)}, unsharded {int(i1)}")
+    err, shard_err = max(errs), max(shard_errs)
+    check(math.isfinite(shard_err) and shard_err <= MP_LOGIT_TOL * scale,
+          f"sharded serving logits differ from the unsharded steps on each "
+          f"data shard's slots by {shard_err:.3e} > {MP_LOGIT_TOL} * "
+          f"{scale:.3e}")
+    check(math.isfinite(err) and err <= LM_LOGIT_TOL * scale,
+          f"sharded serving logits differ from the unsharded steps over all "
+          f"slots by {err:.3e} > {LM_LOGIT_TOL} * {scale:.3e}")
+    row = {"model_parallel": "sharded serving", "config": cfg.name,
+           "mesh": mesh.shape,
+           "devices": [str(d) for d in mesh.distinct_devices],
+           "slots": MP_SLOTS, "max_len": MP_LEN, "prompt_len": MP_PROMPT,
+           "decode_steps": steps, "max_abs_err": shard_err,
+           "max_abs_err_each": shard_errs, "max_abs_logits": scale,
+           "all_slots_max_abs_diff": err, "all_slots_max_abs_diff_each": errs,
+           "launches": launches,
+           "decode": ("one CUDA graph" if graphed else
+                      "eager (the mesh spans several cards)")}
+    if graphed:
+        check(step4.captures == 1, f"sharded decode: {step4.captures} "
+              f"captures")
+        row["step_launches"] = step4.step_launches
+        times = in_turns(timer, {"sharded": lambda: step4(tok, i4),
+                                 "unsharded": lambda: step1(tok, i1)},
+                         MP_TURNS)
+        row.update(turns_summary(times))
+        row["sharded_over_unsharded"] = (
+            statistics.median(times["sharded"])
+            / statistics.median(times["unsharded"]))
+    row["card"] = smi
+    print(json.dumps(row), flush=True)
+    return launches
+
+
+def mp_kernel_rows(torch, timer, smi: str, seed: int, cfg) -> list[dict]:
+    """The LM kernels at the shapes the sharded paths give them: a data
+    shard's training batch (4 x 512), the pipeline's and the sharded
+    prefill's microbatch (2 x 128), a data shard's decode (2 slots x
+    512)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.fused_mlp import route as mlp_route
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 37)
+    Hq, Hkv, D, d, f = (cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model,
+                        cfg.d_ff)
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * std).to(dtype)
+
+    def bound(n_bytes, n_ops):
+        return lm_bound(n_bytes, n_ops, BF16_OPS_PER_S)
+
+    ws = [randn(d), randn(d, f, std=d ** -0.5), randn(d, f, std=d ** -0.5),
+          randn(f, d, std=f ** -0.5)]
+    cases = []
+    for label, B, S in (("train granite mesh=2x2", TRAIN_B // 2, TRAIN_S),
+                        ("pipeline granite stage", PIPE_B // PIPE_MICRO,
+                         PIPE_S)):
+        q, k, v = (randn(B, S, h, D).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+        cases.append((
+            "flash_attention.tc", f"{label} B={B} S={S}",
+            lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: R.flash_attention_ref(q, k, v,
+                                                        causal=True),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            bound(2 * B * S * D * (2 * Hq + 2 * Hkv),
+                  4 * B * Hq * D * S * (S + 1) // 2)))
+        T = B * S
+        x = randn(T, d)
+        cases.append((
+            f"fused_mlp.{mlp_route(bf16, T, d, f)}", f"{label} T={T}",
+            lambda x=x: fused_mlp(x, *ws),
+            lambda x=x: R.fused_mlp_ref(x, *ws), None,
+            bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)))
+    # a data shard's decode: 2 slots, bf16 query and cache, the slots at
+    # the end of the served run
+    B, L = MP_SLOTS // MESH_SHAPE[0], MP_LEN
+    q = randn(B, Hq, D)
+    k, v = randn(B, Hkv, L, D), randn(B, Hkv, L, D)
+    lens = torch.full((B,), MP_PROMPT + MP_NEW - 1, device="cuda")
+    keep = torch.arange(L, device="cuda")[None] <= lens[:, None]
+    bias = torch.where(keep, 0.0, -1e30)
+    live = int(keep.sum())
+    cases.append((
+        "decode_attention", f"granite mesh=2x2 B={B} len={L}",
+        lambda: decode_attention(q, k, v, bias=bias),
+        lambda: R.decode_attention_ref(q, k, v, bias=bias),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=bias[:, None, None].to(bf16),
+            enable_gqa=True)[:, :, 0],
+        bound(2 * B * Hq * D * 2 + live * Hkv * D * 2 * 2 + B * L * 4,
+              4 * Hq * D * live)))
+    T = B
+    x = randn(T, d)
+    cases.append((
+        f"fused_mlp.{mlp_route(bf16, T, d, f)}", f"decode granite mesh=2x2 "
+        f"T={T}", lambda: fused_mlp(x, *ws),
+        lambda: R.fused_mlp_ref(x, *ws), None,
+        bound(2 * (2 * T * d + d + 3 * d * f), 6 * T * d * f)))
+    return time_cases(torch, timer, smi, cases, LM_PATH_TOL)
+
+
+def model_parallel_phase(torch, timer, smi: str, seed: int) -> list[dict]:
+    """Phase 14; returns its kernels' entries of the kernels line."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 13's states are gone
+    torch.cuda.empty_cache()
+    cfg = get_config("granite_3_2b")
+    counters = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_mlp": fused_mlp}
+    split = {}
+    t0 = time.perf_counter()
+    ring_products(torch, timer, smi, seed)
+    split["ring"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = sharded_training(torch, smi, seed, cfg, counters)
+    split["train"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    pipe = pipeline_granite(torch, timer, smi, seed, cfg, params, counters)
+    split["pipeline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = sharded_serving(torch, timer, smi, seed, cfg, params, counters)
+    split["serve"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = mp_kernel_rows(torch, timer, smi, seed, cfg)
+    split["kernels"] = time.perf_counter() - t0
+    print(json.dumps({"model_parallel": "phase 14", "split_s": split,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    # each row's launches on its path: the timed sharded train steps, the
+    # pipeline run, the sharded serving run
+    return kernel_entries(rows, {
+        ("flash_attention.tc", rows[0]["shape"]): train["flash_attention.tc"],
+        ("fused_mlp.tc", rows[1]["shape"]): train["fused_mlp.tc"],
+        ("flash_attention.tc", rows[2]["shape"]): pipe["flash_attention.tc"],
+        ("fused_mlp.tc", rows[3]["shape"]): pipe["fused_mlp.tc"],
+        "decode_attention": serve["decode_attention"],
+        "fused_mlp.stream": serve["fused_mlp.stream"]})
 
 
 # ----------------------------------------------------------------------

@@ -17,6 +17,10 @@ package restores in the other, bit for bit.
   ``step_<n>/`` behind.
 - **integrity**: crc32 per leaf, verified on restore.
 - **retention**: the latest ``keep`` checkpoints stay.
+- **elastic**: checkpoints carry no sharding.  A ``ShardedTensor`` leaf
+  (:mod:`repro_torch.parallel.sharding`) is saved whole, and a restore
+  with ``shardings=`` splits every leaf onto the current mesh, whatever
+  mesh shape (or none) saved it.
 """
 from __future__ import annotations
 
@@ -61,7 +65,10 @@ def _treedef(tree: Any) -> str:
 
 def _host(leaf: Any) -> tuple[np.ndarray, str]:
     """(the array to store, the leaf's dtype name): a tensor copied to
-    host memory, bfloat16 as its uint16 bits."""
+    host memory (a sharded one put back together there), bfloat16 as its
+    uint16 bits."""
+    if hasattr(leaf, "gather") and hasattr(leaf, "sharding"):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):       # a copy: training goes on
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -115,11 +122,14 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore_pytree(like: Any, directory: str, step: int | None = None,
-                   device=None, verify: bool = True) -> Any:
+                   device=None, verify: bool = True,
+                   shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (a dict tree of tensors,
     ``meta`` ones too): each leaf in its ``like`` leaf's type and shape,
     on ``device`` (default: each ``like`` leaf's device, the CPU for a
-    ``meta`` one)."""
+    ``meta`` one).  ``shardings`` (a tree of ``NamedSharding`` like
+    ``like``, or one for every leaf) splits each leaf onto its mesh
+    instead: an elastic restart on any mesh shape."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -141,6 +151,9 @@ def restore_pytree(like: Any, directory: str, step: int | None = None,
     if missing:
         raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]}")
 
+    flat_sh = (None if shardings is None or hasattr(shardings, "shard")
+               else _flatten(shardings))
+
     def build(t, prefix):
         if isinstance(t, dict):
             return {k: build(t[k], f"{prefix}{_SEP}{k}" if prefix else str(k))
@@ -149,6 +162,9 @@ def restore_pytree(like: Any, directory: str, step: int | None = None,
         if tuple(got.shape) != tuple(t.shape):
             raise ValueError(f"checkpoint leaf {prefix!r}: shape "
                              f"{tuple(got.shape)}, expected {tuple(t.shape)}")
+        if shardings is not None:
+            sh = shardings if hasattr(shardings, "shard") else flat_sh[prefix]
+            return sh.shard(got.to(dtype=t.dtype))
         dev = (torch.device(device) if device is not None
                else t.device if t.device.type != "meta" else "cpu")
         return got.to(device=dev, dtype=t.dtype)
@@ -201,8 +217,9 @@ class Checkpointer:
             raise err
 
     def restore(self, like: Any, step: int | None = None,
-                device=None) -> Any:
-        return restore_pytree(like, self.directory, step, device)
+                device=None, shardings: Any = None) -> Any:
+        return restore_pytree(like, self.directory, step, device,
+                              shardings=shardings)
 
     def latest_step(self) -> int | None:
         return latest_step(self.directory)

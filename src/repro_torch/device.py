@@ -17,7 +17,8 @@ class DeviceUnavailableError(RuntimeError):
 
 class NotPortedError(NotImplementedError):
     """A keyword or feature of :mod:`repro` that the port has not reached
-    yet (tuning, calibration, meshes).  The message says which."""
+    yet (MLA's absorbed prefill, a kernel's input types).  The message
+    says which."""
 
 
 def resolve_device(device=None) -> torch.device:

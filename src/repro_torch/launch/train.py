@@ -9,10 +9,12 @@ together, through :class:`~repro_torch.runtime.trainer.Trainer`, on the
 card (default) or the CPU (``--device cpu``, the plain PyTorch
 versions).  ``--smoke`` (the default) takes the config's reduced
 same-family size; ``--full`` its published one, refused with
-``NotPortedError`` when its training state (weights and gradients in
-the config's type, float32 master, m and v: 16 bytes a parameter in
-bf16) exceeds one card (``launch.serve.ONE_CARD_BYTES``): such a config
-needs sharded training (ROADMAP A9), as does ``--mesh-data``.  The
+``ValueError`` when the busiest card's bytes (:func:`train_bytes_per_card`)
+exceed one card (``launch.serve.ONE_CARD_BYTES``).  ``--mesh-data D
+--mesh-model M`` trains on a D x M mesh (``launch.mesh.launch_mesh``:
+one card a position where there are enough, else one card may hold
+several positions or the whole mesh): the state split by
+``train_state_shardings``, the sharded train step.  The
 encoder's frames (``encdec``) and the vision prefix (``vlm``) are zeros
 of ``n_frontend_tokens`` positions, as ``launch/serve.py`` gives them
 (the reference's launcher passes none, and its ``loss_fn`` then fails
@@ -28,19 +30,39 @@ import numpy as np
 
 from repro_torch.configs import ARCHS, get_config, get_smoke
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.device import NotPortedError
+from repro_torch.launch.mesh import bytes_per_device, launch_mesh
 from repro_torch.launch.serve import ONE_CARD_BYTES
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel.sharding import TRAIN_RULES
+from repro_torch.runtime.steps import (abstract_train_state, data_shards,
+                                       train_state_shardings)
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-__all__ = ["main", "train_state_bytes"]
+__all__ = ["main", "train_state_bytes", "train_bytes_per_card"]
 
 
 def train_state_bytes(cfg) -> int:
     """Bytes of the training state: weights and gradients in the
     config's type, float32 master, m and v."""
     return cfg.n_params() * (2 * M.torch_dtype(cfg.dtype).itemsize + 12)
+
+
+def train_bytes_per_card(cfg, mesh=None, global_batch: int = 8) -> int:
+    """The training bytes the busiest card holds: without a mesh,
+    :func:`train_state_bytes`; under one, the state pieces of its
+    positions, the whole parameters the step gathers there and one
+    gradient set for each data shard it runs."""
+    if mesh is None:
+        return train_state_bytes(cfg)
+    full = cfg.n_params() * M.torch_dtype(cfg.dtype).itemsize
+    per = bytes_per_device(mesh, train_state_shardings(cfg, mesh),
+                           abstract_train_state(cfg))
+    runs: dict = {}
+    for _, dev in data_shards(mesh, TRAIN_RULES, global_batch):
+        runs[dev] = runs.get(dev, 0) + 1
+    return max(v + (full * (1 + runs[d]) if d in runs else 0)
+               for d, v in per.items())
 
 
 class _WithFrontend:
@@ -70,7 +92,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh-data", type=int, default=0,
-                    help="sharded training: not ported, raises")
+                    help="data-axis size (0 = no mesh, one device)")
+    ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_launch_train"))
@@ -80,18 +103,23 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh_data:
-        raise NotPortedError("--mesh-data (sharded training, ROADMAP A9) is "
-                             "not ported yet")
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    need = train_state_bytes(cfg)
+    mesh = (launch_mesh(args.mesh_data, args.mesh_model, args.device)
+            if args.mesh_data else None)
+    need = train_bytes_per_card(cfg, mesh, args.global_batch)
     if need > ONE_CARD_BYTES:
-        raise NotPortedError(
-            f"{cfg.name}: its training state takes {need / 1e9:.0f} GB, past "
-            f"one card's {ONE_CARD_BYTES / 1e9:.0f} GB; training it needs "
-            f"sharded training (ROADMAP A9), which is not ported yet")
-    print(f"{cfg.name}: {cfg.n_params() / 1e6:.1f}M params, training state "
-          f"{need / 1e9:.2f} GB")
+        where = ("one card" if mesh is None else
+                 f"the busiest card of the {args.mesh_data}x"
+                 f"{args.mesh_model} mesh over {len(mesh.distinct_devices)} "
+                 f"device(s)")
+        raise ValueError(
+            f"{cfg.name}: training takes {need / 1e9:.0f} GB on {where}, "
+            f"past its {ONE_CARD_BYTES / 1e9:.0f} GB; it needs a mesh over "
+            f"more cards")
+    print(f"{cfg.name}: {cfg.n_params() / 1e6:.1f}M params, "
+          f"{need / 1e9:.2f} GB on the busiest card"
+          + ("" if mesh is None else f", mesh {mesh.shape} over "
+             f"{', '.join(map(str, mesh.distinct_devices))}"))
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        global_batch=args.global_batch, seed=args.seed)
     if cfg.family in ("vlm", "encdec"):
@@ -102,7 +130,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
                          ckpt_dir=args.ckpt_dir, log_every=10,
                          compress_grads=args.compress_grads, seed=args.seed,
                          device=args.device)
-    hist = Trainer(cfg, opt, tcfg, data).run()
+    hist = Trainer(cfg, opt, tcfg, data, mesh=mesh).run()
     if hist:
         print(f"done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
     return hist

@@ -16,10 +16,8 @@ chunked online-softmax scan (:func:`_chunked_attention`) when
 ``cfg.attn_chunk`` is set and the keys are longer than a chunk, else the
 oracle.  The two compute the same function.
 
-Not here: the reference's ``shard_act`` / ``activation_rules`` (a no-op
-without a mesh, and the port has no mesh yet) and ``mla_absorb="always"``
-at prefill (flash at Dk = kv_lora_rank + rope_head_dim, over the
-kernel's 256), which raises.
+Not here: ``mla_absorb="always"`` at prefill (flash at Dk =
+kv_lora_rank + rope_head_dim, over the kernel's 256), which raises.
 """
 from __future__ import annotations
 
@@ -34,7 +32,8 @@ from repro_torch.device import NotPortedError
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ParamDef", "init_tree", "rmsnorm", "rope", "embed_tokens",
+__all__ = ["ParamDef", "init_tree", "moe_stats", "rmsnorm", "rope",
+           "embed_tokens",
            "unembed", "softmax_cross_entropy", "attn_defs",
            "attention_block", "mla_defs", "mla_attention_block",
            "mlp_defs", "mlp_block", "moe_defs", "moe_route", "moe_block",
@@ -567,6 +566,28 @@ def recomputing(replay: list | None) -> Iterator[None]:
         _CHOICES = outer
 
 
+_MOE_STATS: list | None = None      # set by moe_stats
+
+
+@contextlib.contextmanager
+def moe_stats() -> Iterator[list]:
+    """Within the ``with``, every ``moe_block`` call appends its
+    load-balance statistics (me, ce) to the yielded list: the mean
+    router gate and the share of first choices of each expert over its
+    tokens, (E,) float32 each, me with its gradient.  A remat recompute
+    in a backward run inside the block appends too (unless it repeats
+    an ``expert_choices`` pass), so read them before the backward.  A
+    sharded train step averages them over the data shards (whose token
+    counts are equal) before forming the loss, so the aux loss is the
+    whole batch's, as one device computes it."""
+    global _MOE_STATS
+    outer, _MOE_STATS = _MOE_STATS, []
+    try:
+        yield _MOE_STATS
+    finally:
+        _MOE_STATS = outer
+
+
 class _ExpertMatmul(torch.autograd.Function):
     """``torch.bmm(a, w, out_dtype=torch.float32)`` with a backward (the
     op has no derivative): the float32 products that the CPU route's
@@ -676,6 +697,8 @@ def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor
     me = gates.mean((0, 1))                                   # (E,)
     ce = (tope[..., 0, None] == torch.arange(E, device=dev)).to(
         torch.float32).mean((0, 1))
+    if _MOE_STATS is not None and not isinstance(_CHOICES, _Recompute):
+        _MOE_STATS.append((me, ce))
     return x + out, E * torch.sum(me * ce)
 
 

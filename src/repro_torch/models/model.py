@@ -3,6 +3,7 @@ port of ``repro.models.model``).
 
 Public API (plain functions over dicts of tensors):
   param_defs(cfg)                          declarative parameter tree
+  param_axes(cfg)                          logical-sharding tree (same structure)
   init(cfg, rng, device)                   parameter values
   from_jax_params(cfg, params_np, device)  the reference's values, carried over
   init_cache(cfg, batch, max_len, dtype, device)   decode cache
@@ -12,6 +13,7 @@ Public API (plain functions over dicts of tensors):
   forward(params, cfg, tokens, extra_embeds=, enc_embeds=)
                                            logits, aux (training / scoring)
   loss_fn(params, cfg, batch)              scalar + metrics
+  loss_sums(params, cfg, batch)            its parts: cross-entropy sum, count, aux
   from_jax_train_state(cfg, state_np, device) / to_numpy(tree)
                                            train states across the packages
 
@@ -50,8 +52,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import tree_leaves
 
-__all__ = ["param_defs", "init", "from_jax_params", "from_jax_train_state",
-           "to_numpy", "forward", "loss_fn", "init_cache", "prefill",
+__all__ = ["param_defs", "param_axes", "init", "from_jax_params",
+           "from_jax_train_state", "to_numpy", "forward", "loss_fn",
+           "loss_sums", "init_cache", "prefill",
            "decode_step", "torch_dtype", "L_cross_kv"]
 
 
@@ -100,6 +103,16 @@ def param_defs(cfg: ModelConfig) -> dict:
         defs["enc_final_ln"] = L.ParamDef((d,), ("embed",), "ones")
         defs["cross_blocks"] = _stack(L.attn_defs(cfg), cfg.n_layers)
     return defs
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter (``ParamDef.axes``), in the
+    tree of :func:`param_defs`."""
+    def walk(d):
+        if isinstance(d, L.ParamDef):
+            return d.axes
+        return {k: walk(v) for k, v in d.items()}
+    return walk(param_defs(cfg))
 
 
 def init(cfg: ModelConfig, rng: int | torch.Generator = 0,
@@ -415,12 +428,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return L.unembed(x, _head(params, cfg)), aux
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: Mapping
-            ) -> tuple[torch.Tensor, dict]:
-    """batch: tokens (B, S), labels (B, S) (-1 = ignore), optionally
-    extra_embeds / enc_embeds.  Returns (total, {"loss", "aux",
-    "tokens"}): the mean cross entropy over the labelled positions (a
-    vlm's prefix dropped), plus ``router_aux_loss`` x aux."""
+def loss_sums(params: dict, cfg: ModelConfig, batch: Mapping
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The parts of :func:`loss_fn`: (the cross entropy summed over the
+    labelled positions, their count, aux), all float32 scalars.  A
+    sharded step adds the data shards' sums and counts before dividing
+    (:mod:`repro_torch.runtime.steps`)."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           extra_embeds=batch.get("extra_embeds"),
                           enc_embeds=batch.get("enc_embeds"))
@@ -429,9 +442,19 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Mapping
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
     mask = (labels >= 0).to(torch.float32)
     ce = L.softmax_cross_entropy(logits, labels.clamp_min(0))
-    loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    return (ce * mask).sum(), mask.sum(), aux
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: Mapping
+            ) -> tuple[torch.Tensor, dict]:
+    """batch: tokens (B, S), labels (B, S) (-1 = ignore), optionally
+    extra_embeds / enc_embeds.  Returns (total, {"loss", "aux",
+    "tokens"}): the mean cross entropy over the labelled positions (a
+    vlm's prefix dropped), plus ``router_aux_loss`` x aux."""
+    ce_sum, count, aux = loss_sums(params, cfg, batch)
+    loss = ce_sum / count.clamp_min(1.0)
     total = loss + cfg.router_aux_loss * aux
-    return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
+    return total, {"loss": loss, "aux": aux, "tokens": count}
 
 
 # ----------------------------------------------------------------------

@@ -6,7 +6,8 @@ At 1000+ nodes, something is always broken.  The framework's posture:
 - **Checkpoint/restart** is the base mechanism (async, atomic, elastic
   — see repro_torch.checkpoint).  The Trainer auto-saves every N steps and
   on SIGTERM (preemption notice), and resumes from the newest intact
-  checkpoint (the port: one process, no mesh).
+  checkpoint (the port: one process, which drives a mesh's devices
+  itself; a restore reshards onto any mesh).
 - **Straggler mitigation**: per-host step-time EWMA; hosts slower than
   ``factor`` x the fleet median for ``patience`` consecutive windows
   are flagged for replacement.  (On real fleets the replacement is an

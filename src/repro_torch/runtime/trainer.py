@@ -6,8 +6,12 @@ with preemption and straggler handling (the port of
 (:func:`repro_torch.runtime.steps.make_train_step`), the data pipeline,
 the async checkpointer and the fault machinery together.  Unlike the
 reference there is no ``jax.jit``: the step runs eagerly, updating the
-state in place; ``n_hosts`` is 1 and a mesh raises.  ``device`` (in
-:class:`TrainerConfig`) picks the card (default) or the CPU.
+state in place; ``n_hosts`` is 1.  ``device`` (in
+:class:`TrainerConfig`) picks the card (default) or the CPU.  With
+``mesh=`` the state is sharded (``state_shardings``, by default
+:func:`~repro_torch.runtime.steps.train_state_shardings` under
+``TRAIN_RULES``), the step is the sharded one, and a restore splits the
+checkpoint onto the mesh whatever mesh shape saved it.
 """
 from __future__ import annotations
 
@@ -20,13 +24,15 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.device import NotPortedError, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.optim.compression import ef_init
 from repro_torch.runtime.fault import PreemptionGuard, StragglerMonitor
-from repro_torch.runtime.steps import abstract_train_state, make_train_step
+from repro_torch.runtime.steps import (abstract_train_state, make_train_step,
+                                       shard_train_state,
+                                       train_state_shardings)
 
 __all__ = ["Trainer", "TrainerConfig"]
 
@@ -45,16 +51,20 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
-                 tcfg: TrainerConfig, data, mesh=None):
-        if mesh is not None:
-            raise NotPortedError("Trainer(mesh=...) (sharded training, "
-                                 "ROADMAP A9) is not ported yet")
+                 tcfg: TrainerConfig, data, mesh=None,
+                 state_shardings=None):
         self.cfg, self.opt_cfg, self.tcfg = cfg, opt_cfg, tcfg
         self.data = data
-        self.device = resolve_device(tcfg.device)
+        self.mesh = mesh
+        self.device = (resolve_device(tcfg.device) if mesh is None
+                       else mesh.devices.flat[0])
+        if mesh is not None and state_shardings is None:
+            state_shardings = train_state_shardings(
+                cfg, mesh, compress_grads=tcfg.compress_grads)
+        self.state_shardings = state_shardings
         self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
         self.monitor = StragglerMonitor(n_hosts=1)
-        self.step_fn = make_train_step(cfg, opt_cfg,
+        self.step_fn = make_train_step(cfg, opt_cfg, mesh=mesh,
                                        compress_grads=tcfg.compress_grads)
         self.state = self._init_or_restore()
         self.history: list[dict] = []
@@ -62,6 +72,9 @@ class Trainer:
     # -- state ----------------------------------------------------------
     def _fresh_state(self) -> dict:
         params = M.init(self.cfg, self.tcfg.seed, device=self.device)
+        if self.mesh is not None:
+            return shard_train_state(params, self.state_shardings,
+                                     self.tcfg.compress_grads)
         state = {"params": params, "opt": adamw_init(params)}
         if self.tcfg.compress_grads:
             state["ef"] = ef_init(params)
@@ -72,6 +85,9 @@ class Trainer:
         if latest is None:
             return self._fresh_state()
         like = abstract_train_state(self.cfg, self.tcfg.compress_grads)
+        if self.mesh is not None:
+            return self.ckpt.restore(like, step=latest,
+                                     shardings=self.state_shardings)
         return self.ckpt.restore(like, step=latest, device=self.device)
 
     @property

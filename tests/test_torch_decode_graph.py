@@ -39,7 +39,6 @@ import torch
 torch.set_num_threads(1)
 
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -377,13 +376,20 @@ def test_example_serves_the_ported_families_on_the_cpu(arch, capsys):
 def test_example_refuses_the_other_configs():
     """The example serves every config at its smoke size; what the
     launcher still refuses: a config past one card's memory at full size
-    (qwen3-moe's 235 B parameters) and a mesh."""
-    with pytest.raises(NotPortedError, match="model parallelism"):
+    (qwen3-moe's 235 B parameters), also on a mesh that repeats one card.
+    A mesh itself is served (whisper on 2 x 1 of the CPU)."""
+    with pytest.raises(ValueError, match="model parallelism"):
         serve.main(["--arch", "qwen3_moe_235b_a22b", "--full",
                     "--device", "cpu"])
-    with pytest.raises(NotPortedError, match="mesh"):
-        serve.main(["--arch", "whisper_base", "--device", "cpu",
-                    "--mesh-data", "2"])
+    with pytest.raises(ValueError, match="2x2 mesh over 1 device"):
+        serve.main(["--arch", "qwen3_moe_235b_a22b", "--full",
+                    "--device", "cpu", "--mesh-data", "2", "--mesh-model",
+                    "2"])
+    out = serve.main(["--arch", "whisper_base", "--device", "cpu",
+                      "--mesh-data", "2", "--batch", "2", "--prompt-len",
+                      "4", "--gen-len", "3"])
+    assert out["tokens"].shape == (2, 3) and out["mesh"] == {"data": 2,
+                                                             "model": 1}
 
 
 # ----------------------------------------------------------------------

@@ -5,9 +5,9 @@ parameters carried across by ``from_jax_params``: prefill logits and
 cache, then decode steps with a scalar and a per-slot cache index, agree
 within 1e-5 * max|logits|.  The JAX side uses ``attn_impl="auto"``,
 which on the CPU is its oracle path.  The port's own ``init`` follows
-the declared laws, and what the port does not run yet (MLA's absorbed
-prefill, a mesh, a config whose parameters exceed one card) raises
-``NotPortedError``.
+the declared laws; what the port does not run yet (MLA's absorbed
+prefill) raises ``NotPortedError``, a config whose parameters exceed
+one card ``ValueError``, and a mesh runs.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.parallel.sharding import make_mesh, shard_tree  # noqa: E402
 from repro_torch.runtime import steps as tsteps  # noqa: E402
 
 try:                                 # the card's machine has no JAX
@@ -174,15 +176,34 @@ def test_what_is_not_ported_raises():
         TM.prefill(TM.init(mla, 0, device="cpu"), mla,
                    torch.zeros(1, 3, dtype=torch.long),
                    TM.init_cache(mla, 1, 8, device="cpu"))
+    # a mesh runs: the sharded prefill and decode steps on 2 x 2 of the
+    # CPU give the unsharded steps' logits, and the launcher serves on it
     cfg = tconfigs.get_smoke(ARCH)
-    with pytest.raises(NotPortedError, match="mesh"):
-        tsteps.make_prefill_step(cfg, mesh=object())
-    with pytest.raises(NotPortedError, match="mesh"):
-        tsteps.make_decode_step(cfg, mesh=object())
-    with pytest.raises(NotPortedError, match="mesh"):
-        serve.main(["--arch", ARCH, "--device", "cpu", "--mesh-data", "2"])
-    # 235 B parameters: no one card holds them (model parallelism, A9)
-    with pytest.raises(NotPortedError, match="model parallelism"):
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    params = TM.init(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 5),
+                         generator=torch.Generator().manual_seed(0))
+    cache = TM.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    want, cache = tsteps.make_prefill_step(cfg)(params, {"tokens": toks},
+                                                cache)
+    sharded = shard_tree(TM.init_cache(cfg, 2, 8, dtype=torch.float32,
+                                       device="cpu"),
+                         tsteps.cache_shardings(cfg, ShapeConfig(
+                             "s", 8, 2, "decode"), mesh))
+    sp = shard_tree(params, serve.param_shardings(cfg, mesh))
+    got, sharded = tsteps.make_prefill_step(cfg, mesh=mesh)(
+        sp, {"tokens": toks}, sharded)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    tok = want.argmax(-1)
+    want, _ = tsteps.make_decode_step(cfg)(params, {"token": tok}, cache)
+    got, _ = tsteps.make_decode_step(cfg, mesh=mesh)(sp, {"token": tok},
+                                                     sharded)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    out = serve.main(["--arch", ARCH, "--device", "cpu", "--mesh-data", "2"])
+    assert out["mesh"] == {"data": 2, "model": 1}
+    # 235 B parameters: no one card holds them, nor one card standing
+    # for a mesh
+    with pytest.raises(ValueError, match="model parallelism"):
         serve.main(["--arch", "qwen3_moe_235b_a22b", "--full", "--device",
                     "cpu"])
 

@@ -18,7 +18,6 @@ import torch
 torch.set_num_threads(1)
 
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.runtime.batcher import (ContinuousBatcher,  # noqa: E402
@@ -127,5 +126,9 @@ def test_serve_runs_on_the_cpu(capsys):
     assert out["device"] == "cpu" and out["clock"] == "host clock"
     assert out["tokens"].shape == (2, 4)
     assert "granite3-smoke on cpu (host clock)" in capsys.readouterr().out
-    with pytest.raises(NotPortedError, match="mesh"):
-        serve.main(["--device", "cpu", "--mesh-data", "2"])
+    # on a 2 x 1 mesh of the CPU: the same tokens
+    on_mesh = serve.main(["--arch", ARCH, "--device", "cpu", "--batch", "2",
+                          "--prompt-len", "5", "--gen-len", "4",
+                          "--mesh-data", "2"])
+    assert on_mesh["mesh"] == {"data": 2, "model": 1}
+    assert np.array_equal(on_mesh["tokens"], out["tokens"])

@@ -285,10 +285,20 @@ def test_train_step_matches_jax(case):
 
 
 def test_train_step_refuses_a_mesh():
-    from repro_torch.device import NotPortedError
+    """The sharded step (``tests/test_torch_sharded_steps.py``) refuses
+    a state that is not sharded over its mesh, and runs one that is."""
+    from repro_torch.parallel.sharding import make_mesh
     cfg = tconfigs.get_smoke("granite_3_2b")
-    with pytest.raises(NotPortedError, match="A9"):
-        tsteps.make_train_step(cfg, TAdamW(), mesh=object())
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    step = tsteps.make_train_step(cfg, TAdamW(), mesh=mesh)
+    params = TM.init(cfg, 0, device="cpu")
+    batch = _torch(_batch(cfg))
+    with pytest.raises(TypeError, match="ShardedTensor"):
+        step({"params": params, "opt": adamw_init(params)}, batch)
+    state = tsteps.shard_train_state(params, tsteps.train_state_shardings(
+        cfg, mesh))
+    _, met = step(state, batch)
+    assert np.isfinite(float(met["loss"])) and int(state["opt"]["step"]) == 1
 
 
 def test_abstract_train_state_matches_a_fresh_one():

@@ -33,7 +33,7 @@ torch.set_num_threads(1)
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.checkpoint import checkpointer as TC  # noqa: E402
 from repro_torch.data import pipeline as TD  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
+from repro_torch.parallel.sharding import make_mesh  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
@@ -377,9 +377,16 @@ def test_trainer_learns_and_resumes_after_sigterm(tmp_path):
     assert again.step == 5
     rest = [h["loss"] for h in again.run()]
     assert rest == full[5:]                       # exactly
-    with pytest.raises(NotPortedError, match="A9"):
-        Trainer(TConfig(**TINY), TA.AdamWConfig(), TrainerConfig(
-            device="cpu", ckpt_dir=str(tmp_path / "m")), data, mesh=object())
+    # a mesh: the state sharded over it, the same losses (within float32
+    # summation order: the data shards' gradients are added)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    sharded = Trainer(TConfig(**TINY), TA.AdamWConfig(
+        lr_peak=3e-3, warmup_steps=3, decay_steps=16), TrainerConfig(
+        total_steps=3, ckpt_every=100, ckpt_dir=str(tmp_path / "m"),
+        log_every=100, device="cpu"), data, mesh=mesh)
+    assert sharded.state["opt"]["m"]["embed"].sharding.mesh is mesh
+    got = [h["loss"] for h in sharded.run()]
+    assert max(abs(a - b) for a, b in zip(got, full[:3])) <= 1e-5 * full[0]
 
 
 def test_trainer_resumes_a_jax_trainers_state(tmp_path):
@@ -420,10 +427,26 @@ def test_launch_train_on_cpu(arch, tmp_path):
 
 
 def test_launch_train_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotPortedError, match="A9"):
-        tlaunch.main(["--device", "cpu", "--mesh-data", "2"])
-    with pytest.raises(NotPortedError, match="A9"):
+    """``--mesh-data`` trains on a mesh (here the CPU named at every
+    position); what the launcher refuses is a config whose bytes on the
+    busiest card exceed it, with or without a mesh that repeats one
+    card."""
+    hist = tlaunch.main(["--device", "cpu", "--mesh-data", "2", "--steps",
+                         "2", "--seq", "16", "--global-batch", "4",
+                         "--ckpt-dir", str(tmp_path / "ck")])
+    assert [h["step"] for h in hist] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    with pytest.raises(ValueError, match="one card"):
         tlaunch.main(["--arch", "qwen3_moe_235b_a22b", "--full",
                       "--device", "cpu"])
+    with pytest.raises(ValueError, match="2x2 mesh over 1 device"):
+        tlaunch.main(["--arch", "internvl2_26b", "--full", "--device", "cpu",
+                      "--mesh-data", "2", "--mesh-model", "2"])
     g = tconfigs.get_config("granite_3_2b")
     assert tlaunch.train_state_bytes(g) == 16 * g.n_params() < 80e9
+    # on one card a 2 x 2 mesh holds the state, a gathered copy of the
+    # parameters and two data shards' gradients: 20 bytes a parameter,
+    # and a little more for the leaves the model axis cannot split
+    # (the embedding's 49155 rows, replicated over it)
+    on_one = tlaunch.train_bytes_per_card(g, tlaunch.launch_mesh(2, 2, "cpu"))
+    assert 20 * g.n_params() < on_one < 21 * g.n_params() < 80e9

@@ -140,9 +140,10 @@ def main() -> int:
     return 0
 
 
-def profile_decode(torch, cfg, params, rng, smi) -> tuple[dict, list]:
-    """Fills the batcher's slots, warms up, times STEPS unprofiled steps
-    and profiles STEPS more; returns (summary, kernel rows)."""
+def profile_decode(torch, cfg, params, rng, smi, steps: int = STEPS
+                   ) -> tuple[dict, list]:
+    """Fills the batcher's slots, warms up, times ``steps`` unprofiled
+    steps and profiles ``steps`` more; returns (summary, kernel rows)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -156,15 +157,16 @@ def profile_decode(torch, cfg, params, rng, smi) -> tuple[dict, list]:
     for i, n in enumerate(PROMPT_LENS):
         batcher.submit(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab_size, size=n).astype(np.int32),
-            max_new_tokens=WARM + 2 * STEPS + 2))
+            max_new_tokens=WARM + 2 * steps + 2))
 
     def run_steps() -> float:
-        """Host ms a step over STEPS steps, ending in a synchronize."""
+        """Host ms a step over ``steps`` steps, ending in a
+        synchronize."""
         t0 = time.perf_counter()
-        for _ in range(STEPS):
+        for _ in range(steps):
             batcher.step()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / STEPS
+        return (time.perf_counter() - t0) * 1e3 / steps
 
     with L.expert_choices() as routing:
         batcher.step()           # admits, then the eager first step
@@ -179,10 +181,10 @@ def profile_decode(torch, cfg, params, rng, smi) -> tuple[dict, list]:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = run_steps()
-    rows = device_rows(torch, prof, STEPS)
+    rows = device_rows(torch, prof, steps)
     summary = {"profile": cfg.name, "slots": N_SLOTS, "max_len": MAX_LEN,
                **step_summary(torch, prof, rows, batcher.compiled, wall_ms,
-                              profiled_wall_ms, event_ms, smi),
+                              profiled_wall_ms, event_ms, smi, steps),
                "bound_ms": step_bound_ms(torch, params, batcher, chosen)}
     if chosen:
         summary["bound_all_experts_ms"] = step_bound_ms(torch, params,
@@ -207,10 +209,12 @@ def frontend_inputs(torch, cfg, batch: int, seed: int) -> dict:
     return {name: x.to(M.torch_dtype(cfg.dtype))}
 
 
-def profile_lockstep(torch, cfg, params, seed, smi) -> tuple[dict, list]:
+def profile_lockstep(torch, cfg, params, seed, smi, steps: int = STEPS
+                     ) -> tuple[dict, list]:
     """Lock-step serving of N_SLOTS prompts of FRONTEND_PROMPT tokens with
     seeded frontends (``launch.serve``'s path): prefill, WARM warm steps
-    through one ``CompiledStep``, STEPS timed unprofiled, STEPS profiled;
+    through one ``CompiledStep``, ``steps`` timed unprofiled, ``steps``
+    profiled;
     returns (summary, kernel rows) as :func:`profile_decode` does."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -222,7 +226,7 @@ def profile_lockstep(torch, cfg, params, seed, smi) -> tuple[dict, list]:
     prompt = torch.randint(0, cfg.vocab_size, (N_SLOTS, FRONTEND_PROMPT),
                            generator=gen, device="cuda")
     inputs = frontend_inputs(torch, cfg, N_SLOTS, seed + 2)
-    n_steps = WARM + 2 * STEPS
+    n_steps = WARM + 2 * steps
     cache = M.init_cache(cfg, N_SLOTS,
                          cache_len(cfg, FRONTEND_PROMPT, n_steps + 1),
                          dtype=M.torch_dtype(cfg.dtype), device="cuda")
@@ -247,10 +251,10 @@ def profile_lockstep(torch, cfg, params, seed, smi) -> tuple[dict, list]:
 
     def run_steps() -> float:
         t0 = time.perf_counter()
-        for _ in range(STEPS):
+        for _ in range(steps):
             one_step()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / STEPS
+        return (time.perf_counter() - t0) * 1e3 / steps
 
     index0 = int(cache["index"])
     for _ in range(WARM):
@@ -260,30 +264,30 @@ def profile_lockstep(torch, cfg, params, seed, smi) -> tuple[dict, list]:
     wall_ms = run_steps()
     event_ms = sorted(a.elapsed_time(b) for a, b in events)
     # the bound at the middle of the timed window's lengths
-    live = N_SLOTS * (index0 + WARM + STEPS // 2 + 1)
+    live = N_SLOTS * (index0 + WARM + steps // 2 + 1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = run_steps()
-    rows = device_rows(torch, prof, STEPS)
+    rows = device_rows(torch, prof, steps)
     summary = {"profile": cfg.name, "slots": N_SLOTS,
                "prompt_len": FRONTEND_PROMPT,
                "frontend_tokens": cfg.n_frontend_tokens,
                "max_len": cache["attn"]["k"].shape[3],
                **step_summary(torch, prof, rows, step, wall_ms,
-                              profiled_wall_ms, event_ms, smi),
+                              profiled_wall_ms, event_ms, smi, steps),
                **lockstep_bound(torch, cfg, params, cache, live)}
     return summary, rows
 
 
 def step_summary(torch, prof, rows, step, wall_ms, profiled_wall_ms,
-                 event_ms, smi) -> dict:
+                 event_ms, smi, steps: int = STEPS) -> dict:
     """A profiled window's per-step numbers: wall, device and event ms,
     the idle share, launches (the profiler's and the counted ones of
     ``step``, a ``CompiledStep``), the kernel families and the top and
     longest kernels."""
     device_ms = sum(r["ms_per_step"] for r in rows)
     return {
-        "steps": STEPS, "wall_ms_per_step": wall_ms,
+        "steps": steps, "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": profiled_wall_ms,
         "event_ms_per_step": event_ms,
         "device_ms_per_step": device_ms if rows else "not measured",
