@@ -228,7 +228,24 @@ no result line) on any error:
    unsharded steps on each data shard's slots and within 5e-2 of them
    over all slots, exact launches, the captured sharded and unsharded
    steps in turns; then the kernels at the sharded paths' shapes;
-15. prints the ``kernels`` line; each route of flash and the MLP has its
+15. the kernels' last inputs and the dry run: (a) ``stream_pipeline``
+   over 1080x1920 bf16 and f16 planes (the C4 chain on |x|, each op
+   rounded to the plane's type) within 1 ulp of the plain version, and
+   a chain whose comparison stays bool into the next stage (``~v``, ``v
+   & w``) over a float32 plane, exactly; (b) a program over int32 planes
+   (int windows with floor division and modulo, a one-byte bool window,
+   int -> float32 -> int) through ``cuda_stream``: one launch a group,
+   every output in its channel's type and equal to ``reference_eval``;
+   (c) minicpm3-4b's prefill at full width with ``mla_absorb="always"``:
+   flash on its tensor-core route at Dk 288 / Dv 256 once a layer, the
+   logits within 6e-2 * max|logits| of ``mla_absorb="decode"``'s, and
+   flash at that shape (and its float32 instance, off the path) against
+   its plain version and SDPA (the backend that took the shape, or
+   MATH, and why each fused one refused); (d) the dry run of phase 13's
+   granite-3-2b step (8 x 512, a 1 x 1 ``meta`` mesh): FLOPs, bytes,
+   the roofline terms beside phase 13's measured step median, the
+   calibrated total equal to the full count;
+16. prints the ``kernels`` line; each route of flash and the MLP has its
    own entries (``flash_attention.tc[...]``, ``fused_mlp.stream[...]``),
    each served app its ``stream_group_b8[...]``, each tuned app its
    ``stream_group.tuned[...]``, each replicated app and k its
@@ -245,7 +262,10 @@ no result line) on any error:
    ``ssd_scan[train zamba2 b=8 s=512]``), phase 14's theirs
    (``flash_attention.tc[train granite mesh=2x2 B=4 S=512]``,
    ``fused_mlp.tc[pipeline granite stage T=256]``,
-   ``decode_attention[granite mesh=2x2 B=2 len=512]``, ...).
+   ``decode_attention[granite mesh=2x2 B=2 len=512]``, ...), phase 15's
+   theirs (``stream_pipeline[bf16 c4 1080x1920]``,
+   ``stream_group[typed int32/bool]``,
+   ``flash_attention.tc[mla absorbed S=255]``, ...).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -378,6 +398,7 @@ def main() -> int:
         return 1
     import repro_torch.frontend as fe
     from repro_torch.core.apps import APPS, compile_app
+    from repro_torch.core.compiler import compile_graph
     from repro_torch.frontend.lib import GAUSS3, tables
     from repro_torch.kernels import build
     from repro_torch.kernels.stream_group import stream_group, stream_group_ref
@@ -405,21 +426,25 @@ def main() -> int:
 
     qs_app = sharpen.compile(fe.spec((QS_H, QS_W)))
     reps = replicated_apps(torch, apps)
+    typed = compile_graph(typed_graph(torch, H, W), backend="cuda_stream")
     compile_s = time.perf_counter() - t0
     kernels = [k for a in [*apps.values(), *ragged.values(), qs_app,
-                           *(r for r, _plain in reps.values())]
+                           *(r for r, _plain in reps.values()), typed]
                for k in a.kernels]
     t0 = time.perf_counter()
     lm_sources = [build.CudaSource(name) for name in LM_KERNELS]
     gate = build.CudaSource("launch_gate")     # phase 9's launch rows
     chains = pipeline_chains(torch)          # fused, and one per stage
+    typed_chains = typed_pipeline_chains(torch)
     sp_sources = {PipelineKernel(c).source for c in chains.values()} | {
-        PipelineKernel((fn,)).source for c in chains.values() for fn in c}
+        PipelineKernel((fn,)).source for c in chains.values() for fn in c} | {
+        PipelineKernel(fns, dtype).source
+        for dtype, fns in typed_chains.values()}
     build.build_libraries([("sg", k.source) for k in kernels]
                           + [(src.name, src.source) for src in lm_sources]
                           + [(gate.name, gate.source)]
                           + [("sp", src) for src in sorted(sp_sources)])
-    print(f"compiled {len(apps) + len(ragged) + 1} apps and "
+    print(f"compiled {len(apps) + len(ragged) + 2} apps and "
           f"{len(reps)} replicated apps in {compile_s:.2f} s; built "
           f"{len(kernels)} group kernels, {len(lm_sources)} LM kernels, "
           f"{len(sp_sources)} pipeline chains and the launch gate "
@@ -568,10 +593,15 @@ def main() -> int:
     lm_entries += frontend_serving(torch, timer, smi, args.seed)
 
     # -- phase 13: training, granite-3-2b and zamba2-1.2b ----------------
-    lm_entries += training_phase(torch, timer, smi, args.seed)
+    rows, granite_step_ms = training_phase(torch, timer, smi, args.seed)
+    lm_entries += rows
 
     # -- phase 14: model parallelism, granite-3-2b on a 2 x 2 mesh -------
     lm_entries += model_parallel_phase(torch, timer, smi, args.seed)
+
+    # -- phase 15: the kernels' last inputs, and the dry run -------------
+    lm_entries += last_inputs_phase(torch, timer, smi, args.seed, typed,
+                                    typed_chains, granite_step_ms)
 
     print(json.dumps({"kernels": [
         {"name": f"stream_group[{r['app']}]", "route": "cuda",
@@ -2037,7 +2067,8 @@ def train_full(torch, smi: str, seed: int, arch: str) -> dict:
     batch (kernel route against impl="ref"), then 1 + TRAIN_STEPS steps
     through ``make_train_step`` with AdamW, then one step by its parts
     (forward, backward, optimizer) for the split.  Prints the
-    ``training`` line; returns the main path's launches."""
+    ``training`` line; returns the main path's launches and the step
+    median (``step_ms``)."""
     import dataclasses
     import gc
 
@@ -2179,7 +2210,7 @@ def train_full(torch, smi: str, seed: int, arch: str) -> dict:
            "seconds": time.perf_counter() - t_model}
     print(json.dumps(row), flush=True)
     del state, params, grads, total
-    return launches
+    return {**launches, "step_ms": step_ms}
 
 
 def train_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
@@ -2343,9 +2374,10 @@ def trainer_resume(torch, smi: str, seed: int) -> dict:
     return row
 
 
-def training_phase(torch, timer, smi: str, seed: int) -> list[dict]:
-    """Phase 13; returns the training rows' entries of the kernels
-    line."""
+def training_phase(torch, timer, smi: str, seed: int
+                   ) -> tuple[list[dict], float]:
+    """Phase 13; returns the training rows' entries of the kernels line
+    and granite-3-2b's step median in ms."""
     import gc
 
     t_phase = time.perf_counter()
@@ -2370,7 +2402,8 @@ def training_phase(torch, timer, smi: str, seed: int) -> list[dict]:
     return kernel_entries(rows, {
         "flash_attention.tc": g["flash_attention.tc"],
         ("flash_attention.tc", rows[1]["shape"]): z["flash_attention.tc"],
-        "fused_mlp.tc": g["fused_mlp.tc"], "ssd_scan": z["ssd_scan"]})
+        "fused_mlp.tc": g["fused_mlp.tc"], "ssd_scan": z["ssd_scan"]}), \
+        g["step_ms"]
 
 
 # ----------------------------------------------------------------------
@@ -3866,6 +3899,309 @@ def replication_phase(torch, timer, smi: str, power_limit: float,
                           f"host has {torch.cuda.device_count()}"}),
               flush=True)
     print(json.dumps({"replication": "phase 10",
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return entries
+
+
+# ----------------------------------------------------------------------
+# phase 15: the kernels' last inputs, and the dry run
+# ----------------------------------------------------------------------
+ULP_TOL = 1.0                    # bf16 / f16 kernel vs plain, in epsilons
+ABSORB_ARCH, ABSORB_S = "minicpm3_4b", 255
+ABSORB_SIMT_S = 100              # the float32 instance at Dk 288, checked
+INT_OPS_PER_S = FP32_OPS_PER_S   # int32 outside the tensor cores: the
+                                 # float32 rate stands for it (no int32
+                                 # entry in the data sheet's table)
+
+
+def typed_pipeline_chains(torch) -> dict:
+    """Name -> (plane type, chain): the C4 chain over bf16 and over f16
+    planes (on |x|), a chain whose bool stays bool across stages (``~v``
+    and ``v & w`` after a comparison) over a float32 plane, floored ``//``
+    and ``%`` of negative values over an int32 plane, and logic over a
+    bool plane."""
+    c4 = (torch.tanh, lambda v: v * 2.0, torch.abs, torch.sqrt)
+    return {"bf16 c4": (torch.bfloat16, c4), "f16 c4": (torch.float16, c4),
+            "bool not-and": (torch.float32, (lambda v: v > 0.5,
+                                             lambda v: ~v,
+                                             lambda v: v & (v | False))),
+            "int32 arith": (torch.int32, (lambda v: v * 3 - 7,
+                                          lambda v: v // 4,
+                                          lambda v: v % 5 - 2)),
+            "bool plane": (torch.bool, (lambda v: v ^ True,
+                                        lambda v: v & (v | False)))}
+
+
+def typed_graph(torch, h: int, w: int):
+    """A traced-style program over int32 planes (the CPU tests' typed
+    program, tests/test_torch_kernel.py): an int window with floor
+    division and modulo of negative values, a bool mask, a window over
+    the mask (one byte a value), where / abs / maximum / bitwise ops,
+    true division to float32 and a float32 result cast back to int32."""
+    from repro_torch.core.graph import DataflowGraph
+    g = DataflowGraph("typed")
+    x = g.input("x", (h, w), torch.int32)
+    y = g.input("y", (h, w), torch.int32)
+    s = g.stencil(x, (3, 3), lambda p: p[1] * 3 - p[3] // 4 + p[5] % -3
+                  - p[7] // -5 + p[4] % 7, name="ints")
+    m = g.pointn([s, y], lambda a, b: (a > b) ^ (b < 0), dtype=torch.bool,
+                 name="mask")
+    e = g.stencil(m, (3, 3), lambda p: (p[1] | p[7]) & ~p[4],
+                  dtype=torch.bool, name="edge")
+    q = g.pointn([s, e, y], lambda a, f, b: torch.where(
+        f, torch.abs(a), torch.maximum(b, a) // 2) ^ (b & 6), name="pick")
+    r = g.point(q, lambda v: v / 4, dtype=torch.float32, name="ratio")
+    back = g.point(r, lambda v: v * 2.5 - 1.0, dtype=torch.int32, name="back")
+    for ch, name in ((q, "q"), (e, "edge"), (r, "ratio"), (back, "back")):
+        g.output(ch, name)
+    return g
+
+
+def ulps(torch, got, want) -> float:
+    """The largest |got - want| in units of the plane type's epsilon x
+    |want| (at least its smallest normal), NaN where ``want`` has NaN."""
+    nan = torch.isnan(want.float())
+    check(torch.equal(torch.isnan(got.float()), nan),
+          "NaN where the plain version has none, or the other way")
+    info = torch.finfo(want.dtype)
+    unit = (info.eps * want.float().abs()).clamp_min(info.tiny)
+    return float(((got.float() - want.float()).abs() / unit)[~nan].max())
+
+
+def sdpa_backends(torch, fn) -> tuple[str | None, dict]:
+    """Which of SDPA's fused backends takes ``fn``'s call (the first of
+    cuDNN, flash, memory-efficient that runs it), and why each other one
+    refused."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    refused = {}
+    for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(b):
+                fn()
+                torch.cuda.synchronize()
+            return b.name, refused
+        except RuntimeError as e:
+            refused[b.name] = str(e).splitlines()[0][:160]
+    return None, refused
+
+
+def last_inputs_phase(torch, timer, smi: str, seed: int, typed,
+                      typed_chains: dict, granite_step_ms: float
+                      ) -> list[dict]:
+    """Phase 15; returns its kernels' entries of the kernels line."""
+    import dataclasses
+    import gc
+
+    import torch.nn.functional as F
+    import repro_torch.kernels.stream_pipeline as sp
+    from repro_torch.configs import get_config
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.core.graph import as_dtype
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.stream_group import stream_group, stream_group_ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+
+    t_phase = time.perf_counter()
+    gc.collect()                       # phase 14's states are gone
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    entries, split = [], {}
+
+    def entry(name, source, replaces, launches, row):
+        print(json.dumps({"kernel": name, **row, "launches": launches,
+                          "card": smi}), flush=True)
+        check(row["bound_ms"] <= 1.05 * row["ms"],
+              f"{name}: {row['ms']:.5f} ms is under its bound "
+              f"{row['bound_ms']:.5f} ms: the timing or the bound is wrong")
+        entries.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches,
+                        **{k: row[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
+
+    # (a) stream_pipeline over bf16 and f16 planes, and a bool kept bool
+    t0 = time.perf_counter()
+    for name, (dtype, fns) in typed_chains.items():
+        x = torch.randn(H, W, device="cuda", generator=gen)
+        if dtype in (torch.int32, torch.bool):
+            x = (x * 1000).to(torch.int32)
+            x = x > 0 if dtype == torch.bool else x
+        else:
+            x = (x.abs() if dtype != torch.float32 else x).to(dtype)
+        sp.stream_pipeline.launches = 0
+        out = sp.stream_pipeline(x, fns)
+        torch.cuda.synchronize()
+        launches = sp.stream_pipeline.launches
+        check(launches == 1 and out.dtype == dtype
+              and tuple(out.shape) == (H, W),
+              f"stream_pipeline[{name}]: {launches} launches, {out.dtype}")
+        want = sp.stream_pipeline_ref(x, fns)
+        err = float((out.float() - want.float()).abs().max())
+        row = {"plane": [H, W], "dtype": str(dtype), "max_abs_err": err}
+        if not dtype.is_floating_point or dtype == torch.float32:
+            check(torch.equal(out, want),   # logic and ints only: exact
+                  f"stream_pipeline[{name}] differs")
+        else:
+            row["max_ulps"] = ulps(torch, out, want)
+            check(row["max_ulps"] <= ULP_TOL, f"stream_pipeline[{name}]: "
+                  f"{row['max_ulps']:.2f} ulp from the plain version")
+        n = H * W
+        kernel = sp.PipelineKernel(fns, dtype)
+        row.update(lm_bound(2 * x.element_size() * n,
+                            kernel.ops_per_element() * n,
+                            INT_OPS_PER_S if dtype == torch.int32
+                            else FP32_OPS_PER_S))
+        row.update(ms=timer(lambda: sp.stream_pipeline(x, fns)),
+                   plain_ms=timer(lambda: sp.stream_pipeline_ref(x, fns)),
+                   library_ms=None)
+        entry(f"stream_pipeline[{name} {H}x{W}]", PIPELINE_SOURCE,
+              PIPELINE_REPLACES, launches, row)
+    split["pipeline"] = time.perf_counter() - t0
+
+    # (b) the group kernel over int32 and bool channels
+    t0 = time.perf_counter()
+    g = typed.schedule.graph
+    ins = {c.name: torch.randint(-60, 60, c.shape, device="cuda",
+                                 generator=gen, dtype=torch.int32)
+           for c in g.graph_inputs}
+    stream_group.launches = 0
+    out = typed(**ins)
+    torch.cuda.synchronize()
+    launches = stream_group.launches
+    check(launches == len(typed.schedule.groups),
+          f"typed: {launches} launches for {len(typed.schedule.groups)} "
+          f"groups")
+    ref = g.reference_eval(ins)
+    for name, want in ref.items():
+        check(out[name].dtype == want.dtype and torch.equal(out[name], want),
+              f"typed: output {name} differs from reference_eval")
+    (kernel,) = typed.kernels
+    kin = [ins[c.name] for c in kernel.group.inputs]
+    n = H * W
+    row = {"plane": [H, W], "kinds": sorted(set(kernel.kinds.values())),
+           "outputs": {c.name: str(out[c.name].dtype) for c in
+                       g.graph_outputs}, "max_abs_err": 0.0,
+           **lm_bound(n * sum(as_dtype(c.dtype).itemsize for c in (
+               *kernel.group.inputs, *kernel.group.outputs)),
+               kernel.ops_per_element() * n, INT_OPS_PER_S),
+           "ms": timer(lambda: stream_group(kernel, kin)),
+           "plain_ms": timer(lambda: stream_group_ref(kernel.group, kin)),
+           "library_ms": None}
+    entry("stream_group[typed int32/bool]", KERNEL_SOURCE, REPLACES,
+          launches, row)
+    split["group"] = time.perf_counter() - t0
+
+    # (c) minicpm3-4b's absorbed prefill: flash at Dk 288 / Dv 256
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ABSORB_ARCH), mla_absorb="always")
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    counters = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention, "fused_mlp": fused_mlp}
+    toks = torch.randint(0, cfg.vocab_size, (1, ABSORB_S), device="cuda",
+                         generator=gen)
+    reset_counts(counters)
+    logits, _ = M.prefill(params, cfg, toks, M.init_cache(
+        cfg, 1, ABSORB_S + 1, dtype=torch.float32, device="cuda"))
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    L = cfg.n_layers
+    check(counts["flash_attention.tc"] == L and counts["decode_attention"]
+          == 0 and counts["flash_attention.simt"] == 0,
+          f"absorbed prefill: launches {counts}")
+    up = dataclasses.replace(cfg, mla_absorb="decode")
+    want, _ = M.prefill(params, up, toks, M.init_cache(
+        up, 1, ABSORB_S + 1, dtype=torch.float32, device="cuda"))
+    rel = float((logits - want).abs().max() / want.abs().max())
+    check(bool(torch.isfinite(logits).all()) and rel <= MLA_LOGIT_TOL,
+          f"absorbed prefill vs mla_absorb='decode': {rel:.3e}")
+    print(json.dumps({"absorbed_prefill": ABSORB_ARCH, "prompt": ABSORB_S,
+                      "launches": counts, "logits_rel_vs_decode_absorb": rel,
+                      "tol": MLA_LOGIT_TOL, "card": smi}), flush=True)
+    del params, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    Hq, r, kr = cfg.n_heads, cfg.kv_lora_rank, cfg.rope_head_dim
+    Dk, Dv, sc = r + kr, r, (cfg.hd + kr) ** -0.5
+    for S, dtype, route in ((ABSORB_S, torch.bfloat16, "tc"),
+                            (ABSORB_SIMT_S, torch.float32, "simt")):
+        q = torch.randn(1, Hq, S, Dk, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(1, 1, S, Dk, device="cuda", generator=gen).to(dtype)
+        v = k[..., :Dv]                # the latent rows: [c_kv ; k_rope]
+        kern = lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True,
+                                                     scale=sc)
+        plain = lambda q=q, k=k, v=v: R.flash_attention_ref(
+            q, k, v, causal=True, scale=sc)
+        tol = LM_PATH_TOL if dtype == torch.bfloat16 else LM_F32_TOL
+        before = getattr(flash_attention, f"{route}_launches")
+        err = compare_close(torch, f"flash_attention.{route}[mla absorbed "
+                            f"S={S}]", kern(), plain(), tol)
+        check(getattr(flash_attention, f"{route}_launches") == before + 1,
+              f"flash at Dk {Dk}: not on the {route} route")
+        sdpa = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True, scale=sc)
+        backend, refused = sdpa_backends(torch, sdpa)
+
+        def lib(sdpa=sdpa, b=getattr(SDPBackend, backend or "MATH")):
+            with sdpa_kernel(b):       # the backend that took the shape
+                return sdpa()
+        compare_close(torch, f"sdpa[mla absorbed S={S}]", lib(), plain(),
+                      tol)
+        pairs = S * (S + 1) // 2
+        row = {"shape": f"mla absorbed S={S} Dk={Dk} Dv={Dv}",
+               "max_abs_err": err, "ms": timer(kern),
+               "plain_ms": timer(plain), "library_ms": timer(lib),
+               "sdpa_backend": backend or "MATH (every fused one refused)",
+               "sdpa_refused": refused,
+               **lm_bound(q.element_size() * S * (Hq * Dk + Dk + Dv + Hq * Dv),
+                          2 * Hq * (Dk + Dv) * pairs,
+                          BF16_OPS_PER_S if route == "tc"
+                          else FP32_OPS_PER_S)}
+        name = f"flash_attention.{route}[mla absorbed S={S}]"
+        if route == "tc":              # the main path's instance
+            entry(name, LM_KERNELS["flash_attention"][0],
+                  LM_KERNELS["flash_attention"][1],
+                  counts["flash_attention.tc"], row)
+        else:                          # checked and timed; off the path
+            print(json.dumps({"kernel": name, **row, "card": smi}),
+                  flush=True)
+    split["absorbed"] = time.perf_counter() - t0
+
+    # (d) the dry run's count of phase 13's granite step, its roofline
+    t0 = time.perf_counter()
+    gcfg = get_config("granite_3_2b")
+    drow = dryrun.run_cell(
+        "granite_3_2b", "train_8x512", cfg=gcfg,
+        shape=ShapeConfig("train_8x512", 512, 8, "train"),
+        mesh=make_local_mesh(1, 1, devices=["meta"]), mesh_name="1x1",
+        overrides={"microbatches": gcfg.microbatches, "remat": gcfg.remat})
+    check(drow["status"] == "ok" and all(
+        drow["calibration"]["matches"].values()),
+        f"dry run: {drow.get('status')}, calibration "
+        f"{drow.get('calibration', {}).get('matches')}")
+    terms = {k: drow[f"t_{k}"] * 1e3 for k in ("compute", "memory",
+                                                 "collective")}
+    print(json.dumps({
+        "dryrun": "granite_3_2b train 8x512 on a 1x1 meta mesh",
+        "flops": drow["hlo_flops"], "bytes": drow["hlo_bytes"],
+        "model_flops": drow["model_flops"],
+        "useful_ratio": drow["useful_ratio"], "terms_ms": terms,
+        "dominant": drow["dominant"], "bytes_per_chip": drow["bytes_per_chip"],
+        "phase13_step_ms": granite_step_ms,
+        "roofline_share": max(terms.values()) / granite_step_ms,
+        "compute_share": terms["compute"] / granite_step_ms,
+        "trace_s": drow["trace_s"], "calib_s": drow["calib_s"],
+        "card": smi}), flush=True)
+    split["dryrun"] = time.perf_counter() - t0
+    print(json.dumps({"last_inputs": "phase 15", "split_s": split,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     return entries
 

@@ -16,8 +16,9 @@
 // Two routes; the wrapper (kernels/flash_attention.py, `route`) picks one
 // from the operands' types and head dims:
 //
-// flash_attention_tc_launch -- bf16 q, k and v, Dk and Dv multiples of 16
-// up to 256 (the serving path).  Tensor cores: mma.sync m16n8k16 bf16 ->
+// flash_attention_tc_launch -- bf16 q, k and v, Dk and Dv multiples of 16,
+// Dk <= 288 and Dv <= 256 (the serving path; Dk 288 / Dv 256 is MLA's
+// absorbed prefill, q and k over [c_kv ; k_rope], v over c_kv).  Tensor cores: mma.sync m16n8k16 bf16 ->
 // float32 from ldmatrix fragments.  A block takes 64 query rows of one
 // (batch, query head), 16 rows a warp; q-blocks with the most causal tiles
 // are launched first.  Q and 64-key tiles of K and V reach shared memory by
@@ -36,6 +37,13 @@
 // Only tiles that cross the causal diagonal or the ragged end of the keys
 // are masked; a warp skips a tile that lies wholly above its rows'
 // diagonal.
+//   The k-loop steps by 16 over Dk and skips the chunks past the call's Dk,
+// so an instance serves every Dk up to its own: <64, 64>, <128, 128>,
+// <256, 256> and <288, 256> (288 = 18 x 16; no tile assumes a power of
+// two).  The <288, 256> instance holds Q (64 x 296 bf16, 37.9 KB) and two
+// stages of K and V tiles (2 x 64 x (296 + 264) bf16, 143.4 KB) in 181.2 KB
+// of shared memory, inside the 227 KB a block may take; O's accumulator is
+// Dv = 256 wide, as the <256, 256> instance's.
 //   At the served lengths (Sk <= 512: at most 8 tiles) a launch is latency,
 // not work: the bytes bound it under a microsecond.  So up to 4 tiles go
 // in flight at once (4 stages) and two key groups of 4 warps take
@@ -47,8 +55,9 @@
 // kernel is 3x SDPA (PERF.md), the work for a wgmma redesign.
 //
 // flash_attention_launch -- float32 or mixed-type operands, or head dims
-// the tensor-core route does not take.  Float32 on the CUDA cores: one
-// block of 128 threads per (batch, query head, 32 query rows); four
+// the tensor-core route does not take (any Dk, Dv <= 288).  Float32 on
+// the CUDA cores: one block of 128 threads per (batch, query head, 32
+// query rows); four
 // threads share a row, each holding 16 of a 64-key tile's logits and a
 // quarter of the row's accumulator in registers; Q, K, V and the tile's
 // probabilities in shared memory (rows padded by one float).  It holds the
@@ -231,6 +240,8 @@ int launch_d(const void* q, const void* k, const void* v, const float* bias,
   if (d <= 64) return launch<TQ, TKV, 64>(q, k, v, bias, o, a, stream);
   if (d <= 128) return launch<TQ, TKV, 128>(q, k, v, bias, o, a, stream);
   if (d <= 256) return launch<TQ, TKV, 256>(q, k, v, bias, o, a, stream);
+  // 188.5 KB of shared memory: MLA's absorbed prefill in float32
+  if (d <= 288) return launch<TQ, TKV, 288>(q, k, v, bias, o, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -267,8 +278,8 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // Copies rows [r0, r0 + ROWS) of a (., D) bf16 matrix, D <= DMAX, with
 // row stride ld_g into shared memory rows of stride LD; rows at or past n
-// are zero.  The chunk count is a compile-time power of two, so the loop
-// has a fixed trip count and no division.
+// are zero.  The chunk count is a compile-time constant, so the loop has
+// a fixed trip count and divides by a constant.
 template <int LD, int ROWS, int DMAX, int NT>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           long long ld_g, int r0, int n,
@@ -606,9 +617,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core route: bf16 q, k, v and o; Dk and Dv multiples of 16 up
-// to 256; every pointer and row stride 16-byte aligned (the wrapper
-// checks).  Same arguments as flash_attention_launch, without the types.
+// The tensor-core route: bf16 q, k, v and o; Dk and Dv multiples of 16,
+// Dk <= 288 and Dv <= 256; every pointer and row stride 16-byte aligned
+// (the wrapper checks).  Same arguments as flash_attention_launch, without the types.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, const void* bias,
                                          void* o, const int* dims,
@@ -622,6 +633,8 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   if (d <= 64) return tc::launch_split<64, 64>(q, k, v, bp, o, a, st);
   if (d <= 128) return tc::launch_split<128, 128>(q, k, v, bp, o, a, st);
   if (d <= 256) return tc::launch<256, 256, 2, 1>(q, k, v, bp, o, a, st);
+  if (a.Dk <= 288 && a.Dv <= 256)
+    return tc::launch<288, 256, 2, 1>(q, k, v, bp, o, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

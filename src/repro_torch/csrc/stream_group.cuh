@@ -2,8 +2,7 @@
 //
 // Replaces the TPU kernel `lower_group_pallas` / `_group_kernel` of
 // src/repro/core/fusion.py.  One thread block computes one (TH, TW)
-// output tile of a fusion group over an (H, W) float32 plane, in two
-// phases:
+// output tile of a fusion group over an (H, W) plane, in two phases:
 //
 //   1. the windowed phase, for channels with a halo (a later stencil reads
 //      them off-centre): load_window puts every such group input's
@@ -29,9 +28,18 @@
 // A barrier is emitted only before a pass that reads a window written by
 // other threads since the last one (the generator tracks it).  Windows
 // start PX = HX rounded up to 4 columns left of the tile, so their rows
-// are 16-byte aligned in device and shared memory: loads and stores are
-// float4 where the plane's width is a multiple of 4 and the pointers are
-// 16-byte aligned (VEC), scalar at the plane's edges otherwise.
+// start on a chunk of 4 values in device and shared memory: loads and
+// stores take whole chunks where the plane's width is a multiple of 4 and
+// the pointers are 16-byte aligned (VEC), scalar at the plane's edges
+// otherwise.
+//
+// Every channel keeps its own type T in device and shared memory (float,
+// int, bool as one byte, __nv_bfloat16, __half; the reference's outputs
+// take their channel's dtype) and computes in C(T): float for the float
+// types, else T.  A chunk of kVec values is one access of 4 x sizeof(T)
+// bytes: 16 for float and int, 8 for bf16 and f16, 4 for bool.  Windows
+// lie in shared memory by decreasing element size, so each starts aligned
+// to its chunk.
 //
 // A generated source (repro_torch/kernels/stream_group.py) includes this
 // header and supplies only the stage expressions and the channel layout.
@@ -46,8 +54,13 @@
 // it is the arithmetic.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace sg {
 
@@ -78,10 +91,104 @@ __device__ __forceinline__ float sign(float a) {
   return (float)((0.0f < a) - (a < 0.0f));
 }
 
+// Python's (and jnp's) floor division and modulo of floats, as torch
+// computes them (div_floor_floating, remainder).
+__device__ __forceinline__ float floordiv(float a, float b) {
+  if (b == 0.0f) return a / b;
+  const float m = fmodf(a, b);
+  float d = (a - m) / b;
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) d -= 1.0f;
+  if (d == 0.0f) return copysignf(0.0f, a / b);
+  float f = floorf(d);
+  if (d - f > 0.5f) f += 1.0f;
+  return f;
+}
+__device__ __forceinline__ float mod(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+  return m;
+}
+
+// int32 arithmetic wraps at 32 bits, as torch's and XLA's does.
+__device__ __forceinline__ int iadd(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+__device__ __forceinline__ int isub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+__device__ __forceinline__ int imul(int a, int b) {
+  return (int)((unsigned)a * (unsigned)b);
+}
+__device__ __forceinline__ int ineg(int a) { return (int)(0u - (unsigned)a); }
+__device__ __forceinline__ int iabs(int a) { return a < 0 ? ineg(a) : a; }
+__device__ __forceinline__ int isign(int a) { return (0 < a) - (a < 0); }
+__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+// Floor division and modulo of ints (C truncates).  A zero divisor gives
+// -1 and a (XLA's); INT_MIN // -1 wraps.
+__device__ __forceinline__ int floordiv(int a, int b) {
+  if (b == 0) return -1;
+  if (b == -1) return ineg(a);
+  const int q = a / b;
+  return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+__device__ __forceinline__ int mod(int a, int b) {
+  if (b == 0) return a;
+  if (b == -1) return 0;
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// A float32 result rounded to bf16 / f16 (nearest even), as each op on a
+// bf16 or f16 array rounds.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ float round_f16(float v) {
+  return __half2float(__float2half(v));
+}
+
+// A stored value's compute type C(T), and the conversions between them.
+template <class T> struct Compute { using type = T; };
+template <> struct Compute<__nv_bfloat16> { using type = float; };
+template <> struct Compute<__half> { using type = float; };
+template <class T> using compute_t = typename Compute<T>::type;
+
+template <class T>
+__device__ __forceinline__ compute_t<T> widen(T v) { return v; }
+template <>
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+
+template <class T>
+__device__ __forceinline__ T narrow(compute_t<T> v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half>(float v) {
+  return __float2half(v);
+}
+
+template <class T>
+__device__ __forceinline__ T zero() { return narrow<T>(compute_t<T>(0)); }
+
+// One value from device memory (read-only path for float).
+template <class T>
+__device__ __forceinline__ T ldg1(const T* p) {
+  if constexpr (std::is_same<T, float>::value) return __ldg(p);
+  else return *p;
+}
+
 // Read of a split arm whose source is a group input: the arm is masked
 // to the valid row band like every stage output, the input is not.
-__device__ __forceinline__ float row_masked(float v, int gy, int r0, int r1) {
-  return (gy >= r0 && gy < r1) ? v : 0.0f;
+template <class V>
+__device__ __forceinline__ V row_masked(V v, int gy, int r0, int r1) {
+  return (gy >= r0 && gy < r1) ? v : V(0);
 }
 
 // A window's left (and right) margin: the halo rounded up to 4 columns.
@@ -112,38 +219,78 @@ __device__ __forceinline__ void load_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// kVec values of T as one access of 4 x sizeof(T) bytes.
+struct alignas(8) Bytes8 { unsigned a, b; };
+template <class T>
+using Chunk = typename std::conditional<
+    sizeof(T) == 4, float4,
+    typename std::conditional<sizeof(T) == 2, Bytes8, unsigned>::type>::type;
+
+// Chunk p (aligned to its size) of device memory into v, read once.
+template <class T>
+__device__ __forceinline__ void load_chunk(T (&v)[kVec], const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 t = ldg4(reinterpret_cast<const float*>(p));
+    memcpy(v, &t, 16);
+  } else {
+    const Chunk<T> t = *reinterpret_cast<const Chunk<T>*>(p);
+    memcpy(v, &t, sizeof(t));
+  }
+}
+
+// A chunk of shared (or device) memory, plain access.
+template <class T>
+__device__ __forceinline__ void read_chunk(T (&v)[kVec], const T* p) {
+  const Chunk<T> t = *reinterpret_cast<const Chunk<T>*>(p);
+  memcpy(v, &t, sizeof(t));
+}
+template <class T>
+__device__ __forceinline__ void write_chunk(T* p, const T (&v)[kVec]) {
+  Chunk<T> t;
+  memcpy(&t, v, sizeof(t));
+  *reinterpret_cast<Chunk<T>*>(p) = t;
+}
+
 // Rows [y0-HY, y0+TH+HY) x cols [x0-PX, x0+TW+PX) of src into dst (row
-// stride TW+2PX), zero outside the plane; one 16-byte chunk per step, by
-// cp.async where it lies in the plane (VEC), scalar loads otherwise.
-template <bool VEC, int H, int W, int TH, int TW, int HY, int HX>
-__device__ __forceinline__ void load_window(float* __restrict__ dst,
-                                            const float* __restrict__ src,
+// stride TW+2PX), zero outside the plane; one chunk per step, where it lies
+// in the plane (VEC) by cp.async for 4-byte types and a plain copy for the
+// narrower ones, by scalar loads otherwise.
+template <bool VEC, int H, int W, int TH, int TW, int HY, int HX, class T>
+__device__ __forceinline__ void load_window(T* __restrict__ dst,
+                                            const T* __restrict__ src,
                                             int y0, int x0) {
   constexpr int PX = pad4(HX), PW = TW + 2 * PX, CH = PW / 4;
   constexpr int N = (TH + 2 * HY) * CH;
   for (int i = threadIdx.x; i < N; i += kThreads) {
     const int r = i / CH, c = (i - r * CH) * 4;
     const int gy = y0 + r - HY, gx = x0 + c - PX;
-    float* d = dst + r * PW + c;
+    T* d = dst + r * PW + c;
     if (VEC && gy >= 0 && gy < H && gx >= 0 && gx + 3 < W) {
-      cp_async16(d, src + (size_t)gy * W + gx);
+      const T* s = src + (size_t)gy * W + gx;
+      if constexpr (sizeof(T) == 4) {
+        cp_async16(reinterpret_cast<float*>(d),
+                   reinterpret_cast<const float*>(s));
+      } else {
+        T v[kVec];
+        read_chunk(v, s);
+        write_chunk(d, v);
+      }
     } else {
       const bool row = gy >= 0 && gy < H;
-      const float* p = src + (long long)gy * W + gx;
-      float4 v;
-      v.x = (row && gx >= 0 && gx < W) ? __ldg(p) : 0.0f;
-      v.y = (row && gx + 1 >= 0 && gx + 1 < W) ? __ldg(p + 1) : 0.0f;
-      v.z = (row && gx + 2 >= 0 && gx + 2 < W) ? __ldg(p + 2) : 0.0f;
-      v.w = (row && gx + 3 >= 0 && gx + 3 < W) ? __ldg(p + 3) : 0.0f;
-      *reinterpret_cast<float4*>(d) = v;
+      const T* p = src + (long long)gy * W + gx;
+      T v[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        v[e] = (row && gx + e >= 0 && gx + e < W) ? ldg1(p + e) : zero<T>();
+      write_chunk(d, v);
     }
   }
 }
 
 // A stage with halo (HY, HX) over its region, one element per thread and
-// step, into its window.
-template <int W, int TH, int TW, int HY, int HX, class F>
-__device__ __forceinline__ void eval_region(float* __restrict__ dst, int y0,
+// step, into its window; f returns the value in C(T).
+template <int W, int TH, int TW, int HY, int HX, class T, class F>
+__device__ __forceinline__ void eval_region(T* __restrict__ dst, int y0,
                                             int x0, int r0, int r1, F f) {
   constexpr int PX = pad4(HX), PW = TW + 2 * PX, RW = TW + 2 * HX;
   constexpr int N = (TH + 2 * HY) * RW;
@@ -153,57 +300,62 @@ __device__ __forceinline__ void eval_region(float* __restrict__ dst, int y0,
     const int gy = y0 + ly;
     const int gx = x0 + lx;
     dst[(ly + HY) * PW + lx + PX] =
-        (gy >= r0 && gy < r1 && gx >= 0 && gx < W) ? f(ly, lx) : 0.0f;
+        (gy >= r0 && gy < r1 && gx >= 0 && gx < W) ? narrow<T>(f(ly, lx))
+                                                   : zero<T>();
   }
 }
 
 // Columns [lx-R, lx+kVec+R) of tile row `row` of a window with halo
 // (HY, HX), R a multiple of 4 (at most PX): dst[j] is column lx - R + j.
-template <int TW, int HY, int HX, int R>
-__device__ __forceinline__ void window_row(float (&dst)[kVec + 2 * R],
-                                           const float* __restrict__ win,
+template <int TW, int HY, int HX, int R, class T>
+__device__ __forceinline__ void window_row(compute_t<T> (&dst)[kVec + 2 * R],
+                                           const T* __restrict__ win,
                                            int row, int lx) {
   constexpr int PX = pad4(HX), PW = TW + 2 * PX;
   static_assert(R % 4 == 0 && R <= PX, "window_row reads inside the window");
-  const float* p = win + (row + HY) * PW + lx + PX - R;
+  const T* p = win + (row + HY) * PW + lx + PX - R;
 #pragma unroll
   for (int j = 0; j < (kVec + 2 * R) / 4; ++j) {
-    const float4 v = *reinterpret_cast<const float4*>(p + 4 * j);
-    dst[4 * j] = v.x;
-    dst[4 * j + 1] = v.y;
-    dst[4 * j + 2] = v.z;
-    dst[4 * j + 3] = v.w;
+    T v[kVec];
+    read_chunk(v, p + 4 * j);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[4 * j + e] = widen(v[e]);
   }
 }
 
 // kVec elements of a row of a group input from device memory; zero past
 // the plane (those outputs are never stored).
-template <bool VEC, int H, int W>
-__device__ __forceinline__ void load4(float (&v)[kVec],
-                                      const float* __restrict__ src, int gy,
+template <bool VEC, int H, int W, class T>
+__device__ __forceinline__ void load4(compute_t<T> (&v)[kVec],
+                                      const T* __restrict__ src, int gy,
                                       int gx) {
-  const float* p = src + (size_t)gy * W + gx;
+  const T* p = src + (size_t)gy * W + gx;
+  T t[kVec];
   if (VEC && gy < H && gx + 3 < W) {
-    const float4 t = ldg4(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    load_chunk(t, p);
   } else {
 #pragma unroll
     for (int e = 0; e < kVec; ++e)
-      v[e] = (gy < H && gx + e < W) ? __ldg(p + e) : 0.0f;
+      t[e] = (gy < H && gx + e < W) ? ldg1(p + e) : zero<T>();
   }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) v[e] = widen(t[e]);
 }
 
-template <bool VEC, int H, int W>
-__device__ __forceinline__ void store4(float* __restrict__ dst, int gy,
-                                       int gx, const float (&v)[kVec]) {
+template <bool VEC, int H, int W, class T>
+__device__ __forceinline__ void store4(T* __restrict__ dst, int gy, int gx,
+                                       const compute_t<T> (&v)[kVec]) {
   if (gy >= H) return;
-  float* p = dst + (size_t)gy * W + gx;
+  T* p = dst + (size_t)gy * W + gx;
+  T t[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) t[e] = narrow<T>(v[e]);
   if (VEC && gx + 3 < W) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    write_chunk(p, t);
   } else {
 #pragma unroll
     for (int e = 0; e < kVec; ++e)
-      if (gx + e < W) p[e] = v[e];
+      if (gx + e < W) p[e] = t[e];
   }
 }
 
@@ -223,31 +375,41 @@ __device__ __forceinline__ float4 ldg4_stream(const float* p) {
 
 // Chunk c of the flat plane: elements [kVec c, kVec c + kVec) of the H*W
 // plane, zero past its end.
-template <bool VEC, int H, int W>
-__device__ __forceinline__ void load4_flat(float (&v)[kVec],
-                                           const float* __restrict__ src,
+template <bool VEC, int H, int W, class T>
+__device__ __forceinline__ void load4_flat(compute_t<T> (&v)[kVec],
+                                           const T* __restrict__ src,
                                            int c) {
   const long long i = (long long)kVec * c;
+  T t[kVec];
   if (VEC && i + 3 < (long long)H * W) {
-    const float4 t = ldg4_stream(src + i);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    if constexpr (sizeof(T) == 4) {
+      const float4 f = ldg4_stream(reinterpret_cast<const float*>(src + i));
+      memcpy(t, &f, 16);
+    } else {
+      read_chunk(t, src + i);
+    }
   } else {
 #pragma unroll
     for (int e = 0; e < kVec; ++e)
-      v[e] = i + e < (long long)H * W ? __ldg(src + i + e) : 0.0f;
+      t[e] = i + e < (long long)H * W ? ldg1(src + i + e) : zero<T>();
   }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) v[e] = widen(t[e]);
 }
 
-template <bool VEC, int H, int W>
-__device__ __forceinline__ void store4_flat(float* __restrict__ dst, int c,
-                                            const float (&v)[kVec]) {
+template <bool VEC, int H, int W, class T>
+__device__ __forceinline__ void store4_flat(T* __restrict__ dst, int c,
+                                            const compute_t<T> (&v)[kVec]) {
   const long long i = (long long)kVec * c;
+  T t[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) t[e] = narrow<T>(v[e]);
   if (VEC && i + 3 < (long long)H * W) {
-    *reinterpret_cast<float4*>(dst + i) = make_float4(v[0], v[1], v[2], v[3]);
+    write_chunk(dst + i, t);
   } else {
 #pragma unroll
     for (int e = 0; e < kVec; ++e)
-      if (i + e < (long long)H * W) dst[i + e] = v[e];
+      if (i + e < (long long)H * W) dst[i + e] = t[e];
   }
 }
 

@@ -16,9 +16,10 @@ class DeviceUnavailableError(RuntimeError):
 
 
 class NotPortedError(NotImplementedError):
-    """A keyword or feature of :mod:`repro` that the port has not reached
-    yet (MLA's absorbed prefill, a kernel's input types).  The message
-    says which."""
+    """An input of :mod:`repro` that the port does not take.  Only one is
+    left: a 64-bit plane for ``stream_pipeline``, which the reference too
+    runs only as float32 (JAX's default ``jax_enable_x64=False`` turns it
+    into float32 before the kernel).  The message says which."""
 
 
 def resolve_device(device=None) -> torch.device:

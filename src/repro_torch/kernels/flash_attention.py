@@ -10,15 +10,16 @@ the model's head-major views need no copy.
 Two routes, chosen by :func:`route` from the operands' types and head
 dims alone:
 
-- ``"tc"``: bf16 q, k and v with Dk and Dv multiples of 16 up to 256
-  (the serving path).  Tensor cores (``mma.sync`` m16n8k16, bf16 in,
+- ``"tc"``: bf16 q, k and v with Dk and Dv multiples of 16, Dk up to
+  :data:`MAX_DK` (288) and Dv up to :data:`MAX_DV` (256): the serving
+  path, MLA's absorbed prefill (Dk 288, Dv 256) included.  Tensor cores (``mma.sync`` m16n8k16, bf16 in,
   float32 accumulate), K and V tiles in flight by ``cp.async`` while
   the block computes, two key groups per block at Sk <= 512; the
   probabilities are rounded to bf16 for the PV product, the one
   rounding point the TPU kernel does not have.  Every row stride and
   pointer must be 16-byte aligned.
 - ``"simt"``: everything else (float32 or mixed types, other head
-  dims), float32 on the CUDA cores; it holds the float32 oracle to
+  dims up to the same limits), float32 on the CUDA cores; it holds the float32 oracle to
   1e-5, which bf16 tensor cores cannot.
 
 Unlike the TPU kernel, both offset the causal mask by ``Sk - Sq`` (the
@@ -47,10 +48,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launch import call_device, dtype_code, stream_of
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention", "route", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "route", "MAX_DK", "MAX_DV"]
 
-#: the largest Dk or Dv the kernel takes
-MAX_HEAD_DIM = 256
+#: the largest Dk and Dv the kernels take (kv_lora_rank + rope_head_dim
+#: and kv_lora_rank of MLA's absorbed prefill)
+MAX_DK, MAX_DV = 288, 256
 
 _SOURCE = build.CudaSource("flash_attention")
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
@@ -63,10 +65,10 @@ _TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_void_p, ctypes.c_void_p,
 def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, dk: int,
           dv: int) -> str:
     """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 q,
-    k and v with Dk and Dv multiples of 16 up to 256, else ``"simt"``
-    (float32 on the CUDA cores)."""
-    if (q_dtype == kv_dtype == torch.bfloat16
-            and all(d % 16 == 0 and 0 < d <= MAX_HEAD_DIM for d in (dk, dv))):
+    k and v with Dk and Dv multiples of 16, Dk <= :data:`MAX_DK` and
+    Dv <= :data:`MAX_DV`, else ``"simt"`` (float32 on the CUDA cores)."""
+    if (q_dtype == kv_dtype == torch.bfloat16 and dk % 16 == 0
+            and dv % 16 == 0 and 0 < dk <= MAX_DK and 0 < dv <= MAX_DV):
         return "tc"
     return "simt"
 
@@ -109,9 +111,9 @@ def _launch(q, k, v, bias, causal, scale) -> tuple[torch.Tensor, str | None]:
             or Hkv == 0 or Hq % Hkv):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
-    if max(Dk, Dv) > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {max(Dk, Dv)} > "
-                         f"{MAX_HEAD_DIM}")
+    if Dk > MAX_DK or Dv > MAX_DV:
+        raise ValueError(f"flash_attention: head dims Dk {Dk}, Dv {Dv}; "
+                         f"the kernels take Dk <= {MAX_DK}, Dv <= {MAX_DV}")
     if B * Hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {B * Hq} > 65535")
     if k.dtype != v.dtype:

@@ -4,9 +4,11 @@ Replaces the TPU kernel ``lower_group_pallas`` / ``_group_kernel``
 (``src/repro/core/fusion.py``) with one CUDA kernel per fusion group,
 generated from the group and built by :mod:`repro_torch.kernels.build`.
 The kernel's fixed part is hand-written in ``csrc/stream_group.cuh``
-(halo-window copies, masked region evaluation, 16-byte loads and
-stores); per group, :class:`GroupKernel` emits the channel layout, the
-barriers and each stage's body, recorded by
+(halo-window copies, masked region evaluation, loads and stores of four
+values at once: 16 bytes for float32 and int32, 8 for bf16 and f16, 4
+for bool); per group, :class:`GroupKernel` emits the channel layout
+(each channel in its own type, as the reference gives each output its
+channel's dtype), the barriers and each stage's body, recorded by
 :mod:`repro_torch.kernels.expr`: channels with a halo get a window in
 shared memory, halo-free ones live in registers through one centre pass
 of ``sg::kVec`` outputs a thread, a barrier goes only before a pass
@@ -40,13 +42,18 @@ from repro_torch.core.fusion import lower_group_torch
 from repro_torch.core.graph import Channel, GraphError, Stage, as_dtype
 from repro_torch.core.schedule import FusionGroup, pad4 as _pad4
 from repro_torch.kernels import build
-from repro_torch.kernels.expr import (RECORD_ERRORS, Expr, Patches,
-                                      count_ops, emit_c, leaves, record)
+from repro_torch.kernels.expr import (B, BF, C_STORE, C_TYPES, F, HF, I,
+                                      RECORD_ERRORS, Expr, Patches,
+                                      RecordError, cast, count_ops, emit_c,
+                                      kind_of, leaves, record)
 
 __all__ = ["GroupKernel", "stream_group", "stream_group_ref", "build_kernels"]
 
 _VEC = 4            # adjacent outputs per thread and step: sg::kVec
 _MAX_FRAMES = 65535  # gridDim.z: frames a launch
+_ZERO = {F: "0.0f", BF: "0.0f", HF: "0.0f", I: "0", B: "false"}
+#: the kinds whose values widen from storage to float when read
+_NARROW = (BF, HF)
 
 
 def stream_group_ref(group: FusionGroup, inputs: Sequence[torch.Tensor],
@@ -107,8 +114,10 @@ class GroupKernel:
     """One fusion group's generated CUDA source and its launcher.
 
     Construction records every stage body and emits the source; it
-    needs no card and no nvcc.  A stage the recorder cannot express,
-    or a channel that is not float32, raises
+    needs no card and no nvcc.  Every channel keeps its own type
+    (float32, bfloat16, float16, int32 or bool, :data:`expr.KINDS`);
+    a stage the recorder cannot express, or a channel of another type
+    (int64, float64), raises
     :class:`~repro_torch.backends.spec.UnsupportedBackendError` naming
     it.  The library is built at the first launch.  ``barriers`` counts
     the source's ``__syncthreads()``; ``flat`` says the group has no
@@ -121,18 +130,21 @@ class GroupKernel:
                              "group")
         if group.tile is None:
             raise GraphError("the group has no tile; schedule it first")
-        for ch in group.inputs + group.outputs + group.internal:
-            if as_dtype(ch.dtype) != torch.float32:
-                raise UnsupportedBackendError(
-                    f"channel {ch.name!r} is {as_dtype(ch.dtype)}; the "
-                    f"group kernel streams float32 planes only",
-                    backend="cuda_stream", missing=("dtype:float32",))
+        self.kinds: dict[Channel, str] = {}
+        for st in group.stages:
+            for ch in (*st.inputs, *st.outputs):
+                try:
+                    self.kinds[ch] = kind_of(as_dtype(ch.dtype))
+                except RecordError as e:
+                    raise UnsupportedBackendError(
+                        f"channel {ch.name!r}: {e}", backend="cuda_stream",
+                        missing=(f"dtype:{as_dtype(ch.dtype)}",)) from e
         self.group = group
         self.plane: tuple[int, int] = tuple(group.stages[0].outputs[0].shape)
         self.tile: tuple[int, int] = tuple(group.tile)
         self.exprs: dict[int, Expr] = {
-            id(st): _record_stage(st) for st in group.stages
-            if st.kind != "split"}
+            id(st): _record_stage(st, [self.kinds[c] for c in st.inputs])
+            for st in group.stages if st.kind != "split"}
         self.smem_bytes = group.smem_bytes(self.tile)
         self.source = self._generate()
         self._fn = None
@@ -149,21 +161,30 @@ class GroupKernel:
         TH, TW = self.tile
         if TW % 4:
             raise GraphError(f"tile width {TW} is not a multiple of 4")
-        windowed = g.buffered_channels()
+        kinds = self.kinds
+        # windows by decreasing element size: each starts aligned to its
+        # chunk (4 elements)
+        windowed = sorted(g.buffered_channels(),
+                          key=lambda c: -as_dtype(c.dtype).itemsize)
         halo = collections.defaultdict(lambda: (0, 0), g.halo)
         lines: list[str] = []
         win: dict[Channel, str] = {}
-        offset = 0
+        offset = 0                              # bytes
         if windowed:
             lines.append("extern __shared__ __align__(16) float smem[];")
         for i, ch in enumerate(windowed):
             hy, hx = halo[ch]
             win[ch] = f"c{i}"
-            lines.append(f"float* const c{i} = smem + {offset};"
+            st = C_STORE[kinds[ch]]
+            at = (f"smem + {offset // 4}" if st == "float" else
+                  f"reinterpret_cast<{st}*>(reinterpret_cast<unsigned "
+                  f"char*>(smem) + {offset})")
+            lines.append(f"{st}* const c{i} = {at};"
                          f"  // {ch.name} halo=({hy},{hx})")
-            offset += (TH + 2 * hy) * (TW + 2 * _pad4(hx))
-        if 4 * offset != self.smem_bytes:
-            raise GraphError(f"window layout of {4 * offset} bytes != "
+            offset += ((TH + 2 * hy) * (TW + 2 * _pad4(hx))
+                       * as_dtype(ch.dtype).itemsize)
+        if offset != self.smem_bytes:
+            raise GraphError(f"window layout of {offset} bytes != "
                              f"smem_bytes() {self.smem_bytes}")
         if win:
             lines.append("const int y0 = blockIdx.y * TH, "
@@ -213,6 +234,8 @@ class GroupKernel:
             px = _pad4(hx)
             v = (f"{win[r]}[(ly + {dy + hy}) * {TW + 2 * px} + "
                  f"(lx + {dx + px})]")
+            if kinds[r] in _NARROW:
+                v = f"sg::widen({v})"
             if r is not ch and r in g.inputs:
                 v = f"sg::row_masked({v}, y0 + ly + {dy}, r0, r1)"
             return v
@@ -225,7 +248,7 @@ class GroupKernel:
                    for ch, dy, dx in taps(st)):
                 barrier()
             body, result = emit_c(
-                self.exprs[id(st)],
+                cast(self.exprs[id(st)], kinds[out]),
                 lambda k, dy, dx, st=st: window_read(st.inputs[k], dy, dx))
             lines.append(f"// stage {st.name!r} ({st.kind}, window "
                          f"{st.window[0]}x{st.window[1]}) over its halo")
@@ -306,8 +329,8 @@ class GroupKernel:
         for k, ch in enumerate(direct):
             regs[ch] = f"g{k}[s]"
         if direct:
-            lines.extend(f"float g{k}[STEPS][sg::kVec];"
-                         for k in range(len(direct)))
+            lines.extend(f"{C_TYPES[kinds[ch]]} g{k}[STEPS][sg::kVec];"
+                         for k, ch in enumerate(direct))
             lines.append("#pragma unroll")
             lines.append("for (int s = 0; s < STEPS; ++s) {")
             lines.extend(f"  {w}" for w in where)
@@ -336,7 +359,8 @@ class GroupKernel:
                     rows[r, dy] = name
                     hy, hx = halo[r]
                     m = margin[r, dy]
-                    body.append(f"float {name}[sg::kVec + {2 * m}];")
+                    body.append(f"{C_TYPES[kinds[r]]} {name}[sg::kVec + "
+                                f"{2 * m}];")
                     body.append(f"sg::window_row<TW, {hy}, {hx}, {m}>("
                                 f"{name}, {win[r]}, ly{dy:+d}, lx);")
 
@@ -351,15 +375,16 @@ class GroupKernel:
             regs[out] = name = f"v{len(regs)}"
             body.append(f"// stage {st.name!r} ({st.kind}, window "
                         f"{st.window[0]}x{st.window[1]}) over the centre")
-            body.append(f"float {name}[sg::kVec];")
+            body.append(f"{C_TYPES[kinds[out]]} {name}[sg::kVec];")
             for o in range(_VEC):
                 stmts, result = emit_c(
-                    self.exprs[id(st)],
+                    cast(self.exprs[id(st)], kinds[out]),
                     lambda k, dy, dx, st=st, o=o: centre_read(
                         st.inputs[k], dy, dx, o))
                 body.append("{")
                 body.extend(f"  {b}" for b in stmts)
-                body.append(f"  {name}[{o}] = {row_ok(o)} ? {result} : 0.0f;")
+                body.append(f"  {name}[{o}] = {row_ok(o)} ? {result} : "
+                            f"{_ZERO[kinds[out]]};")
                 body.append("}")
             stored(out, name)
         for ch in g.outputs:
@@ -368,10 +393,11 @@ class GroupKernel:
             need_rows([(ch, 0, 0)])
             name = f"s{len(regs)}"
             regs[ch] = name
-            body.append(f"float {name}[sg::kVec];  // output {ch.name}")
+            body.append(f"{C_TYPES[kinds[ch]]} {name}[sg::kVec];  "
+                        f"// output {ch.name}")
             for o in range(_VEC):
                 body.append(f"{name}[{o}] = {row_ok(o)} ? "
-                            f"{centre_read(ch, 0, 0, o)} : 0.0f;")
+                            f"{centre_read(ch, 0, 0, o)} : {_ZERO[kinds[ch]]};")
             stored(ch, name)
         if direct or flat:    # g*[s] stay in registers: unrolled steps
             lines.append("#pragma unroll")
@@ -398,15 +424,19 @@ class GroupKernel:
                      *[f"  in{k} += frame;" for k in range(n_in)],
                      *[f"  out{j} += frame;" for j in range(n_out)],
                      "}"]
-        params = ([f"const float* __restrict__ in{k}" for k in range(n_in)]
-                  + [f"float* __restrict__ out{j}" for j in range(n_out)]
+        st_in = [C_STORE[kinds[c]] for c in g.inputs]
+        st_out = [C_STORE[kinds[c]] for c in g.outputs]
+        params = ([f"const {t}* __restrict__ in{k}"
+                   for k, t in enumerate(st_in)]
+                  + [f"{t}* __restrict__ out{j}" for j, t in enumerate(st_out)]
                   + ["int r0", "int r1"])
         c_params = ([f"const void* in{k}" for k in range(n_in)]
                     + [f"void* out{j}" for j in range(n_out)]
                     + ["int r0", "int r1", "int vec", "int B",
                        "void* stream"])
-        args = ([f"(const float*)in{k}" for k in range(n_in)]
-                + [f"(float*)out{j}" for j in range(n_out)] + ["r0", "r1"])
+        args = ([f"(const {t}*)in{k}" for k, t in enumerate(st_in)]
+                + [f"({t}*)out{j}" for j, t in enumerate(st_out)]
+                + ["r0", "r1"])
         # VEC: 16-byte loads and stores, where the wrapper found every
         # pointer aligned (vec) and every row (W % 4 == 0) or, flat, every
         # chunk starts 16-byte aligned
@@ -491,18 +521,20 @@ class GroupKernel:
                valid_rows: tuple[int, int] | None) -> list[torch.Tensor]:
         """Launch on the inputs' card; returns the new output planes.
 
-        Each input is one contiguous float32 ``(H, W)`` plane or a
-        contiguous ``(B, H, W)`` batch of them: one launch computes all
-        ``B`` frames (``gridDim.z = B``), ``valid_rows`` applying to each.
+        Each input is one contiguous ``(H, W)`` plane of its channel's
+        type or a contiguous ``(B, H, W)`` batch of them: one launch
+        computes all ``B`` frames (``gridDim.z = B``), ``valid_rows``
+        applying to each.  Each output takes its channel's type.
         """
         H, W = self.plane
         lead = tuple(inputs[0].shape[:-2])
         for x, ch in zip(inputs, self.group.inputs, strict=True):
-            if (x.dtype != torch.float32 or tuple(x.shape) != (*lead, H, W)
+            dtype = as_dtype(ch.dtype)
+            if (x.dtype != dtype or tuple(x.shape) != (*lead, H, W)
                     or len(lead) > 1 or not x.is_contiguous()):
                 raise ValueError(
                     f"stream_group input {ch.name!r}: expected a contiguous "
-                    f"float32 ({H}, {W}) or (B, {H}, {W}) tensor, all of one "
+                    f"{dtype} ({H}, {W}) or (B, {H}, {W}) tensor, all of one "
                     f"shape; got {x.dtype} {tuple(x.shape)} "
                     f"contiguous={x.is_contiguous()}")
         B = lead[0] if lead else 1
@@ -511,12 +543,13 @@ class GroupKernel:
                              f"a launch, got {B}")
         r0, r1 = valid_rows if valid_rows is not None else (0, H)
         dev = inputs[0].device
-        outs = [torch.empty((*lead, H, W), dtype=torch.float32, device=dev)
-                for _ in self.group.outputs]
+        outs = [torch.empty((*lead, H, W), dtype=as_dtype(ch.dtype),
+                            device=dev) for ch in self.group.outputs]
         fn = self.launcher()
         ptrs = [t.data_ptr() for t in (*inputs, *outs)]
-        # every frame's base is 16-byte aligned when the batch's is and
-        # W % 4 == 0 (then H * W % 4 == 0 too)
+        # every frame's base (and chunk of 4) is aligned to its chunk when
+        # the batch's is 16-byte aligned and W % 4 == 0 (then H * W % 4 ==
+        # 0 too)
         vec = int(W % 4 == 0 and all(p % 16 == 0 for p in ptrs))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -527,11 +560,12 @@ class GroupKernel:
         return outs
 
 
-def _record_stage(st: Stage) -> Expr:
+def _record_stage(st: Stage, kinds: list[str]) -> Expr:
+    """The stage body recorded on stand-ins of its inputs' kinds."""
     if st.kind == "stencil":
-        args = [Patches(0, st.window)]
+        args = [Patches(0, st.window, kinds[0])]
     elif st.kind in ("point", "pointN"):
-        args = [Expr("in", (k, 0, 0), "f") for k in range(len(st.inputs))]
+        args = [Expr("in", (k, 0, 0), kind) for k, kind in enumerate(kinds)]
     else:
         raise UnsupportedBackendError(
             f"stage {st.name!r} of kind {st.kind!r} cannot stream",

@@ -9,9 +9,14 @@ without dataflow, one read and one write per stage.
 The kernel's fixed part is hand-written in ``csrc/stream_pipeline.cuh``
 (16-byte loads, 1, 2 or 4 issued a thread before the chain runs on
 them in registers, as :func:`unroll` picks, and a grid sized from the
-plane); per chain, :class:`PipelineKernel` records every stage once
-with :mod:`repro_torch.kernels.expr` and emits the chain as C.  What
-bounds it on the card: the bytes, 8 per element.
+plane); per chain and plane type, :class:`PipelineKernel` records every
+stage once with :mod:`repro_torch.kernels.expr` and emits the chain as
+C.  A plane may be float32, bfloat16, float16, int32 or bool; each op on
+a bf16 or f16 plane computes in float32 and rounds its result to the
+plane's type, as torch and JAX do op by op.  A comparison's bool stays
+bool into the next stage; only the chain's final value is converted to
+the plane's type, as the reference's ``_kernel`` does.  What bounds it
+on the card: the bytes, twice the plane's element size per element.
 
 For pointwise stages the result depends on neither the tile nor the
 padding, so the TPU kernel's pad to whole tiles and its crop, two copies
@@ -32,8 +37,8 @@ import torch
 from repro_torch.backends.spec import UnsupportedBackendError
 from repro_torch.device import NotPortedError
 from repro_torch.kernels import build
-from repro_torch.kernels.expr import (B, F, RECORD_ERRORS, Expr, count_ops,
-                                      emit_c, record)
+from repro_torch.kernels.expr import (C_STORE, DTYPES, KINDS, RECORD_ERRORS,
+                                      Expr, cast, count_ops, emit_c, record)
 from repro_torch.kernels.launch import call_device, sm_count, stream_of
 
 __all__ = ["PipelineKernel", "stream_pipeline", "stream_pipeline_staged",
@@ -53,43 +58,51 @@ _COST = {"tanh": 16, "exp": 16, "log": 16, "sin": 16, "cos": 16, "pow": 16,
 HEAVY_COST = 32
 
 
-def unroll(cost: int, n: int, n_sm: int, l2_bytes: int) -> int:
-    """The float4 values a thread takes (1, 2 or 4) for a chain of
-    ``cost`` over n float32 values on a card of ``n_sm`` SMs and an L2
-    of ``l2_bytes``.  A heavy chain takes 2 (two independent chains a
+def unroll(cost: int, n: int, n_sm: int, l2_bytes: int,
+           itemsize: int = 4) -> int:
+    """The 16-byte packs a thread takes (1, 2 or 4) for a chain of
+    ``cost`` over n values of ``itemsize`` bytes on a card of ``n_sm``
+    SMs and an L2 of ``l2_bytes``.  A heavy chain takes 2 (two independent chains a
     thread) unless that leaves part of one wave of blocks empty, then 1.
     A light chain takes 2 when 4 would leave the wave half empty, 4
     while the plane fits in the L2, 1 past it.  Each choice was the
     fastest, or within 1 % of it, at every chain (1-16 stages) and plane
     (1080x1920 to 4320x7680) timed in ``tools/pipeline_variants.py``
-    (PERF.md); between those planes the bands' edges are not measured.
+    (PERF.md) on float32 planes; between those planes, and for the
+    narrower types, the bands' edges are not measured.
     """
     wave = n_sm * 2048 // _THREADS          # blocks resident at once
+    per_pack = 16 // itemsize
 
     def blocks(u: int) -> int:
-        return -(-n // (4 * _THREADS * u))
+        return -(-n // (per_pack * _THREADS * u))
     if cost > HEAVY_COST:
         return 1 if blocks(2) < wave else 2
     if blocks(4) < wave:
         return 2
-    return 4 if 4 * n <= l2_bytes else 1
+    return 4 if itemsize * n <= l2_bytes else 1
 
 
 class PipelineKernel:
-    """One chain's generated CUDA source and its launcher.
+    """One chain's generated CUDA source and its launcher, for planes of
+    ``dtype`` (a type of :data:`~repro_torch.kernels.expr.KINDS`).
 
-    Construction records each stage once on one float32 input and emits
-    the source; it needs no card and no nvcc.  A stage whose value is a
-    bool (a comparison) becomes float32 1.0 / 0.0 at the stage boundary,
-    as JAX promotes it in the next stage's arithmetic and in the final
-    ``astype``.  A stage the recorder cannot express raises
+    Construction records each stage once on one input of the plane's
+    type and emits the source; it needs no card and no nvcc.  A stage's
+    value keeps its type into the next stage (a comparison's bool stays
+    bool, so ``~v`` or ``v & w`` may follow it); the chain's final value
+    is converted to ``out_dtype``, the plane's type by default.  A stage the recorder cannot
+    express raises
     :class:`~repro_torch.backends.spec.UnsupportedBackendError` naming
     its index.  The library is built at the first launch.
     """
 
-    def __init__(self, fns: Sequence[Callable]):
+    def __init__(self, fns: Sequence[Callable],
+                 dtype: torch.dtype = torch.float32,
+                 out_dtype: torch.dtype | None = None):
         self.fns = tuple(fns)
-        v = Expr("in", (0, 0, 0), F)
+        self.dtype = dtype
+        v = Expr("in", (0, 0, 0), KINDS[dtype])
         for i, fn in enumerate(self.fns):
             try:
                 v = record(fn, [v])
@@ -99,10 +112,8 @@ class PipelineKernel:
                     f"for the pipeline kernel ({type(e).__name__}: {e})",
                     backend="cuda_pipeline",
                     missing=(f"recordable:stage{i}",)) from e
-            if v.kind == B:
-                v = Expr("where", (v, Expr("const", (1.0,), F),
-                                   Expr("const", (0.0,), F)), F)
-        self.expr = v
+        self.out_dtype = dtype if out_dtype is None else out_dtype
+        self.expr = cast(v, KINDS[self.out_dtype])
         self.source = self._generate()
         self._fn = None
         self._lib = None
@@ -116,17 +127,21 @@ class PipelineKernel:
         return count_ops(self.expr, _COST)
 
     def _generate(self) -> str:
-        body, result = emit_c(self.expr, lambda k, dy, dx: "v")
+        body, result = emit_c(self.expr, lambda k, dy, dx: "sg::widen(x)")
+        name = str(self.dtype).removeprefix("torch.")
+        out = str(self.out_dtype).removeprefix("torch.")
         return "\n".join([
-            f"// Generated fused pointwise chain of {len(self.fns)} stages",
+            f"// Generated fused pointwise chain of {len(self.fns)} stages, "
+            f"{name} -> {out}",
             '#include "stream_pipeline.cuh"',
             "",
             "namespace {",
             "struct Chain {",
-            "  __device__ __forceinline__ float operator()(const float v) "
-            "const {",
+            f"  using T = {C_STORE[KINDS[self.dtype]]};",
+            f"  using U = {C_STORE[KINDS[self.out_dtype]]};",
+            "  __device__ __forceinline__ U operator()(const T x) const {",
             *[f"    {ln}" for ln in body],
-            f"    return {result};",
+            f"    return sg::narrow<U>({result});",
             "  }",
             "};",
             "}  // namespace",
@@ -157,15 +172,16 @@ class PipelineKernel:
         return self._fn
 
     def launch(self, x: torch.Tensor, unroll: int) -> torch.Tensor:
-        """Run the chain over the contiguous float32 CUDA tensor ``x`` on
-        the current stream, ``unroll`` (1, 2 or 4) vectors a thread;
-        returns a new tensor of its shape."""
-        if (x.dtype != torch.float32 or not x.is_contiguous()
+        """Run the chain over the contiguous CUDA tensor ``x`` of the
+        kernel's type on the current stream, ``unroll`` (1, 2 or 4)
+        16-byte steps a thread; returns a new tensor of its shape and
+        the kernel's output type."""
+        if (x.dtype != self.dtype or not x.is_contiguous()
                 or x.device.type != "cuda"):
             raise ValueError(f"stream_pipeline launch: expected a contiguous "
-                             f"float32 CUDA tensor, got {x.dtype} on "
+                             f"{self.dtype} CUDA tensor, got {x.dtype} on "
                              f"{x.device} contiguous={x.is_contiguous()}")
-        out = torch.empty_like(x)
+        out = torch.empty_like(x, dtype=self.out_dtype)
         n = x.numel()
         vec = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
         fn = self.launcher()
@@ -180,9 +196,11 @@ class PipelineKernel:
 
 
 @functools.lru_cache(maxsize=256)
-def _kernel(fns: tuple[Callable, ...]) -> PipelineKernel:
-    """The memo: each chain is recorded and loaded once, not per call."""
-    return PipelineKernel(fns)
+def _kernel(fns: tuple[Callable, ...], dtype: torch.dtype,
+            out_dtype: torch.dtype | None) -> PipelineKernel:
+    """The memo: each chain is recorded and loaded once per pair of
+    types, not per call."""
+    return PipelineKernel(fns, dtype, out_dtype)
 
 
 def _checked(x: torch.Tensor, fns: Sequence[Callable]
@@ -191,12 +209,15 @@ def _checked(x: torch.Tensor, fns: Sequence[Callable]
     if x.dim() != 2:
         raise ValueError(f"stream_pipeline: x must be 2-D (H, W), got "
                          f"shape {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise NotPortedError(f"stream_pipeline: x is {x.dtype}; the kernel "
-                             f"streams float32 planes only (other float "
-                             f"types are not ported yet)")
+    if x.dtype not in KINDS:
+        raise NotPortedError(
+            f"stream_pipeline: x is {x.dtype}; the kernel streams float32, "
+            f"bfloat16, float16, int32 and bool planes.  The reference has "
+            f"no 64-bit kernel either: under JAX's default "
+            f"jax_enable_x64=False its float64 plane becomes float32 before "
+            f"the kernel runs")
     call_device("stream_pipeline", x)
-    return x.contiguous(), _kernel(tuple(fns))
+    return x.contiguous(), _kernel(tuple(fns), x.dtype, x.dtype)
 
 
 def _run(kernel: PipelineKernel, x: torch.Tensor) -> torch.Tensor:
@@ -204,7 +225,8 @@ def _run(kernel: PipelineKernel, x: torch.Tensor) -> torch.Tensor:
         return torch.empty_like(x)
     i = x.device.index or 0
     u = unroll(kernel.cost_per_element(), x.numel(), sm_count(i),
-               torch.cuda.get_device_properties(i).L2_cache_size)
+               torch.cuda.get_device_properties(i).L2_cache_size,
+               x.element_size())
     out = kernel.launch(x, u)
     stream_pipeline.launches += 1
     return out
@@ -212,11 +234,12 @@ def _run(kernel: PipelineKernel, x: torch.Tensor) -> torch.Tensor:
 
 def stream_pipeline(x: torch.Tensor, fns: Sequence[Callable],
                     tile: tuple[int, int] = (256, 512)) -> torch.Tensor:
-    """Fused execution of a pointwise stage chain over x: (H, W) float32.
+    """Fused execution of a pointwise stage chain over x: (H, W) of
+    float32, bfloat16, float16, int32 or bool; the result has x's type.
 
     Each fn maps a tensor to a tensor elementwise with the operations
     :mod:`repro_torch.kernels.expr` records (arithmetic, comparisons,
-    ``torch.sqrt/exp/log/abs/tanh/sin/cos/sign``,
+    logic, casts, ``torch.sqrt/exp/log/abs/tanh/sin/cos/sign``,
     ``maximum/minimum/clamp/where``).  A non-contiguous x is made
     contiguous first.  ``tile`` is checked and kept for the reference's
     signature only: on the card the launch shape is the card's own (a
@@ -242,16 +265,20 @@ def stream_pipeline_staged(x: torch.Tensor, fns: Sequence[Callable]
     """The baseline without dataflow: each stage materializes to device
     memory.  On the card the kernel runs once per stage, as a chain of
     one: one read and one write of the plane per stage, each launch
-    counted in ``stream_pipeline.launches``.  Fused and staged runs then
+    counted in ``stream_pipeline.launches``; a stage's value keeps its
+    type in memory (a comparison's as bool), the last is x's type.  Fused and staged runs then
     differ only in those round trips (an eager torch chain would launch
     once per torch op, not per stage).  A CPU tensor takes the plain
     version after every stage is recorded."""
     x, chain = _checked(x, fns)       # errors name the stage's index
     if x.device.type == "cpu":
         return stream_pipeline_ref(x, chain.fns)
-    for fn in chain.fns:
-        x = _run(_kernel((fn,)), x)
-    return x
+    v = x
+    for i, fn in enumerate(chain.fns):
+        out = (x.dtype if i == len(chain.fns) - 1 else
+               DTYPES[record(fn, [Expr("in", (0, 0, 0), KINDS[v.dtype])]).kind])
+        v = _run(_kernel((fn,), v.dtype, out), v)
+    return v
 
 
 def stream_pipeline_ref(x: torch.Tensor, fns: Sequence[Callable]

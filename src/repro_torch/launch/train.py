@@ -59,7 +59,7 @@ def train_bytes_per_card(cfg, mesh=None, global_batch: int = 8) -> int:
     per = bytes_per_device(mesh, train_state_shardings(cfg, mesh),
                            abstract_train_state(cfg))
     runs: dict = {}
-    for _, dev in data_shards(mesh, TRAIN_RULES, global_batch):
+    for _, dev, _ in data_shards(mesh, TRAIN_RULES, global_batch):
         runs[dev] = runs.get(dev, 0) + 1
     return max(v + (full * (1 + runs[d]) if d in runs else 0)
                for d, v in per.items())

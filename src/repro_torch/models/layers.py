@@ -15,9 +15,6 @@ does (``"auto"`` on the card); the plain route is the reference's
 chunked online-softmax scan (:func:`_chunked_attention`) when
 ``cfg.attn_chunk`` is set and the keys are longer than a chunk, else the
 oracle.  The two compute the same function.
-
-Not here: ``mla_absorb="always"`` at prefill (flash at Dk =
-kv_lora_rank + rope_head_dim, over the kernel's 256), which raises.
 """
 from __future__ import annotations
 
@@ -28,7 +25,6 @@ from typing import Any, Iterator
 
 import torch
 
-from repro_torch.device import NotPortedError
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
@@ -374,19 +370,16 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     query projected into the latent space attends, as MQA (Hkv = 1,
     Dk = r + kr, Dv = r), against [c_kv ; k_rope] read from the cache,
     through ``ops.decode_attention``; the float32 ``wuv`` up-projection
-    follows.  At S > 1 (``mla_absorb="decode"``) K and V are
-    up-projected once and ``ops.attention`` runs causal at Dk = hd + kr,
-    Dv = hd.  ``mla_absorb="always"`` at prefill (flash at Dk = r + kr,
-    over its 256 limit) raises.  Returns (x + attn_out, cache).
+    follows.  ``mla_absorb="always"`` takes the same form at S > 1, over
+    the prompt's own latent rows, causal through ``ops.attention``
+    (minicpm3-4b: Dk 288, Dv 256).  Otherwise (``mla_absorb="decode"``)
+    a prefill up-projects K and V once and ``ops.attention`` runs causal
+    at Dk = hd + kr, Dv = hd.  Returns (x + attn_out, cache).
     """
     B, S, _ = x.shape
     hd, Hq = cfg.hd, cfg.n_heads
     r, kr = cfg.kv_lora_rank, cfg.rope_head_dim
     absorb = cfg.mla_absorb == "always" or S == 1
-    if absorb and S > 1:
-        raise NotPortedError("mla_absorb='always' at prefill (flash "
-                             "attention at Dk = kv_lora_rank + "
-                             "rope_head_dim) is not ported yet")
     f32 = torch.float32
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     cq = rmsnorm(h @ p["wdq"], p["q_ln"], cfg.norm_eps)
@@ -407,17 +400,22 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     wuk = p["wuk"].reshape(r, Hq, hd)
     wuv = p["wuv"].reshape(r, Hq, hd)
     scale = 1.0 / math.sqrt(hd + kr)
-    if absorb:                 # decode: MQA over the latent cache
+    if absorb:                 # MQA over the latent rows
         q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(f32),
                              wuk.to(f32)).to(x.dtype)
-        q_eff = torch.cat([q_lat, q_rope], -1)          # (B, 1, Hq, r+kr)
+        q_eff = torch.cat([q_lat, q_rope], -1)          # (B, S, Hq, r+kr)
         k_eff = _latent_rows(c_kv, k_rope)[:, None]     # (B, 1, Sk, r+kr)
         v_eff = c_kv[:, None]                           # (B, 1, Sk, r)
-        bias = _length_bias(cache_index, B, k_eff.shape[2], x.device)
-        ctx = ops.decode_attention(q_eff[:, 0], k_eff, v_eff, bias=bias,
-                                   scale=scale, impl=cfg.attn_impl)
-        out = torch.einsum("bshr,rhd->bshd", ctx[:, None].to(f32),
-                           wuv.to(f32))
+        if S == 1:             # decode: the cache's rows up to the index
+            bias = _length_bias(cache_index, B, k_eff.shape[2], x.device)
+            ctx = ops.decode_attention(q_eff[:, 0], k_eff, v_eff, bias=bias,
+                                       scale=scale, impl=cfg.attn_impl)
+            ctx = ctx[:, None]                          # (B, 1, Hq, r)
+        else:                  # the absorbed prefill over the prompt
+            ctx = _prefill_attention(q_eff.transpose(1, 2), k_eff, v_eff,
+                                     cfg, causal=True, scale=scale)
+            ctx = ctx.transpose(1, 2)                   # (B, S, Hq, r)
+        out = torch.einsum("bshr,rhd->bshd", ctx.to(f32), wuv.to(f32))
     else:                      # prefill: K and V up-projected once
         k_nope = torch.einsum("btr,rhd->bthd", c_kv.to(f32),
                               wuk.to(f32)).to(x.dtype)

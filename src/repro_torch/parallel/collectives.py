@@ -17,6 +17,10 @@ The ring matmuls keep the reference's ring order: at step ``i`` shard
 (all-gather), or adds the block owned by ``(idx - 1 - i) % P``
 (reduce-scatter).  Their products are plain float32 ``x @ w``, as the
 reference's ``jnp.dot`` outside any Pallas kernel.
+
+The ring hops and the reduce-scatter report the bytes they move between
+mesh positions to :mod:`repro_torch.parallel.traffic` (the dry run's
+collective bytes); outside a dry run that is one context-variable read.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.parallel import traffic
 from repro_torch.parallel.sharding import (Mesh, NamedSharding, P,
                                            ShardedTensor)
 
@@ -84,6 +89,9 @@ def ppermute(blocks: Sequence[torch.Tensor], devices: Sequence[Any]
         dst = (j + 1) % P_
         t = torch.empty(b.shape, dtype=b.dtype, device=devices[dst])
         out[dst] = t.copy_(b)
+    if traffic.active():
+        traffic.report("collective-permute",
+                       sum(b.numel() * b.element_size() for b in blocks))
     return out
 
 
@@ -175,13 +183,21 @@ def ring_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
 
 def reduce_scatter(parts: Sequence[torch.Tensor], sharding: NamedSharding
                    ) -> ShardedTensor:
-    """The float32 sum of ``parts`` (one a data shard, whole tensors),
-    added in ascending order on the first part's device, split by
-    ``sharding``: each mesh position ends with the slice it owns."""
+    """The float32 sum of ``parts`` (one a data shard, whole tensors; the
+    first held at the mesh's first position), added in ascending order on
+    the first part's device, split by ``sharding``: each mesh position
+    ends with the slice it owns."""
     total = parts[0].to(torch.float32, copy=True)
     for p in parts[1:]:
         total.add_(p.to(total.device, torch.float32))
-    return sharding.shard(total)
+    out = sharding.shard(total)
+    if traffic.active():
+        first = next(sharding.mesh.positions())
+        traffic.report("reduce-scatter", sum(
+            p.numel() * p.element_size() for p in parts[1:])
+            + sum(out.nbytes_at(pos) for pos in sharding.mesh.positions()
+                  if pos != first))
+    return out
 
 
 def psum_scatter_grads(grads: Sequence[Any], mesh: Mesh,

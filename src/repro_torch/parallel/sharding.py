@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import tree_map
+from repro_torch.parallel import traffic
 
 __all__ = ["ReplicaMesh", "replica_mesh", "Mesh", "make_mesh",
            "PartitionSpec", "P", "NamedSharding", "ShardedTensor",
@@ -357,11 +358,27 @@ class ShardedTensor:
         dtype = shards[next(self.mesh.positions())].dtype
         return ShardedTensor(self.sharding, tuple(self.shape), dtype, shards)
 
-    def gather(self, device: Any = None) -> torch.Tensor:
+    def _first(self) -> tuple[int, ...]:
+        return next(self.mesh.positions())
+
+    def gather_bytes(self, at: tuple[int, ...]) -> int:
+        """The bytes a gather onto mesh position ``at`` moves: every piece
+        but the one ``at`` holds."""
+        whole = math.prod(self.shape) * torch.empty(
+            (), dtype=self.dtype).element_size()
+        return whole - self.nbytes_at(at)
+
+    def gather(self, device: Any = None,
+               at: tuple[int, ...] | None = None) -> torch.Tensor:
         """The whole tensor on ``device`` (default: the first position's):
-        each distinct piece copied to its place."""
-        dev = (self.shards[next(self.mesh.positions())].device
+        each distinct piece copied to its place.  ``at``, the mesh
+        position gathering (default the first), is what
+        :mod:`~repro_torch.parallel.traffic` counts it from."""
+        dev = (self.shards[self._first()].device
                if device is None else torch.device(device))
+        if traffic.active():
+            traffic.report("all-gather", self.gather_bytes(
+                self._first() if at is None else at))
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         for pos in self.mesh.positions():
             if self.sharding.is_leader(pos):
@@ -379,9 +396,15 @@ class ShardedTensor:
                 yield pos, sl, lo, hi
 
     def gather_rows(self, dim: int, start: int, stop: int,
-                    out: torch.Tensor) -> torch.Tensor:
+                    out: torch.Tensor, at: tuple[int, ...] | None = None
+                    ) -> torch.Tensor:
         """Rows [start, stop) of ``dim`` of the whole tensor, written into
-        ``out`` (whose ``dim`` has stop - start rows)."""
+        ``out`` (whose ``dim`` has stop - start rows).  ``at``: the mesh
+        position gathering (default the first); the blocks of pieces it
+        does not hold count as ``all-gather`` traffic."""
+        count = traffic.active()
+        mine = (self.sharding.slices(self.shape, at or self._first())
+                if count else None)
         for pos, sl, lo, hi in self._overlaps(dim, start, stop):
             if not self.sharding.is_leader(pos):
                 continue
@@ -389,19 +412,32 @@ class ShardedTensor:
             dst[dim] = slice(lo - start, hi - start)
             src = [slice(None)] * self.ndim
             src[dim] = slice(lo - sl[dim].start, hi - sl[dim].start)
-            out[tuple(dst)].copy_(self.shards[pos][tuple(src)])
+            block = self.shards[pos][tuple(src)]
+            out[tuple(dst)].copy_(block)
+            if count and sl != mine:
+                traffic.report("all-gather",
+                               block.numel() * block.element_size())
         return out
 
-    def scatter_rows(self, dim: int, start: int, src: torch.Tensor) -> None:
+    def scatter_rows(self, dim: int, start: int, src: torch.Tensor,
+                     at: tuple[int, ...] | None = None) -> None:
         """Writes ``src`` as rows [start, start + len) of ``dim`` into
-        every position's piece that holds them, in place."""
+        every position's piece that holds them, in place.  ``at``: the
+        mesh position writing (default the first); the blocks written to
+        other positions count as ``collective-permute`` traffic."""
+        count = traffic.active()
+        at = at or self._first()
         stop = start + src.shape[dim]
         for pos, sl, lo, hi in self._overlaps(dim, start, stop):
             take = list(sl)
             take[dim] = slice(lo - start, hi - start)
             put = [slice(None)] * self.ndim
             put[dim] = slice(lo - sl[dim].start, hi - sl[dim].start)
-            self.shards[pos][tuple(put)].copy_(src[tuple(take)])
+            block = src[tuple(take)]
+            self.shards[pos][tuple(put)].copy_(block)
+            if count and pos != at:
+                traffic.report("collective-permute",
+                               block.numel() * block.element_size())
 
     def nbytes_at(self, pos: tuple[int, ...]) -> int:
         t = self.shards[pos]

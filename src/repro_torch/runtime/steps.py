@@ -41,6 +41,7 @@ from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
                                      tree_leaves, tree_map)
 from repro_torch.optim.compression import ef_init, ef_roundtrip
+from repro_torch.parallel import traffic
 from repro_torch.parallel.collectives import reduce_scatter
 from repro_torch.parallel.sharding import (SERVE_RULES, TRAIN_RULES, Mesh,
                                            NamedSharding, P, ShardedTensor,
@@ -213,10 +214,10 @@ def cache_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
 # the data shards of a sharded step
 # ----------------------------------------------------------------------
 def data_shards(mesh: Mesh, rules: ShardingRules, B: int
-                ) -> list[tuple[slice, torch.device]]:
-    """(rows, device) of each data shard: the batch split as its
-    ``batch`` axis binds on ``mesh`` (one shard when it does not divide),
-    each run on the first position of its row of the mesh."""
+                ) -> list[tuple[slice, torch.device, tuple[int, ...]]]:
+    """(rows, device, position) of each data shard: the batch split as
+    its ``batch`` axis binds on ``mesh`` (one shard when it does not
+    divide), each run on the first position of its row of the mesh."""
     (b,) = spec_for_axes(mesh, rules, ("batch",), (B,))
     names = () if b is None else (b,) if isinstance(b, str) else tuple(b)
     sizes = [mesh.shape[n] for n in names]
@@ -227,7 +228,7 @@ def data_shards(mesh: Mesh, rules: ShardingRules, B: int
         for n, i in zip(names, np.unravel_index(d, sizes) if names else ()):
             pos[mesh.axis_names.index(n)] = int(i)
         out.append((slice(d * B // D, (d + 1) * B // D),
-                    mesh.devices[tuple(pos)]))
+                    mesh.devices[tuple(pos)], tuple(pos)))
     return out
 
 
@@ -250,13 +251,20 @@ def _sharded_leaves(tree: Any, what: str) -> list[ShardedTensor]:
     return leaves
 
 
-def _gathered(params: dict, devices) -> dict:
-    """The whole parameters once for each distinct device."""
+def _gathered(params: dict, shards) -> dict:
+    """The whole parameters once for each distinct device of ``shards``
+    ((rows, device, position) each).  Every data shard's gather counts as
+    traffic (:mod:`~repro_torch.parallel.traffic`), also where its device
+    already holds them."""
     leaves = _sharded_leaves(params, "parameters")
     out = {}
-    for dev in devices:
+    for _, dev, pos in shards:
         if dev not in out:
-            out[dev] = _unflatten(params, [t.gather(dev) for t in leaves])
+            out[dev] = _unflatten(params, [t.gather(dev, at=pos)
+                                           for t in leaves])
+        elif traffic.active():
+            for t in leaves:
+                traffic.report("all-gather", t.gather_bytes(pos))
     return out
 
 
@@ -272,10 +280,11 @@ def _batch_dim(name: str) -> int:
 
 
 def _work_cache(cfg: ModelConfig, cache: dict, rows: slice,
-                dev: torch.device, index: torch.Tensor) -> dict:
+                dev: torch.device, pos: tuple[int, ...],
+                index: torch.Tensor) -> dict:
     """A data shard's slots of the sharded cache as one whole cache on
-    ``dev``, in :func:`M.init_cache`'s layout (MLA's two leaves one
-    buffer)."""
+    ``dev`` (mesh position ``pos``), in :func:`M.init_cache`'s layout
+    (MLA's two leaves one buffer)."""
     named = [(n, t) for n, t in _paths(cache) if n != "index"]
     attn = [t for n, t in named if n.startswith("attn/")]
     max_len = (1 if not attn else attn[0].shape[2] if cfg.use_mla
@@ -293,16 +302,18 @@ def _work_cache(cfg: ModelConfig, cache: dict, rows: slice,
                 dst.dim() != st.ndim:
             raise ValueError(f"cache leaf {name!r} {tuple(st.shape)} does not "
                              f"fit {cfg.name}'s cache layout")
-        st.gather_rows(_batch_dim(name), rows.start, rows.stop, dst)
+        st.gather_rows(_batch_dim(name), rows.start, rows.stop, dst, at=pos)
     work["index"] = (index[rows] if index.dim() == 1 else index).to(dev)
     return work
 
 
-def _put_back(cache: dict, work: dict, rows: slice) -> None:
+def _put_back(cache: dict, work: dict, rows: slice,
+              pos: tuple[int, ...]) -> None:
     flat = dict(_paths(work))
     for name, st in _paths(cache):
         if name != "index":
-            st.scatter_rows(_batch_dim(name), rows.start, flat[name])
+            st.scatter_rows(_batch_dim(name), rows.start, flat[name],
+                            at=pos)
 
 
 def _sharded_serving(cfg: ModelConfig, mesh: Mesh, rules: ShardingRules,
@@ -311,14 +322,14 @@ def _sharded_serving(cfg: ModelConfig, mesh: Mesh, rules: ShardingRules,
         B = next(iter(batch.values())).shape[0]
         shards = data_shards(mesh, rules, B)
         scfg = _shard_cfg(cfg, len(shards))
-        gathered = _gathered(params, [dev for _, dev in shards])
+        gathered = _gathered(params, shards)
         index = _plain(cache["index"])
         logits, ends = [], []
-        for rows, dev in shards:
-            work = _work_cache(cfg, cache, rows, dev, index)
+        for rows, dev, pos in shards:
+            work = _work_cache(cfg, cache, rows, dev, pos, index)
             part = {k: v[rows].to(dev) for k, v in batch.items()}
             out, new = run(gathered[dev], scfg, part, work)
-            _put_back(cache, new, rows)
+            _put_back(cache, new, rows, pos)
             logits.append(out)
             ends.append(new["index"])
         dev0 = shards[0][1]
@@ -387,7 +398,8 @@ def _global_aux(cfg: ModelConfig, stats: list[list], dev) -> torch.Tensor:
 def _grads(params: dict, cfg: ModelConfig, batch: dict, shards: list
            ) -> tuple[torch.Tensor, dict, list[list]]:
     """(total, metrics, each data shard's gradients in :func:`tree_leaves`
-    order) of the batch split over ``shards`` ((rows, device) each;
+    order) of the batch split over ``shards`` ((rows, device, position)
+    each;
     ``params`` maps a device to the whole parameters there): one
     backward through every shard's forward.  The shards add their
     cross-entropy sums and label counts before dividing, and with more
@@ -399,12 +411,12 @@ def _grads(params: dict, cfg: ModelConfig, batch: dict, shards: list
     dev0 = shards[0][1]
     scfg = _shard_cfg(cfg, len(shards))
     trees = [tree_map(lambda p: p.detach().requires_grad_(True),
-                      params[dev]) for _, dev in shards]
+                      params[dev]) for _, dev, _ in shards]
     leaves = [tree_leaves(t) for t in trees]
     with torch.enable_grad():
         sums, counts, auxs, stats = [], [], [], []
         with L.moe_stats() as seen:
-            for (rows, dev), tree in zip(shards, trees):
+            for (rows, dev, _), tree in zip(shards, trees):
                 part = {k: v[rows].to(dev) for k, v in batch.items()}
                 n0 = len(seen)
                 ce_sum, count, aux = M.loss_sums(tree, scfg, part)
@@ -457,12 +469,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         Bm = B // mb
         if mesh is None:
             leaves = tree_leaves(params)
-            shards = [(slice(0, Bm), leaves[0].device)]
+            shards = [(slice(0, Bm), leaves[0].device, None)]
             gathered = {leaves[0].device: params}
         else:
             leaves = _sharded_leaves(params, "train state")
             shards = data_shards(mesh, rules, Bm)
-            gathered = _gathered(params, [dev for _, dev in shards])
+            gathered = _gathered(params, shards)
         per, losses, mets = None, [], []
         for j in range(mb):        # the reference's split: rows j*Bm...
             part = {k: v[j * Bm:(j + 1) * Bm] for k, v in batch.items()}
@@ -475,7 +487,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             if per is None:
                 per = [[torch.zeros(t.shape, dtype=torch.float32,
                                     device=dev) for t in leaves]
-                       for _, dev in shards]
+                       for _, dev, _ in shards]
             for acc, gd in zip(per, g):
                 for a, gi in zip(acc, gd):
                     a.add_(gi.to(torch.float32) / mb)

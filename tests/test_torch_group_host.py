@@ -30,8 +30,9 @@ torch.set_num_threads(1)
 
 from repro_torch.core import apps as tapps                   # noqa: E402
 from repro_torch.core.compiler import compile_graph          # noqa: E402
-from repro_torch.core.graph import DataflowGraph             # noqa: E402
+from repro_torch.core.graph import DataflowGraph, as_dtype   # noqa: E402
 from repro_torch.kernels import build                        # noqa: E402
+from repro_torch.kernels.expr import C_STORE                  # noqa: E402
 from repro_torch.kernels.stream_group import stream_group_ref  # noqa: E402
 
 APP_NAMES = sorted(tapps.APPS)
@@ -59,6 +60,28 @@ inline void __syncthreads() {}
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 """
 
+# the CUDA half types as host C++: bf16 by rounding float's bits to the
+# nearest even, f16 through the compiler's _Float16
+BF16_SHIM = """#pragma once
+#include <stdint.h>
+#include <string.h>
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 v) {
+  uint32_t u = (uint32_t)v.x << 16; float f; memcpy(&f, &u, 4); return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u; memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)0x7fc0};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+"""
+F16_SHIM = """#pragma once
+struct __half { _Float16 h; };
+inline float __half2float(__half v) { return (float)v.h; }
+inline __half __float2half(float f) { return {(_Float16)f}; }
+"""
+
 # the header's device-only pieces, as plain memory accesses on the host
 _HOST_BODIES = {
     r"void cp_async16\(float\* dst, const float\* src\)":
@@ -77,6 +100,8 @@ def host_dir(tmp_path_factory):
         pytest.skip("needs g++ to compile the generated kernels on the host")
     d = tmp_path_factory.mktemp("sg_host")
     (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "cuda_bf16.h").write_text(BF16_SHIM)
+    (d / "cuda_fp16.h").write_text(F16_SHIM)
     hdr = (build.CSRC_DIR / "stream_group.cuh").read_text()
     hdr = hdr.replace("constexpr int kThreads = 256;",
                       "constexpr int kThreads = 1;")
@@ -98,10 +123,13 @@ def _host_library(kernel, d):
                         '#include "stream_group.cuh"\n'
                         'namespace { alignas(16) float smem[1 << 16]; }')
     g = kernel.group
-    params = ([f"const float* in{k}" for k in range(len(g.inputs))]
-              + [f"float* out{j}" for j in range(len(g.outputs))])
-    args = ", ".join([f"in{k}" for k in range(len(g.inputs))]
-                     + [f"out{j}" for j in range(len(g.outputs))]
+    store = [C_STORE[kernel.kinds[c]] for c in (*g.inputs, *g.outputs)]
+    n_in = len(g.inputs)
+    params = ([f"const void* in{k}" for k in range(n_in)]
+              + [f"void* out{j}" for j in range(len(g.outputs))])
+    args = ", ".join([f"(const {store[k]}*)in{k}" for k in range(n_in)]
+                     + [f"({store[n_in + j]}*)out{j}"
+                        for j in range(len(g.outputs))]
                      + ["r0", "r1"])
     calls = []
     for batch in ("", ", true"):      # one frame; the batch instance
@@ -145,17 +173,34 @@ extern "C" void run({', '.join(params)}, int r0, int r1, int vec,
     return lib
 
 
+def _plane(dtype, shape, rng):
+    """A seeded plane of ``dtype``: normal floats, ints in [-60, 60),
+    bools."""
+    if dtype == torch.bool:
+        return torch.from_numpy(rng.random(shape) < 0.5)
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.integers(-60, 60, size=shape,
+                                             dtype=np.int32))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return x.to(dtype)
+
+
+def _poisoned(dtype, shape):
+    """An output buffer every element of which the kernel must write."""
+    fill = {torch.bool: True, torch.int32: -12345}.get(dtype, float("nan"))
+    return torch.full(shape, fill, dtype=dtype)
+
+
 def _check(kernel, d, exact, seed=0):
     H, W = kernel.plane
     lib = _host_library(kernel, d)
     rng = np.random.default_rng(seed)
-    xs = [torch.from_numpy(rng.standard_normal((H, W)).astype(np.float32))
-          for _ in kernel.group.inputs]
+    xs = [_plane(as_dtype(c.dtype), (H, W), rng) for c in kernel.group.inputs]
     for rows in (None, (3, H - 4)):
         want = stream_group_ref(kernel.group, xs, rows)
         for vec in (1, 0):
-            outs = [torch.full((H, W), float("nan"))
-                    for _ in kernel.group.outputs]
+            outs = [_poisoned(as_dtype(c.dtype), (H, W))
+                    for c in kernel.group.outputs]
             r0, r1 = rows or (0, H)
             lib.run(*[t.data_ptr() for t in (*xs, *outs)], r0, r1, vec, 1)
             for o, r in zip(outs, want):
@@ -235,3 +280,43 @@ def test_batched_kernel_matches_each_frame_on_host(name, shape, host_dir):
                                     (2, H - 1))
             for o, r in zip(outs, want):
                 assert torch.equal(o[b], r), (b, vec)
+
+
+@pytest.mark.parametrize("shape", [(37, 61), (40, 96)])
+def test_int_and_bool_channels_match_on_host(shape, host_dir):
+    """The typed program of ``tests/test_torch_kernel.py`` (int32 windows
+    with floor division and modulo, a one-byte bool window, where, abs,
+    maximum, bitwise ops, int -> float32 -> int casts): every group's
+    generated C against the plain version, bit for bit, 16-byte (4-byte
+    for bool) and scalar paths."""
+    from test_torch_kernel import typed_graph
+    g = typed_graph(DataflowGraph, torch, torch.int32, torch.bool,
+                    torch.float32, shape)
+    app = compile_graph(g, backend="cuda_stream", device="cpu")
+    kinds = set()
+    for kernel in app.kernels:
+        kinds |= set(kernel.kinds.values())
+        _check(kernel, host_dir, exact=True, seed=6)
+    assert {"i", "b"} <= kinds
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_channels_match_on_host(dtype, host_dir):
+    """bf16 and f16 planes: windows of 2-byte values, each op computed in
+    float32 and rounded to the plane's type, a float32 channel beside
+    them; bit for bit against the plain version (no transcendental
+    function, constants exact in the type)."""
+    g = DataflowGraph("half")
+    x = g.input("x", (40, 96), dtype)
+    z = g.input("z", (40, 96), torch.float32)
+    blur = g.stencil(x, (3, 3), lambda p: (p[1] + p[3] + p[5] + p[7]) * 0.25
+                     - p[4] * 0.5, name="blur")
+    mix = g.pointn([blur, x], lambda b, v: torch.maximum(b, v) * 3.0
+                   + torch.sqrt(torch.abs(v)), name="mix")
+    g.output(mix, "mix")
+    g.output(g.pointn([mix, z], lambda m, w: m * w, dtype=torch.float32),
+             "wide")
+    (kernel,) = compile_graph(g, backend="cuda_stream", device="cpu").kernels
+    assert sorted(set(kernel.kinds.values())) == sorted(
+        {"f", {torch.bfloat16: "bf", torch.float16: "hf"}[dtype]})
+    _check(kernel, host_dir, exact=True, seed=7)

@@ -188,12 +188,75 @@ def test_unrecordable_stage_raises_typed_error_naming_it():
     assert app(img=torch.ones(H, W))["out"].shape == (H, W)
 
 
+def typed_graph(G, xp, i32, b8, f32, shape):
+    """One program over int32 planes, in either package (``G`` its
+    ``DataflowGraph``, ``xp`` its array module): an int window with floor
+    division and modulo of negative values, a bool mask, a window over the
+    mask (a one-byte window), where / abs / maximum / bitwise ops, true
+    division to float32 and a float32 result cast back to int32."""
+    g = G("typed")
+    x = g.input("x", shape, i32)
+    y = g.input("y", shape, i32)
+    s = g.stencil(x, (3, 3), lambda p: p[1] * 3 - p[3] // 4 + p[5] % -3
+                  - p[7] // -5 + p[4] % 7, name="ints")
+    m = g.pointn([s, y], lambda a, b: (a > b) ^ (b < 0), dtype=b8,
+                 name="mask")
+    e = g.stencil(m, (3, 3), lambda p: (p[1] | p[7]) & ~p[4], dtype=b8,
+                  name="edge")
+    q = g.pointn([s, e, y], lambda a, f, b: xp.where(
+        f, xp.abs(a), xp.maximum(b, a) // 2) ^ (b & 6), name="pick")
+    r = g.point(q, lambda v: v / 4, dtype=f32, name="ratio")
+    back = g.point(r, lambda v: v * 2.5 - 1.0, dtype=i32, name="back")
+    for ch, name in ((q, "q"), (e, "edge"), (r, "ratio"), (back, "back")):
+        g.output(ch, name)
+    return g
+
+
+def typed_inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return {n: rng.integers(-60, 60, size=shape).astype(np.int32)
+            for n in ("x", "y")}
+
+
 def test_non_float32_channels_are_refused():
-    g = DataflowGraph("ints")
-    x = g.input("img", (H, W), torch.int32)
-    g.output(g.point(x, lambda v: v + 1), "out")
-    with pytest.raises(UnsupportedBackendError, match="float32"):
-        compile_graph(g, backend="cuda_stream", device="cpu")
+    """int32 and bool channels run on the group kernel's route: the plain
+    version against the JAX group kernel (interpret mode) and against
+    ``reference_eval``, exact; int64 (no kernel type) is still refused."""
+    from repro_torch.core import graph as TG
+    shape = (H, W)
+    g = typed_graph(TG.DataflowGraph, torch, torch.int32, torch.bool,
+                    torch.float32, shape)
+    app = compile_graph(g, backend="cuda_stream", device="cpu")
+    kinds = {str(k.kinds[c]) for k in app.kernels for c in k.kinds}
+    assert {"i", "b", "f"} <= kinds
+    xs = typed_inputs(shape)
+    got = app(**{n: torch.from_numpy(v) for n, v in xs.items()})
+    ref = g.reference_eval({n: torch.from_numpy(v) for n, v in xs.items()})
+    want_dtypes = {"q": torch.int32, "edge": torch.bool,
+                   "ratio": torch.float32, "back": torch.int32}
+    for name, dtype in want_dtypes.items():
+        assert got[name].dtype == dtype
+        assert torch.equal(got[name], ref[name]), name
+    assert bool(got["edge"].any()) and not bool(got["edge"].all())
+    try:
+        import jax.numpy as jnp
+        from repro.core import graph as JG
+        from repro.core.compiler import compile_graph as j_compile
+    except ImportError:
+        jnp = None
+    if jnp is not None:                 # the card's machine has no JAX
+        jg = typed_graph(JG.DataflowGraph, jnp, jnp.int32, jnp.bool_,
+                         jnp.float32, shape)
+        jout = j_compile(jg, backend="pallas")(**xs)
+        for name, dtype in want_dtypes.items():
+            want = np.asarray(jout[name])
+            assert want.dtype == np.dtype(str(dtype).removeprefix("torch."))
+            np.testing.assert_array_equal(got[name].numpy(), want)
+    g64 = DataflowGraph("int64")
+    x = g64.input("img", (H, W), torch.int64)
+    g64.output(g64.point(x, lambda v: v + 1), "out")
+    with pytest.raises(UnsupportedBackendError, match="int64"):
+        compile_graph(g64, backend="cuda_stream", device="cpu")
 
 
 def test_wrapper_runs_plain_version_on_cpu_without_counting():
@@ -388,3 +451,51 @@ def test_batch_of_8_equals_8_single_frame_launches_on_card(name, plane):
             single = stream_group(kernel, [x[b] for x in xs], rows)
             for o, s in zip(batched, single):
                 assert torch.equal(o[b], s), (b, rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1080, 1920), (1079, 1917)],
+                         ids=["1080x1920", "1079x1917"])
+def test_int_and_bool_channels_match_plain_on_card(shape):
+    """The typed program (int32 windows, a one-byte bool window, int ->
+    float32 -> int) through ``cuda_stream`` on the card: every output in
+    its channel's type, bit for bit against the plain version, one launch
+    a group; the 16-byte (4-byte for bool) instance at 1080x1920, the
+    scalar one at the odd width."""
+    _needs_card()
+    from repro_torch.core import graph as TG
+    g = typed_graph(TG.DataflowGraph, torch, torch.int32, torch.bool,
+                    torch.float32, shape)
+    app = compile_graph(g, backend="cuda_stream")
+    xs = {n: torch.from_numpy(v).cuda()
+          for n, v in typed_inputs(shape, seed=3).items()}
+    before = stream_group.launches
+    got = app(**xs)
+    torch.cuda.synchronize()
+    assert stream_group.launches - before == len(app.kernels)
+    ref = g.reference_eval(xs)
+    for name, want in ref.items():
+        assert got[name].dtype == want.dtype and got[name].is_cuda
+        assert torch.equal(got[name], want), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_channels_match_plain_on_card(dtype):
+    """bf16 / f16 windows and a float32 channel beside them: each op
+    rounded to the plane's type, bit for bit against the plain version
+    (no transcendental function)."""
+    _needs_card()
+    g = DataflowGraph("half")
+    x = g.input("x", (1080, 1920), dtype)
+    blur = g.stencil(x, (3, 3), lambda p: (p[1] + p[3] + p[5] + p[7]) * 0.25
+                     - p[4] * 0.5)
+    g.output(g.pointn([blur, x], lambda b, v: torch.maximum(b, v) * 3.0
+                      + torch.sqrt(torch.abs(v))), "mix")
+    (kernel,) = compile_graph(g, backend="cuda_stream").kernels
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xs = [torch.randn(1080, 1920, device="cuda", generator=gen).to(dtype)]
+    (out,) = stream_group(kernel, xs)
+    (ref,) = stream_group_ref(kernel.group, xs)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, ref)

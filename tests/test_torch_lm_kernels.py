@@ -149,6 +149,8 @@ def test_flash_plain_matches_oracle_with_fewer_queries_than_keys():
     (torch.bfloat16, torch.bfloat16, 64, 64, "tc"),      # the serving path
     (torch.bfloat16, torch.bfloat16, 96, 64, "tc"),      # Dv != Dk
     (torch.bfloat16, torch.bfloat16, 256, 16, "tc"),
+    (torch.bfloat16, torch.bfloat16, 288, 256, "tc"),    # MLA absorbed
+    (torch.bfloat16, torch.bfloat16, 256, 288, "simt"),  # Dv over 256
     (torch.bfloat16, torch.bfloat16, 72, 64, "simt"),    # not a 16 multiple
     (torch.bfloat16, torch.bfloat16, 64, 8, "simt"),
     (torch.float32, torch.float32, 64, 64, "simt"),      # float32 parity
@@ -721,6 +723,31 @@ def test_flash_kernel_matches_plain_on_card(S, dtype):
     _card_close(flash_attention(q, k, v, bias=bias[None], causal=False),
                 TR.flash_attention_ref(q, k, v, bias=bias[None],
                                        causal=False), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [100, 255])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_absorbed_mla_shape_on_card(S, dtype):
+    """MLA's absorbed prefill: 40 query heads over one latent KV head,
+    Dk 288 (q and k as [latent ; rope]), Dv 256 (v the latent rows, a
+    view of k's first 256 columns); the tensor-core route in bf16, the
+    CUDA-core route in float32."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    q = torch.randn(1, 40, S, 288, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(1, 1, S, 288, device="cuda", generator=gen).to(dtype)
+    v = k[..., :256]
+    before = (flash_attention.tc_launches, flash_attention.simt_launches)
+    out = flash_attention(q, k, v, causal=True, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert (flash_attention.tc_launches - before[0],
+            flash_attention.simt_launches - before[1]) == (int(tc),
+                                                           int(not tc))
+    assert out.dtype == dtype and out.shape == (1, 40, S, 256)
+    _card_close(out, TR.flash_attention_ref(q, k, v, causal=True,
+                                            scale=96 ** -0.5), dtype)
 
 
 @pytest.mark.gpu

@@ -5,9 +5,8 @@ parameters carried across by ``from_jax_params``: prefill logits and
 cache, then decode steps with a scalar and a per-slot cache index, agree
 within 1e-5 * max|logits|.  The JAX side uses ``attn_impl="auto"``,
 which on the CPU is its oracle path.  The port's own ``init`` follows
-the declared laws; what the port does not run yet (MLA's absorbed
-prefill) raises ``NotPortedError``, a config whose parameters exceed
-one card ``ValueError``, and a mesh runs.
+the declared laws; a config whose parameters exceed one card raises
+``ValueError``, a mesh runs, and so does MLA's absorbed prefill.
 """
 from __future__ import annotations
 
@@ -20,7 +19,6 @@ import torch
 torch.set_num_threads(1)
 
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.device import NotPortedError  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -170,12 +168,6 @@ def test_init_follows_the_declared_laws():
 
 
 def test_what_is_not_ported_raises():
-    mla = dataclasses.replace(tconfigs.get_smoke("minicpm3_4b"),
-                              mla_absorb="always")
-    with pytest.raises(NotPortedError, match="mla_absorb='always'"):
-        TM.prefill(TM.init(mla, 0, device="cpu"), mla,
-                   torch.zeros(1, 3, dtype=torch.long),
-                   TM.init_cache(mla, 1, 8, device="cpu"))
     # a mesh runs: the sharded prefill and decode steps on 2 x 2 of the
     # CPU give the unsharded steps' logits, and the launcher serves on it
     cfg = tconfigs.get_smoke(ARCH)
@@ -206,6 +198,37 @@ def test_what_is_not_ported_raises():
     with pytest.raises(ValueError, match="model parallelism"):
         serve.main(["--arch", "qwen3_moe_235b_a22b", "--full", "--device",
                     "cpu"])
+    # MLA's absorbed prefill runs: minicpm3's smoke config with
+    # mla_absorb="always", prefill logits and cache against the
+    # reference's within 1e-5 x max|ref| + 1e-5 x |ref| (the MLA tests'
+    # tolerance, tests/test_torch_moe_mla.py)
+    _needs_jax()
+    jcfg = dataclasses.replace(jconfigs.get_smoke("minicpm3_4b"),
+                               mla_absorb="always")
+    tcfg = dataclasses.replace(tconfigs.get_smoke("minicpm3_4b"),
+                               mla_absorb="always")
+    jp = JM.init(jcfg, jax.random.PRNGKey(0))
+    tp = TM.from_jax_params(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(4).integers(
+        0, jcfg.vocab_size, size=(2, 7)).astype(np.int32)
+    jl, jc = JM.prefill(jp, jcfg, jnp.asarray(toks),
+                        JM.init_cache(jcfg, 2, 12, dtype=jnp.float32))
+    tl, tc = TM.prefill(tp, tcfg, torch.from_numpy(toks),
+                        TM.init_cache(tcfg, 2, 12, dtype=torch.float32,
+                                      device="cpu"))
+    pairs = [(tl, jl)] + [(tc["attn"][n], jc["attn"][n])
+                          for n in ("c_kv", "k_rope")]
+    for got, want in pairs:
+        got, want = got.numpy(), np.asarray(want, np.float32)
+        assert got.shape == want.shape
+        tol = 1e-5 * np.abs(want).max() + 1e-5 * np.abs(want)
+        assert np.all(np.abs(got - want) <= tol)
+    # the absorbed form is the same function as the up-projected one
+    up = dataclasses.replace(tcfg, mla_absorb="decode")
+    tl_up, _ = TM.prefill(tp, up, torch.from_numpy(toks),
+                          TM.init_cache(up, 2, 12, dtype=torch.float32,
+                                        device="cpu"))
+    assert float((tl - tl_up).abs().max()) <= 1e-4 * float(tl.abs().max())
 
 
 def test_steps_are_the_model_calls():

@@ -364,9 +364,9 @@ def test_train_step_shapes_the_batch_and_state():
     _, many = _unsharded_and_sharded(cfg, False, mesh)
     _, met = step(many, _torch(_batch(cfg, b=3)))
     assert np.isfinite(float(met["loss"]))
-    assert [r for r, _ in tsteps.data_shards(mesh, TS.TRAIN_RULES, 3)] == \
+    assert [r for r, *_ in tsteps.data_shards(mesh, TS.TRAIN_RULES, 3)] == \
         [slice(0, 3)]
-    assert [r for r, _ in tsteps.data_shards(mesh, TS.TRAIN_RULES, 8)] == \
+    assert [r for r, *_ in tsteps.data_shards(mesh, TS.TRAIN_RULES, 8)] == \
         [slice(0, 4), slice(4, 8)]
 
 

@@ -16,6 +16,8 @@ where JAX is missing.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -188,23 +190,117 @@ def test_included_headers_reach_the_group_helpers():
 # ----------------------------------------------------------------------
 # what the kernel does not take (CPU)
 # ----------------------------------------------------------------------
+def _half_chains(xp):
+    """Chains over bf16 / f16 planes in one framework (``xp`` its array
+    module), scalars exact in both types: the JAX test's C4; ``exp``, a
+    lower bound and a division; and ``exp`` after two rounded operations,
+    which turns their rounding into a relative error |arg| times as
+    large."""
+    floor = ((lambda v: torch.clamp(v, min=0.5)) if xp is torch
+             else (lambda v: xp.maximum(v, 0.5)))
+    return {"c4": _c4(xp.tanh, xp.abs, xp.sqrt),
+            "mix": (xp.exp, lambda v: v * 1.5 - 0.25, floor,
+                    lambda v: v / 3.0),
+            "exp_after": (lambda v: v * 1.5 - 0.25, xp.exp, floor)}
+
+
+# bool stage outputs kept bool: ``~v`` and ``v & w`` after a comparison
+BOOL_CHAINS = {"not": (lambda v: v > 0.5, lambda v: ~v),
+               "and": (lambda v: v > 0.5, lambda v: ~v,
+                       lambda v: v & (v | False))}
+# over int32 planes: floored // and % of negative values, bit ops, a
+# comparison whose bool goes on, true division to float32 cast back
+INT_CHAINS = {"arith": (lambda v: v * 3 - 7, lambda v: v // 4,
+                        lambda v: v % 5 - 2),
+              "bits": (lambda v: (v ^ 6) | 1, lambda v: v & 0x7f,
+                       lambda v: v > 2, lambda v: ~v),
+              "div": (lambda v: v * 5, lambda v: v / 2,
+                      lambda v: v - 0.75)}
+# over bool planes
+BOOL_PLANE_CHAINS = {"not": (lambda v: ~v, lambda v: v & (v | False)),
+                     "xor": (lambda v: v ^ True, lambda v: v | ~v)}
+HALF_ULPS = 2                        # port vs JAX, in the plane's type
+
+
+def _ulps(got, want, dtype):
+    """The largest |got - want| in units of the plane type's epsilon x
+    |want| (at least its smallest normal)."""
+    got, want = np.asarray(got.float()), np.asarray(want, np.float32)
+    info = torch.finfo(dtype)
+    unit = np.maximum(info.eps * np.abs(want), info.tiny)
+    return float((np.abs(got - want) / unit).max())
+
+
 @pytest.mark.parametrize("fn", [stream_pipeline, stream_pipeline_staged])
 def test_typed_errors(fn):
+    """What the kernel does not take raises (a 3-D plane, float64: the
+    reference turns it into float32 before its kernel, stages outside the
+    recorder's op set, a plane on neither the card nor the CPU); bf16 and
+    f16 chains hold the JAX kernel within 2 ulp of the plane's type; a
+    bool stage output stays bool into the next stage, and int32 and bool
+    planes give JAX's result, exact."""
     fns = CHAINS["c4"][0]
     with pytest.raises(ValueError, match="2-D"):
         fn(torch.ones(2, 3, 4), fns)
-    for dtype in (torch.float64, torch.bfloat16):
-        with pytest.raises(NotPortedError, match=str(dtype)):
-            fn(torch.ones(4, 8, dtype=dtype), fns)
+    with pytest.raises(NotPortedError, match="float64"):
+        fn(torch.ones(4, 8, dtype=torch.float64), fns)
     x = torch.ones(4, 8)
     for bad in (lambda v: v if v > 0 else -v,    # Python control flow
                 lambda v: v.mean(),               # outside the op set
-                lambda v: ~v):                    # logic on a bool input
+                lambda v: -v):                    # arithmetic on a bool
         chain = (lambda v: v > 0.5, bad)
         with pytest.raises(UnsupportedBackendError, match="stage 1"):
             fn(x, chain)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fn(torch.ones(4, 8, device="meta"), fns)
+    _needs_jax()
+    staged = fn is stream_pipeline_staged
+    j_fn = j_staged if staged else functools.partial(
+        j_fused, tile=(32, 128), interpret=True)
+    rng = np.random.default_rng(9)
+    xs = np.abs(rng.normal(size=(57, 300))).astype(np.float32)
+    chains, jchains = _half_chains(torch), _half_chains(jnp)
+    for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16),
+                          (torch.float16, jnp.float16)):
+        for name in chains:
+            xt = torch.from_numpy(xs).to(dtype)
+            got = fn(xt, chains[name])
+            assert got.dtype == dtype
+            # each op rounded to the plane's type: eager jnp, exactly
+            v = jnp.asarray(xs).astype(jdtype)
+            for f in jchains[name]:
+                v = f(v)
+            np.testing.assert_array_equal(
+                got.float().numpy(), np.asarray(v.astype(jnp.float32)))
+            # against the Pallas kernel in interpret mode, within 2 ulp;
+            # XLA keeps f16 in float32 across the kernel's ops, and an exp
+            # after rounded ops turns their one ulp of its argument into
+            # |arg| ulp of its result
+            bound = HALF_ULPS
+            if name == "exp_after":
+                bound += float(np.abs(xs * 1.5 - 0.25).max())
+            want = j_fn(jnp.asarray(xs).astype(jdtype), jchains[name])
+            gap = _ulps(got, np.asarray(want.astype(jnp.float32)), dtype)
+            assert gap <= bound, (dtype, name, gap)
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        xt = torch.from_numpy(xs - 1.0).to(dtype)
+        for chain in BOOL_CHAINS.values():
+            got = fn(xt, chain)
+            want = np.asarray(j_fn(jnp.asarray(xs - 1.0).astype(jdtype),
+                                   chain).astype(jnp.float32))
+            assert got.dtype == dtype
+            np.testing.assert_array_equal(got.float().numpy(), want)
+            assert 0 < float(got.float().sum()) < got.numel()
+    # int32 and bool planes: exact against JAX, the result in the plane's
+    # type (the reference's staged run leaves the last stage's type)
+    xi = rng.integers(-1000, 1000, size=(57, 300)).astype(np.int32)
+    for x, chains in ((xi, INT_CHAINS), (xi > 0, BOOL_PLANE_CHAINS)):
+        for name, chain in chains.items():
+            got = fn(torch.from_numpy(x), chain)
+            want = np.asarray(j_fn(jnp.asarray(x), chain)).astype(x.dtype)
+            assert got.dtype == torch.from_numpy(x).dtype, name
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_tile_is_checked():
@@ -314,3 +410,79 @@ def test_one_stage_ragged_and_misaligned_on_card(H, W):
     assert stream_pipeline.launches == before + 2
     _card_close(out, stream_pipeline_ref(x, fns))
     _card_close(outm, stream_pipeline_ref(xm, fns))
+
+
+def _card_ulps(got, want):
+    """Kernel vs plain on the card in units of the plane type's epsilon
+    x |plain| (NaN where the plain version has NaN)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    info = torch.finfo(want.dtype)
+    unit = (info.eps * want.float().abs()).clamp_min(info.tiny)
+    return float(((got.float() - want.float()).abs() / unit)[~nan].max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_planes_match_plain_on_card(dtype):
+    """bf16 / f16 chains, fused and staged, on a plane and a ragged,
+    misaligned view (the scalar walk): within 1 ulp of the plain
+    version's per-op rounding."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flat = torch.randn(257 * 513 + 1, device="cuda", generator=gen).abs()
+    for x in (torch.randn(1080, 1920, device="cuda", generator=gen).abs(),
+              flat[1:].view(257, 513)):
+        x = x.to(dtype)
+        for name, fns in _half_chains(torch).items():
+            before = stream_pipeline.launches
+            out = stream_pipeline(x, fns)
+            staged = stream_pipeline_staged(x, fns)
+            torch.cuda.synchronize()
+            assert stream_pipeline.launches == before + 1 + len(fns)
+            want = stream_pipeline_ref(x, fns)
+            assert _card_ulps(out, want) <= 1.0, name
+            assert _card_ulps(staged, want) <= 1.0, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bool_stage_outputs_stay_bool_on_card(dtype):
+    """``~v`` and ``v & w`` after a comparison, fused and staged (the
+    staged run keeps the comparison's bool in memory): exact."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(1079, 1917, device="cuda", generator=gen).to(dtype)
+    for fns in BOOL_CHAINS.values():
+        out = stream_pipeline(x, fns)
+        staged = stream_pipeline_staged(x, fns)
+        want = stream_pipeline_ref(x, fns)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.equal(out, want)
+        assert torch.equal(staged, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bool])
+def test_int_and_bool_planes_match_plain_on_card(dtype):
+    """int32 and bool planes (4-byte and 1-byte values, 4 and 16 to a
+    16-byte step), fused and staged, on a ragged plane and a misaligned
+    view of it (the scalar walk): exact."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flat = torch.randint(-1000, 1000, (1079 * 1917 + 1,), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    chains = INT_CHAINS
+    if dtype == torch.bool:
+        flat, chains = flat > 0, BOOL_PLANE_CHAINS
+    for x in (flat[:-1].view(1079, 1917), flat[1:].view(1079, 1917)):
+        for name, fns in chains.items():
+            before = stream_pipeline.launches
+            out = stream_pipeline(x, fns)
+            staged = stream_pipeline_staged(x, fns)
+            torch.cuda.synchronize()
+            assert stream_pipeline.launches == before + 1 + len(fns)
+            want = stream_pipeline_ref(x, fns)
+            assert out.dtype == dtype and torch.equal(out, want), name
+            assert torch.equal(staged, want), name
