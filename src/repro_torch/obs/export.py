@@ -6,9 +6,14 @@ The output follows the `Trace Event Format
 <https://docs.google.com/document/d/1CvAClvFfyA5R-PhYUmn5OOQtYMH4h6I0nSsKchNAySU>`_
 JSON-object flavor (``{"traceEvents": [...]}``) that both
 ``chrome://tracing`` and `Perfetto <https://ui.perfetto.dev>`_ load
-directly.  Timestamps are emitted in **microseconds relative to the
-first event**, so traces are readable regardless of the host's
-``perf_counter`` epoch.
+directly.  Timestamps are emitted in **microseconds on the Unix
+epoch**, the timebase ``torch.profiler`` stamps its events with (its
+own Chrome trace writes them less its ``baseTimeNanoseconds``), so a
+``$REPRO_TRACE`` dump lines up with a profiler trace of the same run.
+The ring's ``perf_counter`` stamps are mapped there linearly between
+two ``(perf_counter_ns, time_ns)`` anchors, the tracer's from its
+creation and one taken at export; both go into the payload's
+``otherData.clock``.
 
 Because the recorder is a bounded ring that evicts oldest-first, the
 snapshot can open mid-span: an ``E`` whose ``B`` was evicted, or a
@@ -22,7 +27,7 @@ from __future__ import annotations
 import json
 from typing import Any
 
-from repro_torch.obs.tracer import Event, Tracer
+from repro_torch.obs.tracer import Event, Tracer, clock_anchor
 
 __all__ = ["to_chrome_events", "export_chrome_trace",
            "validate_chrome_trace", "load_chrome_trace"]
@@ -31,13 +36,33 @@ __all__ = ["to_chrome_events", "export_chrome_trace",
 _PID = 1
 
 
-def _us(ts: float, t0: float) -> float:
-    """perf_counter seconds -> microseconds relative to trace start."""
-    return round((ts - t0) * 1e6, 3)
+class _EpochClock:
+    """perf_counter seconds -> microseconds on the Unix epoch, linear
+    between two ``(perf_counter_ns, time_ns)`` anchors (offset only
+    where the wall clock did not advance between them, so the map never
+    reorders events)."""
+
+    def __init__(self, first: tuple[int, int], last: tuple[int, int]):
+        (p0, w0), (p1, w1) = first, last
+        self.scale = (w1 - w0) / (p1 - p0) if p1 > p0 and w1 > w0 else 1.0
+        self.p0 = p0 * 1e-9
+        self.w0 = w0 * 1e-3
+
+    def us(self, ts: float) -> float:
+        return round(self.w0 + (ts - self.p0) * 1e6 * self.scale, 3)
+
+    def dur_us(self, dur: float) -> float:
+        return round(dur * 1e6 * self.scale, 3)
 
 
-def to_chrome_events(tracer: Tracer) -> list[dict[str, Any]]:
+def to_chrome_events(tracer: Tracer, anchor: tuple[int, int] | None = None
+                     ) -> list[dict[str, Any]]:
     """Render the tracer's ring as a list of Chrome trace events.
+
+    ``anchor`` is the export's ``(perf_counter_ns, time_ns)`` pair
+    (:func:`~repro_torch.obs.tracer.clock_anchor`, taken now if None);
+    with the tracer's own it maps every timestamp onto the Unix epoch,
+    in microseconds.
 
     Events are ordered by ``(ts, seq)`` — the ring appends under a
     lock, but retroactive emissions (async request timelines, cross-
@@ -47,13 +72,13 @@ def to_chrome_events(tracer: Tracer) -> list[dict[str, Any]]:
     dangling ``B``) before anything is serialized.
     """
     events = sorted(tracer.events(), key=lambda e: (e.ts, e.seq))
+    clock = _EpochClock(tracer.anchor, anchor or clock_anchor())
     out: list[dict[str, Any]] = []
     for tid, name in sorted(tracer.thread_names().items()):
         out.append({"ph": "M", "name": "thread_name", "pid": _PID,
                     "tid": tid, "args": {"name": name}})
     if not events:
         return out
-    t0 = events[0].ts
     t_end = max(e.ts + (e.dur or 0.0) for e in events)
     # depth of open B spans per tid, for eviction repair
     open_stacks: dict[int, list[Event]] = {}
@@ -69,10 +94,10 @@ def to_chrome_events(tracer: Tracer) -> list[dict[str, Any]]:
                 continue
             stack.pop()
         rec: dict[str, Any] = {"ph": e.ph, "name": e.name, "cat": e.cat,
-                               "ts": _us(e.ts, t0), "pid": _PID,
+                               "ts": clock.us(e.ts), "pid": _PID,
                                "tid": e.tid}
         if e.ph == "X":
-            rec["dur"] = round((e.dur or 0.0) * 1e6, 3)
+            rec["dur"] = clock.dur_us(e.dur or 0.0)
         if e.aid is not None:
             rec["id"] = str(e.aid)
         if e.ph == "i":
@@ -86,7 +111,7 @@ def to_chrome_events(tracer: Tracer) -> list[dict[str, Any]]:
     for tid, stack in open_stacks.items():
         for e in reversed(stack):
             out.append({"ph": "E", "name": e.name, "cat": e.cat,
-                        "ts": _us(t_end, t0), "pid": _PID, "tid": tid})
+                        "ts": clock.us(t_end), "pid": _PID, "tid": tid})
     return out
 
 
@@ -95,12 +120,17 @@ def export_chrome_trace(tracer: Tracer, path: str) -> dict[str, Any]:
 
     Returns the payload that was written (handy for tests).  The
     payload carries ``displayTimeUnit: "ms"`` and a small metadata
-    block recording how many events the ring dropped.
+    block recording how many events the ring dropped and the two clock
+    anchors (``clock``: ``created`` and ``exported``, each
+    ``[perf_counter_ns, time_ns]``).
     """
+    anchor = clock_anchor()
     payload = {
-        "traceEvents": to_chrome_events(tracer),
+        "traceEvents": to_chrome_events(tracer, anchor),
         "displayTimeUnit": "ms",
-        "otherData": {"recorder": "repro_torch.obs", "dropped": tracer.dropped},
+        "otherData": {"recorder": "repro_torch.obs", "dropped": tracer.dropped,
+                      "clock": {"created": list(tracer.anchor),
+                                "exported": list(anchor)}},
     }
     with open(path, "w") as f:
         json.dump(payload, f)

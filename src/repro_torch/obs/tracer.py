@@ -37,6 +37,23 @@ method — a couple of attribute loads, no allocation, no lock.  Code on
 hot paths guards with ``if tracer is not None`` so the off-by-default
 engine pays literally nothing.
 
+**The profiler mirror.**  While a ``torch.profiler`` session records, a
+thread-scoped span (``span``, ``maybe_span``) and a ``begin``/``end``
+pair also open a profiler range of the same name
+(``torch.autograd.profiler.record_function``), with or without a
+tracer: with none installed the mirror is the span's only output.  The
+device trace's idle gaps and operations then carry the program's span
+names on the profiler's own clock.  The check is one attribute read of
+``torch.autograd.profiler._is_profiler_enabled``, made only once torch
+is loaded (this module never imports it); no range is entered while
+nothing records.
+
+**Clocks.**  Events are stamped with ``time.perf_counter()``; a tracer
+keeps a ``(perf_counter_ns, time_ns)`` anchor from its creation, and
+the exporter takes another, so the export maps every event onto the
+Unix epoch, the timebase ``torch.profiler`` stamps its events with
+(:mod:`repro_torch.obs.export`).
+
 The module also owns the process-global tracer and the
 ``REPRO_TRACE`` environment variable that switches it on:
 :func:`install` / :func:`get_tracer` / :func:`resolve_tracer`.  When
@@ -49,13 +66,15 @@ This module imports nothing from the rest of the repo — any layer
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from collections import deque
 from typing import Any
 
 __all__ = ["Event", "Tracer", "install", "uninstall", "get_tracer",
-           "resolve_tracer", "maybe_span", "TRACE_ENV"]
+           "resolve_tracer", "maybe_span", "profiling", "clock_anchor",
+           "TRACE_ENV"]
 
 #: environment variable that enables the process-global tracer; set it
 #: to ``1`` to record, or to a ``.json`` path to also auto-export a
@@ -114,10 +133,73 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-class _SpanCtx:
-    """Context manager for one thread-scoped B/E span."""
+# ----------------------------------------------------------------------
+# the profiler mirror
+# ----------------------------------------------------------------------
+#: ``torch.autograd.profiler`` once torch is loaded (never imported here)
+_PROFILER: Any = None
 
-    __slots__ = ("_tracer", "_name", "_cat", "_attrs", "_exit_attrs")
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session is recording right now."""
+    prof = _PROFILER or _find_profiler()
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _find_profiler() -> Any:
+    global _PROFILER
+    if "torch" in sys.modules:
+        import torch.autograd.profiler as prof
+        _PROFILER = prof
+    return _PROFILER
+
+
+def _mirror_enter(name: str) -> Any:
+    """Open a profiler range ``name``; returns its handle."""
+    rf = _PROFILER.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _mirror_exit(rf: Any) -> None:
+    rf.__exit__(None, None, None)
+
+
+class _Mirror:
+    """A span with no tracer while the profiler records: its profiler
+    range alone."""
+
+    __slots__ = ("_name", "_rf")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._rf = None
+
+    def __enter__(self) -> "_Mirror":
+        self._rf = _mirror_enter(self._name)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _mirror_exit(self._rf)
+
+    def set(self, **attrs: Any) -> "_Mirror":
+        return self
+
+
+def clock_anchor() -> tuple[int, int]:
+    """``(perf_counter_ns, time_ns)`` read together: the wall clock's
+    read between two ``perf_counter`` reads, paired with their mean."""
+    p0 = time.perf_counter_ns()
+    wall = time.time_ns()
+    p1 = time.perf_counter_ns()
+    return (p0 + p1) // 2, wall
+
+
+class _SpanCtx:
+    """Context manager for one thread-scoped B/E span (and its profiler
+    range, opened before the B is stamped and closed after the E)."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_attrs", "_exit_attrs", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  attrs: dict[str, Any] | None):
@@ -126,6 +208,7 @@ class _SpanCtx:
         self._cat = cat
         self._attrs = attrs
         self._exit_attrs: dict[str, Any] | None = None
+        self._rf = None
 
     def set(self, **attrs: Any) -> "_SpanCtx":
         """Attach result attributes, recorded on the span's E event."""
@@ -136,6 +219,8 @@ class _SpanCtx:
         return self
 
     def __enter__(self) -> "_SpanCtx":
+        if profiling():
+            self._rf = _mirror_enter(self._name)
         self._tracer._emit("B", self._name, self._cat,
                            time.perf_counter(), None,
                            threading.get_ident(), None, self._attrs)
@@ -145,20 +230,25 @@ class _SpanCtx:
         self._tracer._emit("E", self._name, self._cat,
                            time.perf_counter(), None,
                            threading.get_ident(), None, self._exit_attrs)
+        if self._rf is not None:
+            _mirror_exit(self._rf)
+            self._rf = None
 
 
 class _Token:
-    """Handle for an explicit cross-thread begin/end span."""
+    """Handle for an explicit cross-thread begin/end span (``rf``: its
+    profiler range, closed by ``end`` on whichever thread runs it)."""
 
-    __slots__ = ("name", "cat", "ts", "tid", "attrs")
+    __slots__ = ("name", "cat", "ts", "tid", "attrs", "rf")
 
     def __init__(self, name: str, cat: str, ts: float, tid: int,
-                 attrs: dict[str, Any] | None):
+                 attrs: dict[str, Any] | None, rf: Any = None):
         self.name = name
         self.cat = cat
         self.ts = ts
         self.tid = tid
         self.attrs = attrs
+        self.rf = rf
 
 
 class Tracer:
@@ -189,7 +279,9 @@ class Tracer:
         self._lock = threading.Lock()
         self._seq = 0
         self._next_id = 0
-        self._t0 = time.perf_counter()
+        #: (perf_counter_ns, time_ns) at creation: the export's first
+        #: clock anchor
+        self.anchor = clock_anchor()
 
     # ------------------------------------------------------------------
     # recording
@@ -209,25 +301,31 @@ class Tracer:
     def span(self, name: str, cat: str = "span", **attrs: Any):
         """Thread-scoped duration span as a ``with`` context."""
         if not self.enabled:
-            return _NOOP
+            return _Mirror(name) if profiling() else _NOOP
         return _SpanCtx(self, name, cat, attrs or None)
 
     def begin(self, name: str, cat: str = "span",
               **attrs: Any) -> _Token | None:
         """Open an explicit span; :meth:`end` may run on ANY thread.
 
-        Returns an opaque token (``None`` when disabled — ``end``
-        accepts it).  The span is recorded as a single complete event
-        at ``end`` time, attributed to the *beginning* thread.
+        Returns an opaque token (``None`` when disabled and nothing
+        records — ``end`` accepts it).  The span is recorded as a
+        single complete event at ``end`` time, attributed to the
+        *beginning* thread.
         """
+        rf = _mirror_enter(name) if profiling() else None
         if not self.enabled:
-            return None
+            return None if rf is None else _Token(name, cat, 0.0, 0, None, rf)
         return _Token(name, cat, time.perf_counter(),
-                      threading.get_ident(), attrs or None)
+                      threading.get_ident(), attrs or None, rf)
 
     def end(self, token: _Token | None, **attrs: Any) -> None:
         """Close an explicit span opened by :meth:`begin`."""
-        if token is None or not self.enabled:
+        if token is None:
+            return
+        if not self.enabled:
+            if token.rf is not None:
+                _mirror_exit(token.rf)
             return
         if attrs:
             merged = dict(token.attrs or {})
@@ -237,6 +335,8 @@ class Tracer:
         now = time.perf_counter()
         self._emit("X", token.name, token.cat, token.ts,
                    max(0.0, now - token.ts), token.tid, None, merged)
+        if token.rf is not None:
+            _mirror_exit(token.rf)
 
     def complete(self, name: str, ts: float, dur: float,
                  cat: str = "span", tid: int | None = None,
@@ -403,7 +503,8 @@ def resolve_tracer(trace: Any) -> Tracer | None:
 
 def maybe_span(tracer: Tracer | None, name: str, cat: str = "span",
                **attrs: Any):
-    """``tracer.span(...)`` or a shared no-op when ``tracer`` is None."""
-    if tracer is None:
-        return _NOOP
-    return tracer.span(name, cat, **attrs)
+    """``tracer.span(...)``; with ``tracer`` None the profiler range
+    alone while ``torch.profiler`` records, else a shared no-op."""
+    if tracer is not None:
+        return tracer.span(name, cat, **attrs)
+    return _Mirror(name) if profiling() else _NOOP

@@ -20,6 +20,20 @@ life (admission writes a slot in place).  On the CPU the step runs
 eagerly through the same buffers.  Prefill stays eager and B = 1, as the
 reference's is not jitted.
 
+Tracing (:mod:`repro_torch.obs.tracer`; the process-global tracer, so
+``$REPRO_TRACE`` switches it on): the spans ``batcher.admit`` around an
+admission that prefills, with one ``batcher.prefill`` per request inside
+it (ended by the first token's host read, which waits for the device),
+``batcher.decode`` (the staging wait, the host copies and the compiled
+step's call), ``batcher.sample`` (the argmax and its copy to the host)
+and ``batcher.retire``; no span covers a whole step, so a device gap is
+named by the phase the host was in.  Counters, each step:
+``batcher.active`` and ``batcher.queued``.  Each request's ``queued`` ->
+``prefill`` -> ``decode`` timeline is emitted at its retirement under an
+id taken at ``submit``, from timestamps taken on the way.  While
+``torch.profiler`` records, the spans also open its ranges, with or
+without a tracer.
+
 As in the reference, a request is its prompt alone: a ``vlm`` model
 (internvl2) is served text-only, and an ``encdec`` model (whisper)
 cannot be admitted, since a ``Request`` carries no encoder frames; its
@@ -29,6 +43,7 @@ reference's fails inside its encoder).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -36,6 +51,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.tracer import maybe_span, resolve_tracer
 from repro_torch.runtime.compiled_step import CompiledStep
 from repro_torch.runtime.slots import SlotPool
 
@@ -60,13 +76,18 @@ class ContinuousBatcher:
     the stacked (layers, slots, ...) tree of :func:`M.init_cache`, in
     ``dtype`` (float32 by default, as in the reference).  ``compiled``
     is the decode step (:class:`CompiledStep`; ``compiled.captures`` is
-    1 once two steps have run on the card).
+    1 once two steps have run on the card).  ``tracer``: the
+    process-global tracer at construction, if any.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int,
                  max_len: int, dtype: torch.dtype = torch.float32,
                  device=None):
         self.device = resolve_device(device)
+        self.tracer = resolve_tracer(None)
+        # id(request) -> [trace id, submit, prefill start, first token]
+        self._timeline: dict[int, list] | None = (
+            None if self.tracer is None else {})
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_len = n_slots, max_len
         self.cache = M.init_cache(cfg, n_slots, max_len, dtype=dtype,
@@ -89,6 +110,9 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
+        if self.tracer is not None:
+            self._timeline[id(req)] = [self.tracer.new_id(),
+                                       time.perf_counter(), None, None]
         self.pool.submit(req)
 
     @property
@@ -110,18 +134,36 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
     def _admit(self) -> None:
         """Prefill queued requests into free slots (one at a time)."""
-        for slot, req in self.pool.admit():
-            prompt = torch.as_tensor(np.asarray(req.prompt),
-                                     dtype=torch.long,
-                                     device=self.device)[None]
-            tmp_cache = M.init_cache(self.cfg, 1, self.max_len,
-                                     dtype=torch.float32, device=self.device)
-            logits, tmp_cache = M.prefill(self.params, self.cfg, prompt,
-                                          tmp_cache)
-            self._copy_slot(tmp_cache, slot)
-            req.tokens.append(int(torch.argmax(logits[0], -1)))
-            self.lengths[slot] = len(req.prompt)
-            self.prefills += 1
+        admitted = self.pool.admit()
+        if not admitted:
+            return
+        tr = self.tracer
+        with maybe_span(tr, "batcher.admit", cat="batcher",
+                        requests=len(admitted)):
+            for slot, req in admitted:
+                marks = (self._timeline.get(id(req)) if tr is not None
+                         else None)
+                if marks is not None:
+                    marks[2] = time.perf_counter()
+                with maybe_span(tr, "batcher.prefill", cat="batcher",
+                                rid=req.rid, tokens=len(req.prompt)):
+                    self._prefill(slot, req)
+                if marks is not None:
+                    marks[3] = time.perf_counter()
+
+    def _prefill(self, slot: int, req: Request) -> None:
+        """One request's B = 1 prefill, copied into ``slot``; its first
+        token is read back to the host."""
+        prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
+                                 device=self.device)[None]
+        tmp_cache = M.init_cache(self.cfg, 1, self.max_len,
+                                 dtype=torch.float32, device=self.device)
+        logits, tmp_cache = M.prefill(self.params, self.cfg, prompt,
+                                      tmp_cache)
+        self._copy_slot(tmp_cache, slot)
+        req.tokens.append(int(torch.argmax(logits[0], -1)))
+        self.lengths[slot] = len(req.prompt)
+        self.prefills += 1
 
     def _copy_slot(self, src_cache: dict, slot: int) -> None:
         """Copy a B = 1 cache into slot ``slot`` of the pool cache, in
@@ -174,18 +216,34 @@ class ContinuousBatcher:
 
         Returns the number of tokens produced this step."""
         self._admit()
+        tr = self.tracer
+        if tr is not None:
+            tr.counter("batcher.active", self.active)
+            tr.counter("batcher.queued", len(self.queue))
         if self.active == 0:
             return 0
         tokens = np.zeros(self.n_slots, np.int32)
         for i, r in enumerate(self.slot_req):
             if r is not None:
                 tokens[i] = r.tokens[-1]
-        logits, new_cache = self._decode_step(tokens, self.lengths)
         # keep host lengths authoritative (the step +1s them all,
         # including idle slots; we install our own vector next step);
         # only the index changes, the other tensors stay the graph's
-        self.cache = new_cache
-        nxt = torch.argmax(logits, -1).cpu().numpy().astype(np.int32)
+        with maybe_span(tr, "batcher.decode", cat="batcher"):
+            logits, self.cache = self._decode_step(tokens, self.lengths)
+        with maybe_span(tr, "batcher.sample", cat="batcher"):
+            nxt = self._sample(logits)
+        with maybe_span(tr, "batcher.retire", cat="batcher"):
+            return self._retire(nxt)
+
+    @staticmethod
+    def _sample(logits: torch.Tensor) -> np.ndarray:
+        """Each slot's greedy next token, on the host."""
+        return torch.argmax(logits, -1).cpu().numpy().astype(np.int32)
+
+    def _retire(self, nxt: np.ndarray) -> int:
+        """Appends each live slot's next token, marks the finished and
+        frees their slots; returns the tokens appended."""
         produced = 0
         for i, r in enumerate(self.slot_req):
             if r is None:
@@ -200,9 +258,30 @@ class ContinuousBatcher:
         # continuous refill: reap every finished sequence's slot; the next
         # _admit() backfills them without a drain barrier
         for slot in self.pool.ready(lambda r: r.done):
-            self.pool.retire(slot)
+            req = self.pool.retire(slot)
             self.lengths[slot] = 0
+            if self.tracer is not None:
+                self._emit_timeline(req)
         return produced
+
+    def _emit_timeline(self, req: Request) -> None:
+        """The request's queued -> prefill -> decode timeline, one async
+        track under the id taken at its submission."""
+        marks = self._timeline.pop(id(req), None)
+        if marks is None:              # put in the pool past submit()
+            return
+        aid, t_submit, t_prefill, t_first = marks
+        now = time.perf_counter()
+        tr = self.tracer
+        tr.async_event("request", "b", aid, ts=t_submit, cat="request",
+                       rid=req.rid)
+        tr.async_span("queued", aid, t_submit, t_prefill, cat="request",
+                      wait_ms=(t_prefill - t_submit) * 1e3)
+        tr.async_span("prefill", aid, t_prefill, t_first, cat="request",
+                      tokens=len(req.prompt))
+        tr.async_span("decode", aid, t_first, now, cat="request",
+                      tokens=len(req.tokens))
+        tr.async_event("request", "e", aid, ts=now, cat="request")
 
     def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
         steps = 0

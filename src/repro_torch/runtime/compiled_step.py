@@ -38,6 +38,12 @@ fresh arrays, so a result stays put when the next step replays.
 On the CPU the step runs eagerly at every call, with the same static
 buffers and copies: that is the CPU path, not a fallback.
 
+Tracing (:mod:`repro_torch.obs.tracer`, the process-global tracer): a
+call is one span, ``compiled.warm_up``, ``compiled.capture`` (then
+``compiled.replay``), ``compiled.replay``, or on the CPU
+``compiled.eager``.  No span opens inside the step function: that code
+runs once, at the capture.
+
 Launch counts: the kernel wrappers count a launch when their Python
 runs.  A capture runs that Python once and a replay runs none of it, so
 the counters' delta over the capture is the step's launches; it is taken
@@ -53,6 +59,7 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs.tracer import maybe_span, resolve_tracer
 
 __all__ = ["CompiledStep", "launch_counters"]
 
@@ -91,13 +98,15 @@ class CompiledStep:
     (default :func:`launch_counters`).  After a call: ``steps`` executed
     steps, ``captures`` (0 or 1), ``capture_ms`` (host ms of the
     capture) and ``step_launches`` (``name`` or ``name.route`` ->
-    launches a step, from the capture).
+    launches a step, from the capture).  ``tracer``: the process-global
+    tracer at construction, if any.
     """
 
     def __init__(self, fn: Callable, device=None,
                  counters: Sequence | None = None):
         self.fn = fn
         self.device = resolve_device(device)
+        self.tracer = resolve_tracer(None)
         self.counters = tuple(launch_counters() if counters is None
                               else counters)
         self.graphed = self.device.type == "cuda"
@@ -116,14 +125,19 @@ class CompiledStep:
     # ------------------------------------------------------------------
     def __call__(self, *inputs: torch.Tensor):
         self._stage(inputs)
+        tr = self.tracer
         if not self.graphed:
-            out = _copies(self.fn(*self._inputs))
+            with maybe_span(tr, "compiled.eager", cat="compiled"):
+                out = _copies(self.fn(*self._inputs))
         elif self.steps == 0:
-            out = self._warm_up()
+            with maybe_span(tr, "compiled.warm_up", cat="compiled"):
+                out = self._warm_up()
         else:
             if self._graph is None:
-                self._capture()
-            self._replay()
+                with maybe_span(tr, "compiled.capture", cat="compiled"):
+                    self._capture()
+            with maybe_span(tr, "compiled.replay", cat="compiled"):
+                self._replay()
             out = _copies(self._outputs)
         self.steps += 1
         return out

@@ -38,6 +38,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.obs.tracer import maybe_span, resolve_tracer
 from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
                                      tree_leaves, tree_map)
 from repro_torch.optim.compression import ef_init, ef_roundtrip
@@ -395,8 +396,8 @@ def _global_aux(cfg: ModelConfig, stats: list[list], dev) -> torch.Tensor:
     return torch.stack(per_layer).mean()
 
 
-def _grads(params: dict, cfg: ModelConfig, batch: dict, shards: list
-           ) -> tuple[torch.Tensor, dict, list[list]]:
+def _grads(params: dict, cfg: ModelConfig, batch: dict, shards: list,
+           tracer=None) -> tuple[torch.Tensor, dict, list[list]]:
     """(total, metrics, each data shard's gradients in :func:`tree_leaves`
     order) of the batch split over ``shards`` ((rows, device, position)
     each;
@@ -407,30 +408,34 @@ def _grads(params: dict, cfg: ModelConfig, batch: dict, shards: list
     statistics, so the loss is the whole batch's.  A parameter the loss
     does not reach gets zeros, as ``jax.grad`` gives it.  The gradients
     are taken with respect to detached aliases of the parameters, so the
-    caller's tensors keep ``requires_grad`` False and serve as before."""
+    caller's tensors keep ``requires_grad`` False and serve as before.
+    Spans: ``train.forward`` (the shards' forwards and the loss) and
+    ``train.backward`` (the one backward, remat's recompute within)."""
     dev0 = shards[0][1]
     scfg = _shard_cfg(cfg, len(shards))
     trees = [tree_map(lambda p: p.detach().requires_grad_(True),
                       params[dev]) for _, dev, _ in shards]
     leaves = [tree_leaves(t) for t in trees]
     with torch.enable_grad():
-        sums, counts, auxs, stats = [], [], [], []
-        with L.moe_stats() as seen:
-            for (rows, dev, _), tree in zip(shards, trees):
-                part = {k: v[rows].to(dev) for k, v in batch.items()}
-                n0 = len(seen)
-                ce_sum, count, aux = M.loss_sums(tree, scfg, part)
-                stats.append(seen[n0:])
-                sums.append(ce_sum.to(dev0))
-                counts.append(count.to(dev0))
-                auxs.append(aux.to(dev0))
-        count = torch.stack(counts).sum()
-        loss = torch.stack(sums).sum() / count.clamp_min(1.0)
-        aux = (_global_aux(cfg, stats, dev0)
-               if cfg.n_experts and len(shards) > 1 else auxs[0])
-        total = loss + cfg.router_aux_loss * aux
+        with maybe_span(tracer, "train.forward", cat="train"):
+            sums, counts, auxs, stats = [], [], [], []
+            with L.moe_stats() as seen:
+                for (rows, dev, _), tree in zip(shards, trees):
+                    part = {k: v[rows].to(dev) for k, v in batch.items()}
+                    n0 = len(seen)
+                    ce_sum, count, aux = M.loss_sums(tree, scfg, part)
+                    stats.append(seen[n0:])
+                    sums.append(ce_sum.to(dev0))
+                    counts.append(count.to(dev0))
+                    auxs.append(aux.to(dev0))
+            count = torch.stack(counts).sum()
+            loss = torch.stack(sums).sum() / count.clamp_min(1.0)
+            aux = (_global_aux(cfg, stats, dev0)
+                   if cfg.n_experts and len(shards) > 1 else auxs[0])
+            total = loss + cfg.router_aux_loss * aux
         flat = [p for ls in leaves for p in ls]
-        grads = torch.autograd.grad(total, flat, allow_unused=True)
+        with maybe_span(tracer, "train.backward", cat="train"):
+            grads = torch.autograd.grad(total, flat, allow_unused=True)
     n = len(leaves[0])
     per = [[torch.zeros_like(p) if g is None else g
             for p, g in zip(flat[d * n:(d + 1) * n], grads[d * n:(d + 1) * n])]
@@ -458,7 +463,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     the step runs as the module's docstring says; the batch is whole
     tensors on any device, each microbatch split over the data shards.
     Without it the step is the one-shard case of the same loop.
+
+    Spans (the process-global tracer at the call, which is the returned
+    function's ``tracer``, and the profiler's ranges): each microbatch's
+    ``train.forward`` and ``train.backward``, then ``train.optimizer``
+    (the error-feedback roundtrip, AdamW); no span covers the whole step.
     """
+    tracer = resolve_tracer(None)
+
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         mb = max(cfg.microbatches, 1)
@@ -478,7 +490,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         per, losses, mets = None, [], []
         for j in range(mb):        # the reference's split: rows j*Bm...
             part = {k: v[j * Bm:(j + 1) * Bm] for k, v in batch.items()}
-            loss, met, g = _grads(gathered, cfg, part, shards)
+            loss, met, g = _grads(gathered, cfg, part, shards, tracer)
             losses.append(loss)
             mets.append(met)
             if mb == 1:
@@ -506,9 +518,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 grads.append(reduce_scatter(parts, leaf.sharding))
                 del parts
         del per
-        if compress_grads:
-            grads, _ = ef_roundtrip(grads, state["ef"])
-        _, _, opt_metrics = adamw_apply(opt_cfg, params, grads, state["opt"])
+        with maybe_span(tracer, "train.optimizer", cat="train"):
+            if compress_grads:
+                grads, _ = ef_roundtrip(grads, state["ef"])
+            _, _, opt_metrics = adamw_apply(opt_cfg, params, grads,
+                                            state["opt"])
         if mb == 1:
             loss, metrics = losses[0], mets[0]
         else:
@@ -517,4 +531,5 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                        for k in mets[0]}
         return state, {**metrics, **opt_metrics, "total_loss": loss}
 
+    train_step.tracer = tracer
     return train_step

@@ -375,10 +375,17 @@ def longest_launches(torch, prof, n: int) -> list[dict]:
     whose longest launch is longest."""
     longest: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if _is_device_op(torch, e):
             longest[e.name] = max(longest.get(e.name, 0.0), _device_us(e))
     top = sorted(longest.items(), key=lambda kv: -kv[1])[:n]
     return [{"name": name[:120], "ms": us / 1e3} for name, us in top]
+
+
+def _is_device_op(torch, evt) -> bool:
+    """A kernel, copy or fill on the card: not the device-side mirror of
+    a host range (the port's spans open one while the profiler records)."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False))
 
 
 def device_rows(torch, prof, steps: int) -> list[dict]:
@@ -386,7 +393,7 @@ def device_rows(torch, prof, steps: int) -> list[dict]:
     rows = []
     for evt in prof.key_averages():
         us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if us > 0 and _is_device_op(torch, evt):
             rows.append({"name": evt.key[:120], "ms_per_step": us / 1e3
                          / steps, "launches_per_step": evt.count / steps})
     rows.sort(key=lambda r: -r["ms_per_step"])
