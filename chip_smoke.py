@@ -196,15 +196,18 @@ no result line) on any error:
    own bf16 error against float32 within 1.15 x the spread + 2e-3, and
    the same in float32 within 1e-3; then 1
    + 3 steps through ``make_train_step`` with AdamW: exact launches a
-   step (each kernel twice a layer, remat's recompute, and one plain
-   backward), finite losses, the step counter; step ms (CUDA events,
+   step (each kernel twice a layer, remat's recompute, and one backward,
+   the MLP's on the tensor-core route in bf16 and none in float32),
+   finite losses, the step counter; step ms (CUDA events,
    median), one step split into forward, backward and optimizer,
    tokens/s, MFU, peak memory and the step's bound; then the ``tiny``
    preset through ``Trainer`` with a checkpoint and a resume (losses
    equal, max abs 0; float32 gradients within 1e-4 of ``impl="ref"``);
    then the three kernels at their training shapes against their plain
-   versions, bounds and yardsticks, with each Function's plain backward
-   timed;
+   versions, bounds and yardsticks, with each Function's backward timed
+   (the MLP's tensor-core backward beside the plain recompute and its
+   bound), and the MLP backward's SwiGLU kernel against its plain
+   version and bound;
 14. model parallelism (``repro_torch.parallel``, the sharded steps) on
    one card standing for a mesh (distinct cards where the host has
    them): (a) ``ring_allgather_matmul`` / ``ring_matmul_reducescatter``
@@ -975,6 +978,8 @@ LM_KERNELS = {   # name -> (source, the TPU kernel it replaces)
                   "src/repro/kernels/fused_mlp.py:64"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:79"),
+    "fused_mlp_backward": ("src/repro_torch/csrc/fused_mlp_backward.cu",
+                           "none: jax.grad differentiates the plain version"),
 }
 LM_F32_TOL = 1e-5                # kernel vs plain, float32 operands
 LM_PATH_TOL = 8e-3               # kernel vs plain, bf16 out: two bf16 steps
@@ -1936,9 +1941,12 @@ ADAMW_BYTES_PER_PARAM = 28       # g read, master, m, v read and written,
 
 
 def train_counts(cfg) -> dict:
-    """Launches and plain backwards of one training forward + backward:
-    each kernel once per layer that runs it in the forward, once more in
-    the recompute of ``remat`` "full" or "dots", one backward each."""
+    """Launches and backwards of one training forward + backward: each
+    kernel once per layer that runs it in the forward, once more in the
+    recompute of ``remat`` "full" or "dots", one backward each; in bf16
+    the MLP's on the tensor-core route (``fused_mlp.tc_backward``), each
+    launching the SwiGLU kernel once (``fused_mlp_backward``), none of
+    either in float32."""
     passes = 1 if cfg.remat == "none" else 2
     if cfg.family == "hybrid":
         per = {"ssd_scan": cfg.n_layers,
@@ -1950,15 +1958,22 @@ def train_counts(cfg) -> dict:
     for name, n in per.items():
         out[name] = passes * n
         out[f"{name}.backward"] = n
+    out["fused_mlp.tc_backward"] = out["fused_mlp_backward"] = (
+        per["fused_mlp"] if cfg.dtype == "bfloat16" else 0)
     return out
 
 
 def read_train_counts(counters) -> dict:
-    """:func:`read_counts` (each route's launches too) and each kernel's
-    plain backwards, as ``name.backward``."""
+    """:func:`read_counts` (each route's launches too), each kernel's
+    backwards, as ``name.backward``, the MLP's on the tensor-core route,
+    as ``fused_mlp.tc_backward``, and the SwiGLU kernel's launches, as
+    ``fused_mlp_backward``."""
+    from repro_torch.kernels.fused_mlp_backward import swiglu_backward
     return {**read_counts(counters),
             **{f"{k}.backward": fn.backward_calls
-               for k, fn in counters.items()}}
+               for k, fn in counters.items()},
+            "fused_mlp.tc_backward": counters["fused_mlp"].tc_backward_calls,
+            "fused_mlp_backward": swiglu_backward.launches}
 
 
 def check_train_counts(label, got, want, route, times=1) -> None:
@@ -1973,9 +1988,12 @@ def check_train_counts(label, got, want, route, times=1) -> None:
 
 
 def reset_train_counts(counters) -> None:
+    from repro_torch.kernels.fused_mlp_backward import swiglu_backward
     reset_counts(counters)
     for fn in counters.values():
         fn.backward_calls = 0
+    counters["fused_mlp"].tc_backward_calls = 0
+    swiglu_backward.launches = 0
 
 
 def loss_and_grads(torch, M, cfg, params, batch):
@@ -2217,7 +2235,8 @@ def train_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
     """The three kernels at their training shapes (granite's attention
     and MLP, zamba2's attention (G = 1; its MLP sites have granite's
     shape) and scan) against their plain versions, bounds and
-    yardsticks, and each Function's plain backward, timed."""
+    yardsticks, and each Function's backward, timed (the MLP's beside
+    the plain recompute); then the MLP backward's SwiGLU kernel."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import autograd as AG
@@ -2225,6 +2244,7 @@ def train_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_mlp import fused_mlp, tc_plan
     from repro_torch.kernels.fused_mlp import route as mlp_route
+    from repro_torch.kernels.fused_mlp_backward import swiglu_backward
     from repro_torch.kernels.launch import sm_count
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -2296,14 +2316,18 @@ def train_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
     compare_close(torch, "cuBLAS composition [train T=4096]", cublas(),
                   R.fused_mlp_ref(x, *ws), LM_PATH_TOL)
     rows[2]["cublas_bf16_ms"] = timer(cublas)
-    # each Function's backward: the plain version recomputed and
-    # differentiated, for every input (not on the main path's counts)
+    # each Function's backward for every input (not on the main path's
+    # counts): flash's and the scan's the plain version recomputed and
+    # differentiated; the MLP's on the tensor cores (bf16), with the plain
+    # recompute it replaced beside it and the backward's bound (its 8
+    # products of 2 T d f at the bf16 peak)
     fns = {
         "flash_attention": (AG.FlashAttentionFn,
                             (q, k, v, None, True, None), 3),
         "fused_mlp": (AG.FusedMlpFn, (x, *ws, 1e-6), 5),
         "ssd_scan": (AG.SsdScanFn, (*sargs, chunk, None), 5)}
-    for row, (fn, args, n_in) in zip((rows[0], *rows[2:]), fns.values()):
+    for (name, (fn, args, n_in)), row in zip(fns.items(),
+                                             (rows[0], *rows[2:])):
         ins = [a.detach().requires_grad_(True) if i < n_in else a
                for i, a in enumerate(args)]
         with torch.enable_grad():
@@ -2312,8 +2336,33 @@ def train_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
             gy = torch.randn_like(y)
             row["backward_ms"] = timer(lambda: torch.autograd.grad(
                 y, ins[:n_in], gy, retain_graph=True))
-        row["backward"] = "plain version, recomputed"
+            if name == "fused_mlp":
+                row["plain_backward_ms"] = timer(lambda: torch.autograd.grad(
+                    R.fused_mlp_ref(*ins[:n_in]), ins[:n_in], gy))
+                row["backward_bound_ms"] = (16 * T * d * f / BF16_OPS_PER_S
+                                            * 1e3)
+        row["backward"] = ("tensor-core products, SwiGLU kernel"
+                           if name == "fused_mlp" else
+                           "plain version, recomputed")
         del out, y, gy, ins
+    # the MLP backward's SwiGLU kernel on float32 (T, f) products: bound by
+    # its bytes (three float32 read, three bf16 written)
+    sw = tuple(torch.randn(T, f, device="cuda", generator=gen) * s
+               for s in (4.0, 1.0, 1.0))
+    errs = [compare_close(torch, f"fused_mlp_backward[T={T}] {n}", a, b,
+                          LM_PATH_TOL)
+            for n, a, b in zip(("ab", "dg", "du"), swiglu_backward(*sw),
+                               R.swiglu_backward_ref(*sw))]
+    rows.append({"kernel": "fused_mlp_backward", "shape": f"train granite "
+                 f"T={T} f={f}", "max_abs_err": max(errs),
+                 "ms": timer(lambda: swiglu_backward(*sw)),
+                 "plain_ms": timer(lambda: [t.to(torch.bfloat16) for t in
+                                            R.swiglu_backward_ref(*sw)]),
+                 **bound(18 * T * f, 0), "library_ms": None, "card": smi})
+    rows[-1]["bound_share"] = rows[-1]["bound_ms"] / rows[-1]["ms"]
+    check(rows[-1]["bound_share"] <= 1.05, f"fused_mlp_backward: "
+          f"{rows[-1]['ms']:.5f} ms is under its bound")
+    del sw
     return rows
 
 
@@ -2402,8 +2451,8 @@ def training_phase(torch, timer, smi: str, seed: int
     return kernel_entries(rows, {
         "flash_attention.tc": g["flash_attention.tc"],
         ("flash_attention.tc", rows[1]["shape"]): z["flash_attention.tc"],
-        "fused_mlp.tc": g["fused_mlp.tc"], "ssd_scan": z["ssd_scan"]}), \
-        g["step_ms"]
+        "fused_mlp.tc": g["fused_mlp.tc"], "ssd_scan": z["ssd_scan"],
+        "fused_mlp_backward": g["fused_mlp_backward"]}), g["step_ms"]
 
 
 # ----------------------------------------------------------------------

@@ -15,6 +15,18 @@ kernel on the training forward therefore gets a
   every input that needs one, adding one to the wrapper's
   ``backward_calls``.
 
+The MLP's backward departs from that for bf16 inputs:
+:class:`FusedMlpFn` then takes
+:func:`~repro_torch.kernels.fused_mlp_backward.fused_mlp_backward`
+(products on the tensor cores with float32 sums, SwiGLU's backward in
+one hand-written kernel) and adds one to ``tc_backward_calls`` as well.
+That is no departure from the configuration: a bf16 model keeps its
+weights and activations in bf16 (``bench/configs/granite-3-2b.json``),
+so dy and the weights enter the products exactly; the backward adds
+roundings of hb and ab, which the forward's tensor-core route rounds
+too, and of dg and du, once each.  Float32 and float64 keep the plain
+recompute, which ``torch.autograd.gradcheck`` holds exactly.
+
 The JAX package has no backward kernel either: its ``jax.grad``
 differentiates whatever ``impl`` resolves to, the plain versions off
 the TPU.  Recomputing from the saved inputs is what the reference's
@@ -30,6 +42,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import (flash_attention as
                                                  _flash_kernel)
 from repro_torch.kernels.fused_mlp import fused_mlp as _mlp_kernel
+from repro_torch.kernels.fused_mlp_backward import fused_mlp_backward
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
 __all__ = ["FlashAttentionFn", "FusedMlpFn", "SsdScanFn", "needs_grad"]
@@ -38,6 +51,8 @@ __all__ = ["FlashAttentionFn", "FusedMlpFn", "SsdScanFn", "needs_grad"]
 _flash_kernel.backward_calls = 0
 _mlp_kernel.backward_calls = 0
 _ssd_kernel.backward_calls = 0
+#: the MLP's backward calls that took the tensor-core route (bf16)
+_mlp_kernel.tc_backward_calls = 0
 
 
 def needs_grad(*tensors: torch.Tensor | None) -> bool:
@@ -90,7 +105,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
 class FusedMlpFn(torch.autograd.Function):
     """``fused_mlp(x, w_norm, w_gate, w_up, w_down, eps)``: the kernel
-    forward, the plain version's gradients for x and the four weights."""
+    forward; the gradients for x and the four weights from
+    ``fused_mlp_backward`` for bf16 inputs, else the plain version's."""
 
     @staticmethod
     def forward(ctx, x, w_norm, w_gate, w_up, w_down, eps):
@@ -101,10 +117,14 @@ class FusedMlpFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
+        want = ctx.needs_input_grad[:5]
         _mlp_kernel.backward_calls += 1
+        if saved[0].dtype == torch.bfloat16:
+            _mlp_kernel.tc_backward_calls += 1
+            return (*fused_mlp_backward(*saved, g, ctx.eps, want), None)
         grads = _plain_grads(
             lambda *a: _ref.fused_mlp_ref(*a, eps=ctx.eps),
-            list(zip(saved, ctx.needs_input_grad[:5])), (g,))
+            list(zip(saved, want)), (g,))
         return (*grads, None)
 
 

@@ -37,6 +37,15 @@ take less.  The decode route reaches about half of that bound; the
 tensor-core route is held back by the stalls between its steps and by
 the partials' bytes (``PERF.md``).  For CPU tensors the call runs
 :func:`~repro_torch.kernels.ref.fused_mlp_ref`.
+
+Training wraps the call in ``kernels/autograd.py``'s ``FusedMlpFn``,
+whose backward follows the forward's type: bf16, the type of a bf16
+model's weights and activations, takes
+:mod:`~repro_torch.kernels.fused_mlp_backward` (tensor-core products
+with float32 sums, SwiGLU's backward in ``csrc/fused_mlp_backward.cu``,
+counted in ``fused_mlp.tc_backward_calls``); float32 and float64 take
+the plain version's float32 (float64) recompute.  ``backward_calls``
+counts both.  Neither backward adds to ``launches``.
 """
 from __future__ import annotations
 

@@ -4,6 +4,8 @@ Each wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors; these helpers find the one device of a call, map element
 types to the codes of ``csrc/lm_common.cuh`` and give the current
 stream.  Anything a kernel does not take raises ``ValueError``.
+:func:`f32_matmul` is the product with float32 sums that the MLP's
+backward and the MoE experts hand to cuBLAS.
 """
 from __future__ import annotations
 
@@ -11,8 +13,8 @@ import functools
 
 import torch
 
-__all__ = ["DTYPE_CODES", "call_device", "dtype_code", "stream_of",
-           "sm_count"]
+__all__ = ["DTYPE_CODES", "call_device", "dtype_code", "f32_matmul",
+           "stream_of", "sm_count"]
 
 #: element types the LM kernels take, and their codes in lm_common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,3 +50,17 @@ def stream_of(dev: torch.device) -> int:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of card ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, 2-D (``mm``) or batched 3-D (``bmm``), with float32 sums and
+    a float32 result, as the reference's ``preferred_element_type=
+    float32``: bf16 operands keep their type on the card (``out_dtype``,
+    so no bf16 split-K reduction); on the CPU, which has no such product,
+    they are upcast, and a bf16 product is exact in float32, so the two
+    differ only in the order of the sums.  ``out_dtype`` has no
+    derivative: callers that train wrap it in a Function."""
+    op = torch.mm if a.dim() == 2 else torch.bmm
+    if a.is_cuda:
+        return op(a, b, out_dtype=torch.float32)
+    return op(a.to(torch.float32), b.to(torch.float32))

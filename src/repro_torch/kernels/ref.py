@@ -23,7 +23,8 @@ def _acc(*tensors: torch.Tensor | None) -> torch.dtype:
 
 
 __all__ = ["rmsnorm_ref", "flash_attention_ref", "decode_attention_ref",
-           "fused_mlp_ref", "ssd_scan_ref", "ssd_sequential_ref", "ssd_ref"]
+           "fused_mlp_ref", "swiglu_backward_ref", "ssd_scan_ref",
+           "ssd_sequential_ref", "ssd_ref"]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -101,6 +102,18 @@ def fused_mlp_ref(x: torch.Tensor, w_norm: torch.Tensor,
     u = h @ w_up.to(acc)
     a = torch.nn.functional.silu(g) * u
     return (a @ w_down.to(acc)).to(x.dtype)
+
+
+def swiglu_backward_ref(g: torch.Tensor, u: torch.Tensor,
+                        da: torch.Tensor) -> tuple:
+    """SwiGLU's backward (``csrc/fused_mlp_backward.cu``): from the gate
+    and up products g, u and the gradient da of ``a = silu(g) * u``, all
+    one shape, ``(a, dg, du)`` in the inputs' type, with autograd's own
+    operations: ``dg`` is ``silu_backward(da * u, g)``, ``du`` is ``da *
+    silu(g)``, so in float64 the three equal ``silu(g) * u`` and its
+    autograd bit for bit.  The kernel rounds each to bf16."""
+    silu = torch.nn.functional.silu(g)
+    return silu * u, torch.ops.aten.silu_backward(da * u, g), da * silu
 
 
 # ----------------------------------------------------------------------

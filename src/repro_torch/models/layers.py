@@ -26,6 +26,7 @@ from typing import Any, Iterator
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.launch import f32_matmul
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ParamDef", "init_tree", "moe_stats", "rmsnorm", "rope",
@@ -594,7 +595,7 @@ class _ExpertMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, w):
         ctx.save_for_backward(a, w)
-        return torch.bmm(a, w, out_dtype=torch.float32)
+        return f32_matmul(a, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -610,16 +611,13 @@ class _ExpertMatmul(torch.autograd.Function):
 
 def _expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, M, k) @ (E, k, n) with float32 sums and a float32 result, as
-    the reference's ``preferred_element_type=float32``: bf16 operands
-    keep their type on the card; on the CPU (no ``bmm`` with an
-    ``out_dtype`` there) they are upcast, and a bf16 product is exact in
-    float32, so the two differ only in the order of the sums.  A
-    training call on the card goes through :class:`_ExpertMatmul`."""
-    if a.is_cuda:
-        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
-            return _ExpertMatmul.apply(a, w)
-        return torch.bmm(a, w, out_dtype=torch.float32)
-    return torch.bmm(a.to(torch.float32), w.to(torch.float32))
+    the reference's ``preferred_element_type=float32``
+    (:func:`~repro_torch.kernels.launch.f32_matmul`).  A training call on
+    the card goes through :class:`_ExpertMatmul`."""
+    if a.is_cuda and torch.is_grad_enabled() and (a.requires_grad
+                                                  or w.requires_grad):
+        return _ExpertMatmul.apply(a, w)
+    return f32_matmul(a, w)
 
 
 def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor

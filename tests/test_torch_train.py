@@ -34,6 +34,7 @@ torch.set_num_threads(1)
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.kernels import autograd as AG  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fused_mlp_backward as MB  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -50,6 +51,7 @@ try:                                 # the card's machine has no JAX
     from repro.models import model as JM
     from repro.optim.adamw import AdamWConfig as JAdamW
     from repro.optim.adamw import adamw_init as j_adamw_init
+    from repro.kernels import ref as JR
     from repro.optim.compression import ef_init as j_ef_init
     from repro.runtime.steps import make_train_step as j_make_train_step
 except ImportError:
@@ -364,6 +366,7 @@ def _counted(fn):
     def wrapper(*a, **kw):
         return fn(*a, **kw)
     wrapper.backward_calls = 0
+    wrapper.tc_backward_calls = 0
     return wrapper
 
 
@@ -432,6 +435,128 @@ def test_function_gradcheck(which, fake_kernels):
     want = torch.autograd.grad(routs, ref_in, gouts)
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     assert err == 0.0, err
+
+
+# The MLP's bf16 backward against the float32 plain route's gradients.
+# On the path to each gradient lie at most four bf16 roundings, each within
+# 2^-9 of its value: hb; ab, or dg and du; the product's other operand
+# derived from them (dh's dg and du); the gradient's cast to bf16.  Their
+# sum, 4 x 2^-9 = 7.8e-3 of each gradient's Frobenius norm, holds where a
+# product's terms do not cancel; random operands cancel about as much as
+# their rounding errors do, so the bound stands as is.  (The plain route in
+# bf16 reads 1.7e-3, its one cast; this route 3.0-3.5e-3 at the CPU shapes.)
+MLP_TC_BWD_REL = 4 * 2.0 ** -9
+
+
+def _mlp_inputs(gen, T, d, f, dtype):
+    return tuple(t.to(dtype) for t in (
+        torch.randn(T, d, generator=gen),
+        1 + 0.1 * torch.randn(d, generator=gen),
+        torch.randn(d, f, generator=gen) * d ** -0.5,
+        torch.randn(d, f, generator=gen) * d ** -0.5,
+        torch.randn(f, d, generator=gen) * f ** -0.5))
+
+
+def _rel_frobenius(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def test_swiglu_backward_plain_is_autograd_in_float64():
+    """``swiglu_backward_ref`` in float64 is ``silu(g) * u`` and its
+    autograd for g and u, bit for bit; the wrapper on float32 CPU tensors
+    runs it and rounds each to bf16, within one bf16 step of those."""
+    gen = torch.Generator().manual_seed(7)
+    g = (4 * _rand(gen, 37, 53)).requires_grad_(True)
+    u = _rand(gen, 37, 53).requires_grad_(True)
+    da = _rand(gen, 37, 53)
+    a = torch.nn.functional.silu(g) * u
+    dg, du = torch.autograd.grad(a, (g, u), da)
+    got = R.swiglu_backward_ref(g.detach(), u.detach(), da)
+    assert all(torch.equal(x, y) for x, y in zip(got, (a.detach(), dg, du)))
+    got = MB.swiglu_backward(g.detach().float(), u.detach().float(),
+                             da.float())
+    for x, y in zip(got, (a.detach(), dg, du)):
+        assert x.dtype == torch.bfloat16
+        assert bool(((x.double() - y).abs() <= 2.0 ** -7 * y.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_mlp_backward_route_follows_the_type(dtype, fake_kernels):
+    """bf16 inputs take the tensor-core backward (``tc_backward_calls``
+    and ``backward_calls`` one more each); float32 and float64 the plain
+    recompute (``tc_backward_calls`` unchanged), whose gradients are the
+    plain route's bit for bit.  The forward launches once either way."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    ins = [t.requires_grad_(True) for t in _mlp_inputs(gen, 9, 16, 24, dt)]
+    y = AG.FusedMlpFn.apply(*ins, 1e-6)
+    gy = torch.randn(y.shape, generator=gen).to(dt)
+    got = torch.autograd.grad(y, ins, gy)
+    tc = dtype == "bfloat16"
+    assert fake_kernels.launches["fused_mlp"] == 1
+    assert fake_kernels.mlp.backward_calls == 1
+    assert fake_kernels.mlp.tc_backward_calls == int(tc)
+    assert all(a.dtype == dt for a in got)
+    refs = [t.detach().clone().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(R.fused_mlp_ref(*refs, eps=1e-6), refs, gy)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    assert same if not tc else not same
+
+
+@pytest.mark.parametrize("T,d,f", [(64, 128, 256), (33, 24, 40)])
+def test_mlp_tc_backward_matches_the_float32_plain_route(T, d, f,
+                                                         fake_kernels):
+    """The bf16 backward (hb, ab, dg and du rounded to bf16, the products'
+    sums in float32) against the float32 plain route's autograd on the
+    same bf16 values: each gradient within MLP_TC_BWD_REL relative
+    Frobenius.  Asked for some gradients only, it computes those, equal
+    to the full call's."""
+    gen = torch.Generator().manual_seed(9)
+    ins = _mlp_inputs(gen, T, d, f, torch.bfloat16)
+    gy = torch.randn(T, d, generator=gen).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    got = torch.autograd.grad(AG.FusedMlpFn.apply(*leaves, 1e-6), leaves, gy)
+    refs = [t.float().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(R.fused_mlp_ref(*refs, eps=1e-6), refs,
+                               gy.float())
+    errs = [_rel_frobenius(a, b) for a, b in zip(got, want)]
+    assert max(errs) <= MLP_TC_BWD_REL, errs
+    some = MB.fused_mlp_backward(*ins, gy, 1e-6,
+                                 (False, False, True, False, True))
+    assert [t is None for t in some] == [True, True, False, True, False]
+    assert torch.equal(some[2], got[2]) and torch.equal(some[4], got[4])
+
+
+@pytest.mark.parametrize("T,d,f", [(64, 128, 256), (33, 24, 40)])
+def test_mlp_tc_backward_matches_jax_grad_in_bf16(T, d, f, fake_kernels):
+    """The bf16 backward against ``jax.grad`` of the JAX package's
+    ``fused_mlp_ref`` on the same bf16 x, weights and dy.  That reference
+    trains in bf16 too: it rounds the normalised h to bf16 as ``hb`` is
+    rounded here, keeps g, u, a, dg and du in float32 and rounds dh to
+    bf16 instead.  Each of the five gradients within MLP_TC_BWD_REL
+    relative Frobenius."""
+    _needs_jax()
+    gen = torch.Generator().manual_seed(12)
+    ins = _mlp_inputs(gen, T, d, f, torch.bfloat16)
+    gy = torch.randn(T, d, generator=gen).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    got = torch.autograd.grad(AG.FusedMlpFn.apply(*leaves, 1e-6), leaves, gy)
+    assert fake_kernels.mlp.tc_backward_calls == 1
+
+    def jnp_bf16(t):
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    jy = jnp_bf16(gy).astype(jnp.float32)
+    want = jax.grad(lambda *a: jnp.sum(JR.fused_mlp_ref(*a, eps=1e-6)
+                                       .astype(jnp.float32) * jy),
+                    argnums=tuple(range(5)))(*map(jnp_bf16, ins))
+    errs = []
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16
+        errs.append(_rel_frobenius(a, torch.from_numpy(
+            np.array(b.astype(jnp.float32)))))
+    print(f"T={T} d={d} f={f}: rel Frobenius vs jax.grad {errs}")
+    assert max(errs) <= MLP_TC_BWD_REL, errs
 
 
 def test_ops_take_the_functions_only_for_training(fake_kernels):
@@ -611,10 +736,12 @@ def test_moe_replay_survives_the_recompute():
 @pytest.mark.parametrize("which", ["flash_attention", "fused_mlp",
                                    "ssd_scan"])
 def test_function_on_card_matches_plain_route(which, dtype):
-    """Each Function on the card: the kernel forward and the plain
-    backward against the plain route's autograd on the same inputs.
-    float32 within 1e-4 of max|plain| (the kernels' sums in another
-    order), bf16 within 3e-2 (the forward's bf16 roundings)."""
+    """Each Function on the card: the kernel forward and its backward
+    (the plain recompute; the MLP's tensor-core backward in bf16)
+    against the plain route's autograd on the same inputs.  float32
+    within 1e-4 of max|plain| (the kernels' sums in another order), bf16
+    within 3e-2 (the forward's, and the MLP backward's, bf16
+    roundings)."""
     _needs_card()
     dt = getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 3e-2
@@ -663,6 +790,71 @@ def test_function_on_card_matches_plain_route(which, dtype):
         assert a is not None and bool(torch.isfinite(a).all())
         assert float((a.float() - b.float()).abs().max()) <= \
             tol * float(b.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [((4096, 8192), 0), ((33, 77), 0),
+                                          ((3,), 0), ((64, 100), 1)])
+def test_swiglu_backward_kernel_matches_plain_on_card(shape, offset):
+    """``csrc/fused_mlp_backward.cu`` against its plain version on the
+    same float32 inputs: granite's training shape, a ragged count (the
+    scalar tail), fewer than four elements, and inputs one element off
+    the 16-byte alignment (the scalar instance throughout).  Each bf16
+    output within one bf16 step of the plain version's float32 value:
+    half a step is the kernel's rounding; expf may differ from the plain
+    exp in the last bit, and PyTorch's build contracts ``1 + g * (1 -
+    s)`` into an FMA where the kernel (``-fmad=false``) does not.  Where
+    that factor cancels
+    to near 0, dg also gets 2^-20 of its terms' size, ``|da u| (1 +
+    |g|)``, 16 float32 roundings of them.  One launch a call."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n = int(np.prod(shape))
+
+    def make(scale):
+        buf = torch.randn(n + offset, device="cuda", generator=gen) * scale
+        return buf[offset:].view(shape)
+
+    g, u, da = make(4.0), make(1.0), make(1.0)
+    before = MB.swiglu_backward.launches
+    got = MB.swiglu_backward(g, u, da)
+    torch.cuda.synchronize()
+    assert MB.swiglu_backward.launches == before + 1
+    want = R.swiglu_backward_ref(g, u, da)
+    slack = (0.0, 2.0 ** -20 * (da * u).abs() * (1 + g.abs()), 0.0)
+    for a, b, extra in zip(got, want, slack):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        af, bf = a.float(), b.float()
+        assert bool(((af - bf).abs() <= 2.0 ** -7 * bf.abs() + extra).all())
+
+
+@pytest.mark.gpu
+def test_mlp_tc_backward_on_card_at_granite_width():
+    """The MLP's bf16 backward on the card at granite's width (d 2048,
+    f 8192, T 512): each gradient within MLP_TC_BWD_REL relative
+    Frobenius of the float32 plain route's on the same bf16 values; one
+    forward launch, one backward on the tensor-core route, one SwiGLU
+    kernel launch."""
+    _needs_card()
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    gen = torch.Generator().manual_seed(11)
+    ins = [t.cuda() for t in _mlp_inputs(gen, 512, 2048, 8192,
+                                         torch.bfloat16)]
+    gy = torch.randn(512, 2048, generator=gen).to("cuda", torch.bfloat16)
+    counts = (fused_mlp.launches, fused_mlp.backward_calls,
+              fused_mlp.tc_backward_calls, MB.swiglu_backward.launches)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    got = torch.autograd.grad(AG.FusedMlpFn.apply(*leaves, 1e-6), leaves, gy)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp.backward_calls,
+            fused_mlp.tc_backward_calls, MB.swiglu_backward.launches) == \
+        tuple(c + 1 for c in counts)
+    refs = [t.float().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(R.fused_mlp_ref(*refs, eps=1e-6), refs,
+                               gy.float())
+    errs = [_rel_frobenius(a, b) for a, b in zip(got, want)]
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    assert max(errs) <= MLP_TC_BWD_REL, errs
 
 
 @pytest.mark.gpu
