@@ -10,12 +10,17 @@ their operands' type as the configuration states it
 (:func:`peaks.flops_for`), never at the rate of the route a kernel
 takes.
 
-Every function returns ``(bytes, flops)`` for one call.
+Every function returns ``(bytes, flops)`` for one call.  A family
+(``bench/counts/families/<family>.py``) lists the calls its layers make
+with these, or with a formula of its own where they do not fit, and
+:func:`bounds` scales its lists by the calls the port counted.
 """
 from __future__ import annotations
 
 import re
 from pathlib import Path
+
+from bench.counts import peaks
 
 
 def flash_attention(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
@@ -49,6 +54,22 @@ def fused_mlp(T: int, d: int, f: int, esize: int) -> tuple[int, int]:
     """x in and y out (T, d), the norm's weight (d,), gate, up (d, f) and
     down (f, d); three products of T x d x f."""
     return esize * (2 * T * d + d + 3 * d * f), 6 * T * d * f
+
+
+def bounds(listed: dict, calls: dict) -> dict:
+    """Per kernel, the least seconds of the ``calls[kernel]`` calls that
+    the launch counters counted, where ``listed[kernel]`` holds
+    ``(bytes, flops, peak)`` of each call that one pass makes (a
+    prefill, a decode step, a training forward): the counted calls
+    spread evenly over the listed ones.  A kernel that is not listed, or
+    was not counted, has no bound."""
+    out = {}
+    for kernel, each in listed.items():
+        n = calls.get(kernel, 0)
+        if n and each:
+            out[kernel] = n / len(each) * sum(peaks.bound_s(*c)
+                                              for c in each)
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -34,9 +34,9 @@ import time
 
 import numpy as np
 
+from bench import families
 from bench.counts import flops as FL
 from bench.counts import kernels as K
-from bench.counts import peaks
 from bench.harness.cell import Cell, port_config
 from bench.harness.profile import Trace
 from bench.harness.record import Record
@@ -177,41 +177,25 @@ def _p95(values: list[float]) -> float:
 def _bounds(cell: Cell, admits: list, decodes: list) -> dict:
     """Per kernel, the least seconds of its calls in the profiled
     stretch: each admission's calls spread evenly over its prompts, each
-    decode step's calls at that step's lengths."""
-    sz, mix = cell.sizes, cell.traffic
-    Hq, Hkv = sz["n_heads"], sz["n_kv_heads"]
-    hd = FL.head_dim(sz)
-    d, ff = sz["d_model"], sz["d_ff"]
-    esize = 2 if sz["dtype"] == "bfloat16" else 4
-    bf = peaks.flops_for(sz["dtype"])
-    kv_esize = 4 if mix["cache_dtype"] == "float32" else 2
-    kv_peak = peaks.flops_for(mix["cache_dtype"])
+    decode step's over the calls the family lists at that step's
+    lengths."""
+    fam, sz, mix = families.counts(cell.family), cell.sizes, cell.traffic
     out: dict[str, float] = {}
 
-    def add(kernel, calls, n_bytes, n_flops, peak):
-        if calls:
-            out[kernel] = out.get(kernel, 0.0) + calls * peaks.bound_s(
-                n_bytes, n_flops, peak)
+    def add(bounds):
+        for kernel, secs in bounds.items():
+            out[kernel] = out.get(kernel, 0.0) + secs
 
     for a in admits:
-        if not a["profiled"]:
-            continue
-        n = len(a["lengths"])
-        for S in a["lengths"]:
-            c = a["calls"]
-            add("flash_attention", c["flash_attention"] / n,
-                *K.flash_attention(1, S, S, Hq, Hkv, hd, esize), bf)
-            add("fused_mlp", c["fused_mlp"] / n,
-                *K.fused_mlp(S, d, ff, esize), bf)
+        if a["profiled"]:
+            n = len(a["lengths"])
+            per_prompt = {k: c / n for k, c in a["calls"].items()}
+            for S in a["lengths"]:
+                add(K.bounds(fam.prefill_calls(sz, mix, S), per_prompt))
     for s in decodes:
-        if not s["profiled"]:
-            continue
-        c = s["calls"]
-        add("decode_attention", c["decode_attention"],
-            *K.decode_attention(s["lengths"], mix["cache_positions"], Hq,
-                                Hkv, hd, esize, kv_esize), kv_peak)
-        add("fused_mlp", c["fused_mlp"],
-            *K.fused_mlp(len(s["lengths"]), d, ff, esize), bf)
+        if s["profiled"]:
+            add(K.bounds(fam.decode_calls(sz, mix, s["lengths"]),
+                         s["calls"]))
     return out
 
 

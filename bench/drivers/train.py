@@ -6,9 +6,10 @@ A mix of ``kind`` "train" gives the batch, the sequence length and
 AdamW's settings (``bench/traffic/<mix>.json``).  Set-up builds the one
 train state from the run's weights and drives it through its first
 ``check_steps`` steps with the window's own call and feed; the program's
-readings for the check are taken there (each step's loss, the first
-gradient's norm per leaf from the state after step 1, the parameters'
-change per leaf after the last of them).  The window then goes on with
+readings for the check are taken there (each step's loss, the total its
+gradient is taken of: the cross entropy and any term the layers add, as
+the reference's; the first gradient's norm per leaf from the state after
+step 1; the parameters' change per leaf after the last of them).  The window then goes on with
 the same object and new batches until the run's seconds have passed.
 
 End to end: ``train_tokens_per_s``, the tokens of every step the window
@@ -20,9 +21,9 @@ from __future__ import annotations
 import gc
 import time
 
+from bench import families
 from bench.counts import flops as FL
 from bench.counts import kernels as K
-from bench.counts import peaks
 from bench.harness.cell import Cell, port_config
 from bench.harness.profile import Trace
 from bench.harness.record import Record
@@ -78,7 +79,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     prog = {"loss": []}
     for i in range(mix["check_steps"]):
         state, met = step(state, feed.next())
-        prog["loss"].append(float(met["loss"]))
+        prog["loss"].append(float(met["total_loss"]))
         if i == 0:     # m = (1 - b1) g after one step: g as AdamW takes it
             prog["grad_norms"] = _leaf_norms(state["opt"]["m"],
                                              1.0 / (1.0 - adamw["b1"]))
@@ -165,16 +166,9 @@ def _counters() -> dict:
 
 def _record(cell: Cell, tr, calls: dict, host_steps: list) -> Record:
     sz, mix = cell.sizes, cell.traffic
-    B, S = mix["batch"], mix["seq_len"]
-    Hq, Hkv, d, ff = sz["n_heads"], sz["n_kv_heads"], sz["d_model"], sz["d_ff"]
-    esize = 2 if sz["dtype"] == "bfloat16" else 4
-    bf = peaks.flops_for(sz["dtype"])
-    per_call = {
-        "flash_attention": K.flash_attention(B, S, S, Hq, Hkv,
-                                             FL.head_dim(sz), esize),
-        "fused_mlp": K.fused_mlp(B * S, d, ff, esize)}
-    bounds = {k: calls.get(k, 0) * peaks.bound_s(*bc, bf)
-              for k, bc in per_call.items() if calls.get(k, 0)}
+    listed = families.counts(cell.family).train_calls(sz, mix)
     host = {"step_s": host_steps, "profiled_steps": mix["trace"]["steps"],
-            "step_flops": FL.train_step_flops(sz, B, S)}
-    return Record(sizes=sz, traffic=mix, trace=tr, host=host, bounds=bounds)
+            "step_flops": FL.train_step_flops(sz, mix["batch"],
+                                              mix["seq_len"])}
+    return Record(sizes=sz, traffic=mix, trace=tr, host=host,
+                  bounds=K.bounds(listed, calls))

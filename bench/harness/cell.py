@@ -6,7 +6,16 @@ here by the name that ``BENCHMARK.json`` gives:
 
 - ``bench/configs/<config>.json``: the sizes as run, the port's config
   module that must hold the same values, the source, what was reduced
-  and assumed;
+  and assumed, and under ``family`` the name of the model family;
+- the family, two modules of that name (``bench.families``):
+  ``bench/reference/families/<family>.py``, the plain reference of its
+  layers and its weights' laws, and ``bench/counts/families/<family>.py``,
+  its model FLOPs and kernel calls.  The reference and the counts find
+  them by ``sizes["family"]``: :attr:`Cell.sizes` gives the file's
+  ``sizes`` with ``family`` set to the file's top-level ``family`` (the
+  port's own ``family`` field, which ``sizes`` holds in the file and
+  :func:`port_config` checks, may name another: the port runs MLA as a
+  dense family);
 - ``bench/traffic/<traffic>.json``: the mix's parameters, and under
   ``kind`` the driver that runs it (``bench/drivers/<kind>.py``);
 - ``bench/metrics/<metric>.py``: a per-layer metric's reader;
@@ -21,6 +30,8 @@ import importlib.util
 import json
 from pathlib import Path
 from typing import Any, Callable
+
+from bench import families
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -37,8 +48,13 @@ class Cell:
     per_layer: list[dict]
 
     @property
+    def family(self) -> str:
+        return self.config["family"]
+
+    @property
     def sizes(self) -> dict:
-        return self.config["sizes"]
+        """The sizes as the reference and the counts read them."""
+        return {**self.config["sizes"], "family": self.family}
 
     def driver(self):
         return importlib.import_module(f"bench.drivers.{self.traffic['kind']}")
@@ -62,6 +78,8 @@ def load(workload: str, spec_path: Path | None = None) -> Cell:
     w = cells[workload]
     configs = {c["name"]: c for c in spec["configs"]}
     config = _json(ROOT / configs[w["config"]]["file"])
+    families.reference(config["family"])     # both halves, or LookupError
+    families.counts(config["family"])
     traffic = _json(BENCH / "traffic" / f"{w['traffic']}.json")
     limits_path = BENCH / "limits" / f"{workload}.json"
     limits = _json(limits_path) if limits_path.exists() else {}

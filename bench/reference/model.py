@@ -1,14 +1,18 @@
-"""The plain reference of the dense decoder family, in PyTorch and
-float32.
+"""The plain reference of the decoder families, in PyTorch and float32.
 
 It follows the equations of the models as the port's configurations
 state them, written out here on plain tensors: no kernel, no cache, no
 batching, and nothing imported from the program.  Matrix products run
 with TF32 off (:func:`exact_matmul`).
 
-``dense`` (granite-3-2b): pre-norm decoder blocks; RMSNorm; grouped
-query attention with rotary embeddings (rotate-half, theta 10,000),
-causal; a SwiGLU MLP; tied embeddings.
+What every family shares is here: the embedding, the loop over the
+layers (each recomputed in the backward where training asks for it),
+the final norm, the unembedding and the loss, and the pieces a layer is
+built from (:func:`linear`, :func:`rmsnorm`, :func:`rope`).  A family's
+layers are in ``bench/reference/families/<family>.py``, found by
+``sz["family"]``: ``block(params, sz, i, x, prec)`` returns layer ``i``'s
+output and the term it adds to the training loss (None for none).
+``dense`` is granite-3-2b's.
 
 ``prec="fp8"`` is the control of the correctness check: every
 projection's operands (activations and weights) are rounded to
@@ -19,11 +23,11 @@ the rounding unchanged (straight through).
 from __future__ import annotations
 
 import contextlib
-import math
 
 import torch
-import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
+
+from bench import families
 
 F32 = torch.float32
 PRECISIONS = ("f32", "fp8")
@@ -75,63 +79,31 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 
 
-def attention(p: dict, sz: dict, x: torch.Tensor, prec: str) -> torch.Tensor:
-    """x + causal GQA self-attention of rmsnorm(x).  x (B, S, d)."""
-    B, S, _ = x.shape
-    Hq, Hkv = sz["n_heads"], sz["n_kv_heads"]
-    hd = sz.get("head_dim") or sz["d_model"] // Hq
-    h = rmsnorm(x, p["ln"], sz["norm_eps"])
-    pos = torch.arange(S, device=x.device)
-    q = rope(linear(h, p["wq"], prec).view(B, S, Hq, hd), pos,
-             sz["rope_theta"])
-    k = rope(linear(h, p["wk"], prec).view(B, S, Hkv, hd), pos,
-             sz["rope_theta"])
-    v = linear(h, p["wv"], prec).view(B, S, Hkv, hd)
-    G = Hq // Hkv                # query head j reads KV head j // G
-    k = k.repeat_interleave(G, dim=2)
-    v = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-    keep = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-    s = s.masked_fill(~keep, float("-inf"))
-    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
-    return x + linear(o.reshape(B, S, Hq * hd), p["wo"], prec)
-
-
-def mlp(p: dict, sz: dict, x: torch.Tensor, prec: str) -> torch.Tensor:
-    h = rmsnorm(x, p["ln"], sz["norm_eps"])
-    a = F.silu(linear(h, p["wg"], prec)) * linear(h, p["wu"], prec)
-    return x + linear(a, p["wd"], prec)
-
-
-def _layer(tree: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+def layer(tree: dict, i: int) -> dict:
+    """Layer ``i``'s leaves of a tree stacked on a leading layer axis."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
 
 
-def blocks(params: dict, sz: dict, i: int, x: torch.Tensor,
-           prec: str) -> torch.Tensor:
-    """Layer ``i`` of the model."""
-    if sz["family"] != "dense":
-        raise ValueError(f"no reference for family {sz['family']!r}")
-    p = _layer(params["blocks"], i)
-    return mlp(p["mlp"], sz, attention(p["attn"], sz, x, prec), prec)
-
-
 def hidden(params: dict, sz: dict, tokens: torch.Tensor, prec: str = "f32",
-           remat: bool = False) -> torch.Tensor:
-    """The final normed hidden states (B, S, d), float32.  With ``remat``
-    each layer is recomputed in the backward, so a training reference
-    keeps one layer's activations at a time."""
+           remat: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The final normed hidden states (B, S, d), float32, and the sum of
+    the terms the layers add to the loss (None for none).  With
+    ``remat`` each layer is recomputed in the backward, so a training
+    reference keeps one layer's activations at a time."""
     if prec not in PRECISIONS:
         raise ValueError(f"prec must be one of {PRECISIONS}, got {prec!r}")
-    x = params["embed"].to(F32)[tokens]
+    block = families.reference(sz["family"]).block
+    x, extra = params["embed"].to(F32)[tokens], None
     for i in range(sz["n_layers"]):
         if remat:
-            x = _ckpt.checkpoint(blocks, params, sz, i, x, prec,
-                                 use_reentrant=False)
+            x, term = _ckpt.checkpoint(block, params, sz, i, x, prec,
+                                       use_reentrant=False)
         else:
-            x = blocks(params, sz, i, x, prec)
-    return rmsnorm(x, params["final_ln"], sz["norm_eps"])
+            x, term = block(params, sz, i, x, prec)
+        if term is not None:
+            extra = term if extra is None else extra + term
+    return rmsnorm(x, params["final_ln"], sz["norm_eps"]), extra
 
 
 def head(params: dict, sz: dict) -> torch.Tensor:
@@ -145,17 +117,18 @@ def logits(params: dict, sz: dict, tokens: torch.Tensor, start: int = 0,
     positions start.. (the unembedding in float32 in both precisions, as
     the port computes it)."""
     with torch.no_grad(), exact_matmul():
-        x = hidden(params, sz, tokens[None], prec)[0, start:]
-        return x @ head(params, sz).to(F32)
+        x, _ = hidden(params, sz, tokens[None], prec)
+        return x[0, start:] @ head(params, sz).to(F32)
 
 
 def loss(params: dict, sz: dict, tokens: torch.Tensor, labels: torch.Tensor,
          prec: str = "f32") -> torch.Tensor:
-    """Mean cross entropy over the labels >= 0 (B, S), with every layer
-    recomputed in the backward."""
-    x = hidden(params, sz, tokens, prec, remat=True)
+    """Mean cross entropy over the labels >= 0 (B, S), plus the terms
+    the layers add, with every layer recomputed in the backward."""
+    x, extra = hidden(params, sz, tokens, prec, remat=True)
     lg = x @ head(params, sz).to(F32)
     ce = torch.logsumexp(lg, -1) - lg.gather(
         -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).to(F32)
-    return (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    total = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    return total if extra is None else total + extra

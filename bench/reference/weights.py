@@ -9,7 +9,10 @@ stacked on a leading layer axis, keys as the port names them.
 
 The laws follow the usual initialisation of the family: matrices normal
 with standard deviation 1/sqrt(fan in) (the embedding 0.02), norms
-one.
+one.  Every family has ``embed``, ``final_ln`` and, untied, ``lm_head``;
+the family's reference (``bench/reference/families/<family>.py``) gives
+the rest of the tree in ``leaves(sz)``, built from :func:`matrix`,
+:func:`ones` and :func:`stacked`.
 """
 from __future__ import annotations
 
@@ -18,35 +21,33 @@ from typing import Iterator
 
 import torch
 
+from bench import families
+
+
+def matrix(*shape: int, std: float | None = None) -> tuple:
+    """A normal leaf, standard deviation ``std`` or 1/sqrt(fan in)."""
+    return shape, "normal", std
+
+
+def ones(*shape: int) -> tuple:
+    """A leaf of ones (a norm's weight)."""
+    return shape, "ones", None
+
+
+def stacked(tree: dict, n: int) -> dict:
+    """``tree``'s leaves stacked on a leading axis of ``n`` layers."""
+    return {k: stacked(v, n) if isinstance(v, dict)
+            else ((n,) + v[0], v[1], v[2]) for k, v in tree.items()}
+
 
 def _spec(sz: dict) -> dict:
     """(shape, law, std) for every leaf, as a tree."""
-    d, ff, V, L = sz["d_model"], sz["d_ff"], sz["vocab_size"], sz["n_layers"]
-    Hq, Hkv = sz["n_heads"], sz["n_kv_heads"]
-    hd = sz.get("head_dim") or d // Hq
-
-    def mat(*shape, std=None):
-        return (shape, "normal", std)
-
-    attn = {"ln": ((d,), "ones", None), "wq": mat(d, Hq * hd),
-            "wk": mat(d, Hkv * hd), "wv": mat(d, Hkv * hd),
-            "wo": mat(Hq * hd, d)}
-    mlp = {"ln": ((d,), "ones", None), "wg": mat(d, ff), "wu": mat(d, ff),
-           "wd": mat(ff, d)}
-    tree: dict = {"embed": mat(V, d, std=0.02),
-                  "final_ln": ((d,), "ones", None)}
-    if sz["family"] == "dense":
-        tree["blocks"] = _stacked({"attn": attn, "mlp": mlp}, L)
-    else:
-        raise ValueError(f"no weights for family {sz['family']!r}")
+    d, V = sz["d_model"], sz["vocab_size"]
+    tree = {"embed": matrix(V, d, std=0.02), "final_ln": ones(d),
+            **families.reference(sz["family"]).leaves(sz)}
     if not sz.get("tie_embeddings", False):
-        tree["lm_head"] = mat(d, V)
+        tree["lm_head"] = matrix(d, V)
     return tree
-
-
-def _stacked(tree: dict, n: int) -> dict:
-    return {k: _stacked(v, n) if isinstance(v, dict)
-            else ((n,) + v[0], v[1], v[2]) for k, v in tree.items()}
 
 
 def leaves(sz: dict) -> Iterator[tuple[tuple, tuple, str, float | None]]:

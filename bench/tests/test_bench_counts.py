@@ -29,6 +29,14 @@ def test_fused_mlp_by_hand():
     assert K.fused_mlp(2, 4, 8, 2) == (232, 384)
 
 
+def test_bounds_spread_the_counted_calls_over_the_listed_ones():
+    one_s_of_bytes, one_s_of_flops = (3.35e12, 0, 1.0), (0, 989e12, 989e12)
+    listed = {"a": [one_s_of_bytes, one_s_of_flops], "c": [one_s_of_bytes]}
+    # 4 calls over 2 listed of 1 s each; b not listed, c not counted
+    assert K.bounds(listed, {"a": 4, "b": 2, "c": 0}) == {
+        "a": pytest.approx(4.0)}
+
+
 def test_peaks_and_bound():
     assert peaks.flops_for("bfloat16") == 989e12
     assert peaks.flops_for("float32") == 67e12
@@ -39,7 +47,7 @@ def test_peaks_and_bound():
 
 
 def test_model_flops_by_hand():
-    from conftest import SMOKE_SIZES
+    from bench_fixtures import SMOKE_SIZES
     sz = SMOKE_SIZES["granite"]          # 2 layers, d 64, 4/2 heads of 16
     attn = 64 * 64 + 2 * 64 * 32 + 64 * 64
     assert FL.weights_per_token(sz) == 2 * (attn + 3 * 64 * 128) + 256 * 64
@@ -53,7 +61,7 @@ def test_weights_per_token_against_the_port():
     """The applied weights equal the port's parameter count without the
     norms' elements."""
     import json
-    from conftest import ROOT
+    from bench_fixtures import ROOT
     from repro_torch.configs import get_config
     cfg = get_config("granite_3_2b")
     sz = json.loads((ROOT / "bench/configs/granite-3-2b.json").read_text()

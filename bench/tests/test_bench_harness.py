@@ -13,7 +13,7 @@ import torch
 
 from bench.harness.cell import reader
 from bench.harness.runner import run_cell
-from conftest import ROOT, smoke_cell
+from bench_fixtures import ROOT, smoke_cell
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")

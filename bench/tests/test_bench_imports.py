@@ -7,7 +7,7 @@ import subprocess
 import sys
 
 from bench.harness.runner import FORBIDDEN, forbidden_modules
-from conftest import ROOT
+from bench_fixtures import ROOT
 
 BENCH = ROOT / "bench"
 
@@ -45,7 +45,11 @@ def test_the_reference_imports_nothing_of_the_port():
 
 def test_names_are_compared_whole(monkeypatch):
     """``repro_torch`` begins with ``repro`` and is allowed; ``repro``
-    itself, or a module under it, is not."""
+    itself, or a module under it, is not.  (The forbidden modules that
+    other tests of this process loaded are set aside first.)"""
+    for name in [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]:
+        monkeypatch.delitem(sys.modules, name)
+    assert forbidden_modules() == []
     monkeypatch.setitem(sys.modules, "repro_torch_like.x", sys)
     assert "repro" not in forbidden_modules()
     monkeypatch.setitem(sys.modules, "repro.core", sys)

@@ -9,7 +9,7 @@ from bench.reference import check
 from bench.reference import model as R
 from bench.reference.adamw import AdamW, lr_at
 from bench.reference.weights import flat, iter_weights, leaves, make_weights
-from conftest import SMOKE_SIZES, MODULES
+from bench_fixtures import SMOKE_SIZES, MODULES
 
 
 @pytest.mark.parametrize("model", ["granite"])
@@ -32,7 +32,7 @@ def test_weights_are_the_ports_tree(model):
     """The benchmark's weights have the port's leaves, shapes and types,
     at the smoke size and, by shape alone, at full size."""
     import json
-    from conftest import ROOT
+    from bench_fixtures import ROOT
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.models import model as M
     from repro_torch.models.layers import _leaves

@@ -14,7 +14,7 @@ from bench.harness.cell import reader
 from bench.harness.profile import Trace
 from bench.harness.record import Record
 from bench.harness.runner import run_cell
-from conftest import smoke_cell
+from bench_fixtures import smoke_cell
 
 NEW = ("prefill_idle_share.gen", "replay_ms.gen", "forward_ms.train",
        "backward_ms.train", "optimizer_ms.train")

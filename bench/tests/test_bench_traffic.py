@@ -8,7 +8,7 @@ import torch
 
 from bench.drivers.serve import Requests, _length
 from bench.drivers.train import Feed
-from conftest import ROOT
+from bench_fixtures import ROOT
 
 GEN = json.loads((ROOT / "bench/traffic/gen.json").read_text())
 TRAIN = json.loads((ROOT / "bench/traffic/train.json").read_text())
