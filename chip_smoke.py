@@ -159,7 +159,13 @@ no result line) on any error:
    within 5e-2 * max|logits|, the plain route on the kernel route's
    expert choices and the choices its own router would flip counted,
    the plain route on its own choices reported beside it unchecked;
-   minicpm3 within 6e-2); the phase's line splits its seconds;
+   minicpm3 within 6e-2); deepseek-v2-lite's kernels alone (the routed
+   experts at T = 64, 300 and 602, one of each row tile, and the latent
+   decode at G 16, Dk 576, Dv 512 over 64 slots x 1920 float32 rows),
+   then the model served the same way (prompts 17, 255, 400 and 100, so
+   each row tile runs at prefill; one MLP a layer, the routed experts on
+   the 26 MoE layers, counted) and teacher-forced within 5e-2; the
+   phase's line splits its seconds;
 12. encoder-decoder and vision-prefix serving: holds the kernels at the
    shapes of whisper-base and internvl2-26b against their plain versions
    (float32 within 1e-5 * max|plain|, bf16 within 8e-3) and times them
@@ -980,6 +986,9 @@ LM_KERNELS = {   # name -> (source, the TPU kernel it replaces)
                  "src/repro/kernels/ssd_scan.py:79"),
     "fused_mlp_backward": ("src/repro_torch/csrc/fused_mlp_backward.cu",
                            "none: jax.grad differentiates the plain version"),
+    "moe_experts": ("src/repro_torch/csrc/moe_experts.cu",
+                    "none: the JAX package's MoE is a capacity route of "
+                    "XLA einsums"),
 }
 LM_F32_TOL = 1e-5                # kernel vs plain, float32 operands
 LM_PATH_TOL = 8e-3               # kernel vs plain, bf16 out: two bf16 steps
@@ -1345,6 +1354,7 @@ def ssm_serving(torch, timer, smi: str, seed: int) -> list[dict]:
 # phase 11: MoE and MLA serving
 # ----------------------------------------------------------------------
 MOE_ARCH, MLA_ARCH = "granite_moe_3b_a800m", "minicpm3_4b"
+DS_ARCH = "deepseek_v2_lite"
 MOE_MLA_FLASH_S = (100, 255)     # served prompt lengths, flash at prefill
 MLA_MLP_T = (4, 17, 100, 255)    # decode, and served prompt lengths
 # Teacher-forced logits, kernels vs impl="ref", by phase 5's rule (one
@@ -1355,11 +1365,23 @@ MLA_MLP_T = (4, 17, 100, 255)    # decode, and served prompt lengths
 # route on the kernel route's expert choices (see teacher_force).
 MLA_LOGIT_TOL = 6e-2
 MOE_LOGIT_TOL = 5e-2
+# deepseek-v2-lite's decode step: 27 latent decodes, 27 fused MLPs (layer
+# 0's and the 26 shared experts') and 26 routed-expert calls, sqrt(80) x
+# 0.4 % = 3.6 %, so phase 5's 5e-2, the plain route on the kernel route's
+# expert choices
+DS_LOGIT_TOL = 5e-2
 # requests x new tokens served, and the request teacher-forced: minicpm3's
 # eager step is the slowest of the script (about 150 ms), so it serves 4
 # requests of 16 tokens, as zamba2 does in phase 6; granite-moe too since
 # phase 14 (8 x 32 before), for the script's time budget
 MOE_SERVE, MLA_SERVE = (4, 16, 0), (4, 16, 3)
+# deepseek-v2-lite's served prompts take each of the routed experts'
+# row tiles at prefill (mt 1 up to 170 tokens, mt 2 up to 341, mt 4
+# past it; the decode step's 4 tokens mt 1), and the teacher-forced
+# request is the longest; the kernel rows' T (a decode step of 64
+# slots, and prompts that take mt 2 and mt 4)
+DS_SERVE, DS_PROMPT_LENS = (4, 16, 2), (17, 255, 400, 100)
+DS_EXPERT_T = (64, 300, 602)
 # decode steps in each of a serving_profile line's windows (timed, then
 # profiled), here and in phase 12: 5 since phase 14, for the time budget
 # (tools/serve_profile.py's own default is 10)
@@ -1378,6 +1400,7 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_mlp import fused_mlp
     from repro_torch.kernels.fused_mlp import route as mlp_route
+    from repro_torch.kernels.moe_experts import moe_experts
     from repro_torch.models import model as M
     sys.path.insert(0, str(ROOT / "tools"))
     from serve_profile import profile_decode
@@ -1387,7 +1410,7 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     torch.cuda.empty_cache()
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(seed + 15)
-    moe, mla = get_config(MOE_ARCH), get_config(MLA_ARCH)
+    moe, mla, ds = (get_config(a) for a in (MOE_ARCH, MLA_ARCH, DS_ARCH))
 
     def randn(*shape, std=1.0, dtype=f32):
         return (torch.randn(*shape, device="cuda", generator=gen)
@@ -1525,12 +1548,14 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
                           fn(), plain(), LM_PATH_TOL)
             row["cublas_bf16_ms"] = timer(fn)
     del cases, cublas, ws, wb, rows, k, v, q, qb
+    timed["ds"] = deepseek_kernel_rows(torch, timer, smi, seed)
 
     # -- each model at full width and depth through the batcher ----------
     entries, split = [], {"kernels": time.perf_counter() - t_phase}
-    for model, cfg, tol, (n_req, new_tokens, forced) in (
-            ("moe", moe, MOE_LOGIT_TOL, MOE_SERVE),
-            ("mla", mla, MLA_LOGIT_TOL, MLA_SERVE)):
+    for model, cfg, tol, (n_req, new_tokens, forced), lens in (
+            ("moe", moe, MOE_LOGIT_TOL, MOE_SERVE, PROMPT_LENS),
+            ("mla", mla, MLA_LOGIT_TOL, MLA_SERVE, PROMPT_LENS),
+            ("ds", ds, DS_LOGIT_TOL, DS_SERVE, DS_PROMPT_LENS)):
         gc.collect()                   # the other model is gone
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1540,12 +1565,14 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
         init_s = time.perf_counter() - t0
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-                   for n in PROMPT_LENS[:n_req]]
+                   for n in lens[:n_req]]
         n = cfg.n_layers
         counters = {"flash_attention": flash_attention,
                     "decode_attention": decode_attention}
-        if model == "mla":
+        if model != "moe":
             counters["fused_mlp"] = fused_mlp
+        if model == "ds":
+            counters["moe_experts"] = moe_experts
 
         def expected(prefills, steps, model=model, n=n):
             want = {"flash_attention": n * prefills,
@@ -1553,12 +1580,16 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
                     "flash_attention.simt": 0,
                     "decode_attention": n * steps,
                     "decode_attention.mla": 0}
-            if model == "mla":         # the latent instance, and the MLP
+            if model != "moe":         # the latent instance, and the MLP
                 want.update({"decode_attention.mla": n * steps,
                              "fused_mlp": n * (prefills + steps),
                              "fused_mlp.tc": n * prefills,
                              "fused_mlp.stream": n * steps,
                              "fused_mlp.simt": 0})
+            if model == "ds":          # one MLP a layer: layer 0's dense
+                # one and each MoE layer's shared experts; the routed
+                # experts on the 26 MoE layers
+                want["moe_experts"] = (n - 1) * (prefills + steps)
             return want
         t0 = time.perf_counter()
         done, launches = serve_requests(torch, cfg, params, prompts,
@@ -1583,6 +1614,63 @@ def moe_mla_serving(torch, timer, smi: str, seed: int) -> list[dict]:
     print(json.dumps({"serving": "phase 11", "split_s": split,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
     return entries
+
+
+def deepseek_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
+    """Phase 11's rows of deepseek-v2-lite's kernels, each alone and
+    timed: the routed experts (d 2048, f 1408, 64 experts, top 6, bf16;
+    the weights of the experts reached once) at a 64-slot decode step
+    and at prompts of 300 and 602 tokens, so each of ``plan``'s row
+    tiles (mt 1, 2, 4) is held to the plain version, and the latent
+    decode at G 16, Dk 576, Dv 512 over a float32 cache of 64 slots x
+    1920 positions at the gen mix's mean length."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_experts as ME
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    cfg = get_config("deepseek_v2_lite")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 33)
+    bf16 = torch.bfloat16
+    E, K, d, f = cfg.n_experts, cfg.experts_per_token, cfg.d_model, cfg.d_ff
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * std
+    wg, wu = (randn(E, d, f, std=d ** -0.5).to(bf16) for _ in range(2))
+    wd = randn(E, f, d, std=f ** -0.5).to(bf16)
+    cases = []
+    for T in DS_EXPERT_T:
+        h = randn(T, d).to(bf16)
+        w, e = torch.softmax(randn(T, E), -1).topk(K, -1)
+        route = ME.dispatch(e, w, E)
+        reached = int((torch.diff(route.offsets.long()) > 0).sum())
+        cases.append((
+            "moe_experts", f"deepseek-v2-lite T={T} mt={ME.plan(T, K, E)}",
+            lambda h=h, route=route: ME.moe_experts(h, route, wg, wu, wd),
+            lambda h=h, r=route: R.moe_experts_ref(
+                h, r.rows, r.offsets, r.gates, r.slots, wg, wu, wd),
+            None,
+            lm_bound(reached * 3 * d * f * 2 + T * d * 6, 6 * T * K * d * f,
+                     BF16_OPS_PER_S)))
+    check({ME.plan(T, K, E) for T in DS_EXPERT_T} == {1, 2, 4},
+          f"deepseek-v2-lite: {DS_EXPERT_T} miss one of the row tiles")
+    T, G, r, kr = 64, cfg.n_heads, cfg.kv_lora_rank, cfg.rope_head_dim
+    Dk, Dv, S = r + kr, r, 1920
+    lens = torch.full((T,), 330, device="cuda")   # the mix's mean, about
+    keep = torch.arange(S, device="cuda")[None] <= lens[:, None]
+    bias = torch.where(keep, 0.0, -1e30)
+    rows = randn(T, S, Dk)
+    k, v = rows[:, None], rows[:, None, :, :Dv]
+    q = randn(T, G, Dk).to(bf16)
+    scale = cfg.yarn_mscale / (cfg.hd + kr) ** 0.5
+    live = int(keep.sum())
+    cases.append((
+        "decode_attention.mla", f"deepseek-v2-lite {T}x{S} at 330",
+        lambda: decode_attention(q, k, v, bias=bias, scale=scale),
+        lambda: R.decode_attention_ref(q, k, v, bias=bias, scale=scale),
+        None,
+        lm_bound(T * G * (Dk + Dv) * 2 + live * Dk * 4 + T * S * 4,
+                 2 * G * (Dk + Dv) * live, FP32_OPS_PER_S)))
+    return time_cases(torch, timer, smi, cases, LM_PATH_TOL)
 
 
 # ----------------------------------------------------------------------

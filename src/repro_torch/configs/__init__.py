@@ -6,7 +6,8 @@ values.
 Every config module exposes ``CONFIG`` (the exact assigned
 architecture) and ``SMOKE`` (a reduced same-family config for CPU smoke
 tests).  ``get_config(name)`` / ``get_smoke(name)`` look them up;
-``ARCHS`` lists all ten assigned ids.
+``ARCHS`` lists all ten assigned ids, and ``PORT_ARCHS`` the configs
+only the port has (deepseek-v2-lite), which the lookups take too.
 """
 from __future__ import annotations
 
@@ -41,11 +42,15 @@ ALIASES = {
     "internvl2-26b": "internvl2_26b",
 }
 
+#: configs with no twin in the reference
+PORT_ARCHS = ["deepseek_v2_lite"]
+
 
 def _module(name: str):
     name = ALIASES.get(name, name)
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; choose from {ARCHS}")
+    if name not in ARCHS + PORT_ARCHS:
+        raise KeyError(f"unknown arch {name!r}; choose from "
+                       f"{ARCHS + PORT_ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
@@ -57,5 +62,5 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ARCHS", "ALIASES", "get_config", "get_smoke", "SHAPES",
-           "ShapeConfig", "ModelConfig"]
+__all__ = ["ARCHS", "ALIASES", "PORT_ARCHS", "get_config", "get_smoke",
+           "SHAPES", "ShapeConfig", "ModelConfig"]

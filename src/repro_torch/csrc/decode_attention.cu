@@ -366,9 +366,10 @@ int launch_g(const void* q, const void* k, const void* v, const float* bias,
 // ---------------------------------------------------------------------------
 // The latent instance: MLA's absorbed decode, MQA over the latent cache.
 //
-// One KV head (Hkv = 1) serves G query heads (minicpm3-4b: G = 40), with
-// keys of Dk = kv_lora_rank + rope_head_dim (288) and values of Dv =
-// kv_lora_rank (256); the TPU kernel takes Dv != Dk for this case
+// One KV head (Hkv = 1) serves G query heads (minicpm3-4b: G = 40, Dk 288,
+// Dv 256; deepseek-v2-lite: G = 16, Dk 576, Dv 512), with keys of Dk =
+// kv_lora_rank + rope_head_dim and values of Dv = kv_lora_rank; the TPU
+// kernel takes Dv != Dk for this case
 // (decode_attention.py:71-75).  The split instance above keeps the (G, Dv)
 // accumulator in registers per lane group, which does not scale to 40 x 256.
 // Here:
@@ -383,9 +384,12 @@ int launch_g(const void* q, const void* k, const void* v, const float* bias,
 // - both products run on the tensor cores, m16n8k8 TF32 in three passes
 //   (3xTF32: hi x hi + hi x lo + lo x hi, about float32's accuracy; an
 //   operand that is exact in TF32, a bf16 query or cache, skips its lo
-//   pass): the logits (GP x 32) = Q K^T by 2 x MT warps, each a 16 x 16
-//   tile; P V (GP x Dv) with warp w owning columns 32 w .. 32 w + 31 of
-//   every head, its accumulator in mma fragments;
+//   pass): the logits (GP x 32) = Q K^T as 2 x MT tiles of 16 x 16, each
+//   tile's depth split over KG = 8 / (2 MT) warps (4 at G <= 16, so all
+//   8 warps work at Dk 576) whose partial sums the softmax adds in warp
+//   order; P V (GP x Dv) with warp w owning columns 8 NC w .. of every
+//   head (NC = 4, or 8 past Dv 256 where G <= 32), its accumulator in mma
+//   fragments;
 // - between them the online softmax of each head runs across the lanes of
 //   one warp (lane = key; shuffles), in place in shared memory;
 // - masked keys (bias <= NEG_INF / 2) are not read: their rows are zero in
@@ -405,9 +409,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;       // keys a step: one per lane in the softmax
 constexpr int kMaxSplits = 16;  // a cluster of 16: non-portable, opted in
-constexpr int kMaxDk = 320, kMaxDv = kWarps * 32;
+constexpr int kMaxDk = 576, kMaxDv = kWarps * 64;
 constexpr int kMaxRow = kMaxDk + 4;  // the widest shared-memory row
 constexpr int kPS = kTile + 4;       // a logits / p row (4 mod 32 words)
+
+// warps that split one logits tile's depth: 8 / (2 MT), at least 1
+template <int MT>
+constexpr int kKG = kWarps / (2 * MT) > 0 ? kWarps / (2 * MT) : 1;
 
 struct Args {
   int B, G, S, Dk, Dv, keys_per_split, splits;
@@ -475,13 +483,14 @@ __device__ __forceinline__ void rows_to_smem(float* dst, int ds, const T* src,
 template <typename T>
 constexpr bool kExact = sizeof(T) == 2;  // bf16 values are TF32 values
 
-template <typename TQ, typename TKV, int MT>
+template <typename TQ, typename TKV, int MT, int NC>
 __global__ void __launch_bounds__(kThreads)
 mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                   const TKV* __restrict__ v, const float* __restrict__ bias,
                   TQ* __restrict__ o, const Args a) {
   constexpr int GP = 16 * MT;        // heads, padded to the mma's rows
   constexpr int HPW = GP / kWarps;   // heads a warp in the softmax
+  constexpr int KG = kKG<MT>;        // warps a logits tile's depth takes
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   __shared__ float salpha[GP], bm[GP], bl[GP];
@@ -495,7 +504,7 @@ mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   float* const qs = smem;                              // GP x KS
   float* const kt = qs + GP * KS;                      // kTile x KS
   float* const vt = kt + kTile * KS;                   // kTile x VS
-  float* const ps = vt + (v_in_k ? 0 : kTile * VS);    // GP x kPS
+  float* const ps = vt + (v_in_k ? 0 : kTile * VS);    // KG x GP x kPS
   const float* const vrows = v_in_k ? kt : vt;
 
   rows_to_smem(qs, KS, q + b * a.qb, a.qh, GP, a.Dk, Dk8,
@@ -506,14 +515,14 @@ mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     m[j] = lm::kNegInf;
     l[j] = 0.f;
   }
-  // P V: warp w's columns 32 w + 8 n of the heads 16 mt + g (+ 8)
-  const int n0 = 32 * w;
-  const int nt = n0 < Dv ? min(4, (Dv - n0) / 8) : 0;
-  float acc[MT][4][4];
+  // P V: warp w's columns 8 (NC w + n) of the heads 16 mt + g (+ 8)
+  const int n0 = 8 * NC * w;
+  const int nt = n0 < Dv ? min(NC, (Dv - n0) / 8) : 0;
+  float acc[MT][NC][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NC; ++n)
       acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
 
   const TKV* kp = k + b * a.kb;
@@ -538,17 +547,22 @@ mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                    Dv, live, vec, t);
     __syncthreads();
 
-    // logits: warp w < 2 MT, heads 16 (w / 2) .., keys 16 (w % 2) ..
-    if (w < 2 * MT) {
-      const int m0 = 16 * (w >> 1), c0 = 16 * (w & 1);
+    // logits: tile w % 2 MT (heads 16 (tile / 2) .., keys 16 (tile % 2)
+    // ..) over depth slice w / 2 MT of KG, into partial plane w / 2 MT
+    if (w < 2 * MT * KG) {
+      const int tile = w % (2 * MT), kg = w / (2 * MT);
+      const int m0 = 16 * (tile >> 1), c0 = 16 * (tile & 1);
+      const int per = 8 * ((Dk8 / 8 + KG - 1) / KG);
+      const int kb = kg * per, kn = min(Dk8 - kb, per);
       float s[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      tcore::warp_mma<2, kExact<TQ>, kExact<TKV>, false, false>(
-          s, qs, KS, m0, kt, KS, c0, 2, Dk8);
+      if (kn > 0)
+        tcore::warp_mma<2, kExact<TQ>, kExact<TKV>, false, false>(
+            s, qs + kb, KS, m0, kt + kb, KS, c0, 2, kn);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        float* r0 = ps + (m0 + g) * kPS + c0 + 8 * n + 2 * tg;
+        float* r0 = ps + kg * GP * kPS + (m0 + g) * kPS + c0 + 8 * n + 2 * tg;
         r0[0] = s[n][0];
         r0[1] = s[n][1];
         r0[8 * kPS] = s[n][2];
@@ -560,7 +574,10 @@ mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < HPW; ++j) {
       const int h = w + kWarps * j;
-      const float sv = on ? ps[h * kPS + lane] * a.scale + bv : -INFINITY;
+      float raw = ps[h * kPS + lane];
+#pragma unroll
+      for (int kg = 1; kg < KG; ++kg) raw += ps[kg * GP * kPS + h * kPS + lane];
+      const float sv = on ? raw * a.scale + bv : -INFINITY;
       const float mn = fmaxf(m[j], lm::warp_max(sv));
       const bool alive = mn > kSkip;
       const float p = alive ? expf(sv - mn) : 0.f;
@@ -578,13 +595,13 @@ mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       for (int mt = 0; mt < MT; ++mt) {
         const float a0 = salpha[16 * mt + g], a1 = salpha[16 * mt + g + 8];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < NC; ++n) {
           acc[mt][n][0] *= a0;
           acc[mt][n][1] *= a0;
           acc[mt][n][2] *= a1;
           acc[mt][n][3] *= a1;
         }
-        tcore::warp_mma<4, false, kExact<TKV>, false, true>(
+        tcore::warp_mma<NC, false, kExact<TKV>, false, true>(
             acc[mt], ps, kPS, 16 * mt, vrows, VS, n0, nt, kTile);
       }
     }
@@ -604,7 +621,7 @@ mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NC; ++n)
       if (n < nt) {
         float* r0 = bacc + (16 * mt + g) * Dv + n0 + 8 * n + 2 * tg;
         r0[0] = acc[mt][n][0];
@@ -645,30 +662,33 @@ mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 }
 
 // floats of dynamic shared memory: the tiles' and the merge's, overlaid
-inline int smem_floats(const Args& a, int GP) {
+inline int smem_floats(const Args& a, int GP, int KG) {
   const int tiles = GP * a.ks + kTile * a.ks
-                    + (a.v_in_k ? 0 : kTile * (a.Dv + 8)) + GP * kPS;
+                    + (a.v_in_k ? 0 : kTile * (a.Dv + 8)) + KG * GP * kPS;
   const int merge = GP * a.Dv;
   return tiles > merge ? tiles : merge;
 }
 
-template <typename TQ, typename TKV, int MT>
+template <typename TQ, typename TKV, int MT, int NC>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            void* o, const Args& a, cudaStream_t stream) {
-  static bool smem_ok = false, wide_ok = false;
-  auto kernel = mla_decode_kernel<TQ, TKV, MT>;
+  static int opted = 0;  // the dynamic shared memory opted into so far
+  static bool wide_ok = false;
+  auto kernel = mla_decode_kernel<TQ, TKV, MT, NC>;
   constexpr int GP = 16 * MT;
-  // opted into once, for the widest rows the instance takes
-  constexpr int most = 4 * (GP * kMaxRow + kTile * kMaxRow
-                            + kTile * (kMaxDv + 8) + GP * kPS);
-  int e = lm::allow_smem(kernel, most, &smem_ok);
+  const int bytes = 4 * smem_floats(a, GP, kKG<MT>);
+  int e = 0;
+  if (bytes > opted && bytes > 48 * 1024) {
+    e = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == 0) opted = bytes;
+  }
   if (e == 0 && !wide_ok) {
     e = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     wide_ok = e == 0;
   }
   if (e != 0) return e;
-  const int bytes = 4 * smem_floats(a, GP);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.B, a.splits);
   cfg.blockDim = dim3(kThreads);
@@ -688,14 +708,26 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// value columns a warp: 32, or 64 past Dv 256 (G <= 32 only: more heads'
+// accumulators would spill)
+template <typename TQ, typename TKV, int MT>
+int launch_v(const void* q, const void* k, const void* v, const float* bias,
+             void* o, const Args& a, cudaStream_t stream) {
+  if (a.Dv <= kWarps * 32)
+    return launch<TQ, TKV, MT, 4>(q, k, v, bias, o, a, stream);
+  if constexpr (MT <= 2)
+    return launch<TQ, TKV, MT, 8>(q, k, v, bias, o, a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 // 16-row tiles of heads: the fewest of 1-4 (GP = 16, 32, 48, 64)
 template <typename TQ, typename TKV>
 int launch_g(const void* q, const void* k, const void* v, const float* bias,
              void* o, const Args& a, cudaStream_t stream) {
-  if (a.G <= 16) return launch<TQ, TKV, 1>(q, k, v, bias, o, a, stream);
-  if (a.G <= 32) return launch<TQ, TKV, 2>(q, k, v, bias, o, a, stream);
-  if (a.G <= 48) return launch<TQ, TKV, 3>(q, k, v, bias, o, a, stream);
-  if (a.G <= 64) return launch<TQ, TKV, 4>(q, k, v, bias, o, a, stream);
+  if (a.G <= 16) return launch_v<TQ, TKV, 1>(q, k, v, bias, o, a, stream);
+  if (a.G <= 32) return launch_v<TQ, TKV, 2>(q, k, v, bias, o, a, stream);
+  if (a.G <= 48) return launch_v<TQ, TKV, 3>(q, k, v, bias, o, a, stream);
+  if (a.G <= 64) return launch_v<TQ, TKV, 4>(q, k, v, bias, o, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,11 +25,14 @@ order, so the output is the same bits from run to run.
 MLA's absorbed decode is MQA over the latent cache: one KV head
 (Hkv = 1) for all G query heads, keys of Dk = kv_lora_rank +
 rope_head_dim and values of Dv = kv_lora_rank (minicpm3-4b: G = 40,
-Dk = 288, Dv = 256).  Those shapes take the kernel's latent instance
-(:func:`route` gives ``"mla"``): a block per (slot, split) holds the G
-query rows in shared memory, loads each live key row once for all of
-them, runs the logits and P V on the tensor cores in 3xTF32 (about
-float32's accuracy) with the (G, Dv) accumulator spread over its warps;
+Dk = 288, Dv = 256; deepseek-v2-lite: G = 16, Dk = 576, Dv = 512).
+Those shapes take the kernel's latent instance (:func:`route` gives
+``"mla"``): a block per (slot, split) holds the G query rows in shared
+memory, loads each live key row once for all of them, runs the logits
+and P V on the tensor cores in 3xTF32 (about float32's accuracy) with
+the (G, Dv) accumulator spread over its warps (32 columns a warp, 64
+past Dv 256, which G <= 32 takes) and, at G <= 32, each logits tile's
+depth split over several warps;
 the splits of a slot (at most 16, a non-portable cluster size) merge in
 a cluster as above.  When v is the first Dv columns of k's rows (the
 model's latent cache holds [c_kv ; k_rope] in one row, and v is c_kv),
@@ -37,7 +40,8 @@ the rows are read once for both.  The limits:
 the split instance takes Dk, Dv <= :data:`MAX_HEAD_DIM` and G <=
 :data:`MAX_GROUP`; with Hkv = 1 the latent instance takes G <=
 :data:`MLA_MAX_GROUP`, Dk <= :data:`MLA_MAX_DK` and Dv <=
-:data:`MLA_MAX_DV`, a multiple of 8.  Other shapes raise.
+:data:`MLA_MAX_DV`, a multiple of 8, where its shared memory
+(:func:`mla_smem_bytes`) fits.  Other shapes raise.
 
 :func:`decode_attention` launches the kernel for CUDA tensors, adding
 one to ``decode_attention.launches`` (and to ``mla_launches`` for the
@@ -57,8 +61,9 @@ from repro_torch.kernels.launch import (call_device, dtype_code, sm_count,
 from repro_torch.kernels.ref import decode_attention_ref
 
 __all__ = ["decode_attention", "DecodePlan", "plan", "mla_plan", "route",
-           "MAX_HEAD_DIM", "MAX_GROUP", "SPLIT_KEYS", "MAX_SPLITS",
-           "MLA_MAX_SPLITS", "MLA_MAX_GROUP", "MLA_MAX_DK", "MLA_MAX_DV"]
+           "mla_smem_bytes", "MAX_HEAD_DIM", "MAX_GROUP", "SPLIT_KEYS",
+           "MAX_SPLITS", "MLA_MAX_SPLITS", "MLA_MAX_GROUP", "MLA_MAX_DK",
+           "MLA_MAX_DV"]
 
 #: the largest Dk or Dv the kernel takes
 MAX_HEAD_DIM = 128
@@ -73,8 +78,11 @@ MAX_SPLITS = 8
 MLA_MAX_SPLITS = 16
 #: the latent instance's limits (Hkv = 1): query heads, Dk and Dv
 MLA_MAX_GROUP = 64
-MLA_MAX_DK = 320
-MLA_MAX_DV = 256
+MLA_MAX_DK = 576
+MLA_MAX_DV = 512
+#: dynamic shared memory a latent block may take (Hopper's 227 KB, less
+#: the instance's static arrays)
+_MLA_SMEM = 232448 - 1024
 
 _SOURCE = build.CudaSource("decode_attention")
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
@@ -103,28 +111,47 @@ def plan(B: int, Hkv: int, S: int, n_sm: int) -> DecodePlan:
     return DecodePlan(kps, splits, heads * splits)
 
 
-def mla_plan(B: int, S: int) -> DecodePlan:
+def mla_plan(B: int, S: int, n_sm: int) -> DecodePlan:
     """The latent instance's cut: as many splits of a slot as a cluster
-    holds (at most :data:`MLA_MAX_SPLITS`), each a multiple of
-    :data:`SPLIT_KEYS` keys (one tile a step)."""
-    want = min(MLA_MAX_SPLITS, -(-S // SPLIT_KEYS))
+    holds (at most :data:`MLA_MAX_SPLITS`), but no more than give the B
+    slots two blocks for each of the ``n_sm`` SMs (a block of a wide instance
+    fills an SM, and a slot's cluster holds all of its SMs until its
+    busiest split ends: at 64 slots, 5 splits read 27 % faster than 15,
+    PERF.md); each a multiple of :data:`SPLIT_KEYS` keys (one tile a
+    step)."""
+    want = min(MLA_MAX_SPLITS, -(-S // SPLIT_KEYS), -(-2 * n_sm // B))
     kps = -(-S // want)
     kps = -(-kps // SPLIT_KEYS) * SPLIT_KEYS
     splits = -(-S // kps)
     return DecodePlan(kps, splits, B * splits)
 
 
+def mla_smem_bytes(G: int, Dk: int, Dv: int, v_in_k: bool = False) -> int:
+    """The latent instance's dynamic shared memory (decode_attention.cu's
+    ``mla::smem_floats``): the G query rows padded to 16, a 32-key tile
+    of K (and of V unless v is in k's rows), the logits' partial planes,
+    or the merge's (G, Dv) accumulator, whichever is larger."""
+    mt = -(-G // 16)
+    gp, ks, kg = 16 * mt, _smem_row(Dk), max(1, 8 // (2 * mt))
+    tiles = (gp * ks + 32 * ks + (0 if v_in_k else 32 * (Dv + 8))
+             + kg * gp * 36)
+    return 4 * max(tiles, gp * Dv)
+
+
 def route(Hq: int, Hkv: int, Dk: int, Dv: int) -> str | None:
     """The instance that takes these shapes: ``"split"`` (G = Hq / Hkv
     <= 16, Dk and Dv <= 128), ``"mla"`` (Hkv = 1 past those limits, up
-    to G 64, Dk 320, Dv 256 and a multiple of 8), or None (refused)."""
+    to G 64, Dk 576, Dv 512 and a multiple of 8, where its shared memory
+    fits with V rows of their own; past Dv 256 only at G <= 32), or None
+    (refused)."""
     if Hkv <= 0 or Hq % Hkv:
         return None
     G = Hq // Hkv
     if G <= MAX_GROUP and max(Dk, Dv) <= MAX_HEAD_DIM:
         return "split"
     if (Hkv == 1 and G <= MLA_MAX_GROUP and Dk <= MLA_MAX_DK
-            and Dv <= MLA_MAX_DV and Dv % 8 == 0):
+            and Dv <= (MLA_MAX_DV if G <= 32 else 256) and Dv % 8 == 0
+            and mla_smem_bytes(G, Dk, Dv) <= _MLA_SMEM):
         return "mla"
     return None
 
@@ -226,7 +253,7 @@ def _smem_row(Dk: int) -> int:
 def _launch_mla(q, k, v, bias, out, q_code, kv_code, scale) -> None:
     B, G, Dk = q.shape
     S, Dv = v.shape[2], v.shape[3]
-    p = mla_plan(B, S)
+    p = mla_plan(B, S, sm_count(q.device.index or 0))
     per = 16 // q.element_size()
     q_vec = (q.data_ptr() % 16 == 0 and Dk % per == 0
              and all(st % per == 0 for st in q.stride()[:2]))

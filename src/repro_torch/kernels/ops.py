@@ -37,9 +37,11 @@ from repro_torch.kernels.decode_attention import (decode_attention as
 from repro_torch.kernels.flash_attention import (flash_attention as
                                                  _flash_kernel)
 from repro_torch.kernels.fused_mlp import fused_mlp as _mlp_kernel
+from repro_torch.kernels.moe_experts import moe_experts as _moe_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
-__all__ = ["attention", "decode_attention", "mlp", "ssd", "rmsnorm",
+__all__ = ["attention", "decode_attention", "mlp", "moe_experts", "ssd",
+           "rmsnorm",
            "uses_kernel", "IMPLS"]
 
 IMPLS = ("auto", "cuda", "ref")
@@ -92,6 +94,20 @@ def mlp(x, w_norm, w_gate, w_up, w_down, eps: float = 1e-6,
     else:
         y = _ref.fused_mlp_ref(x2, w_norm, w_gate, w_up, w_down, eps=eps)
     return y.reshape(*lead, x.shape[-1])
+
+
+def moe_experts(h, route, w_gate, w_up, w_down, impl: str = "auto"):
+    """Dropless grouped SwiGLU experts over the tokens h (T, d); see
+    :func:`repro_torch.kernels.moe_experts.moe_experts`.  Returns (T, d)
+    float32.  The kernel has no backward: on the card it serves only."""
+    if uses_kernel(impl, h):
+        if _ag.needs_grad(h, w_gate, w_up, w_down):
+            raise NotImplementedError(
+                "moe_experts: the kernel has no backward; train with "
+                "impl='ref'")
+        return _moe_kernel(h, route, w_gate, w_up, w_down)
+    return _ref.moe_experts_ref(h, route.rows, route.offsets, route.gates,
+                                route.slots, w_gate, w_up, w_down)
 
 
 def ssd(x, dt, A, B, C, chunk: int = 64, impl: str = "auto",

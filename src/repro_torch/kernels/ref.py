@@ -23,7 +23,8 @@ def _acc(*tensors: torch.Tensor | None) -> torch.dtype:
 
 
 __all__ = ["rmsnorm_ref", "flash_attention_ref", "decode_attention_ref",
-           "fused_mlp_ref", "swiglu_backward_ref", "ssd_scan_ref",
+           "fused_mlp_ref", "swiglu_backward_ref", "moe_experts_ref",
+           "ssd_scan_ref",
            "ssd_sequential_ref", "ssd_ref"]
 
 
@@ -114,6 +115,42 @@ def swiglu_backward_ref(g: torch.Tensor, u: torch.Tensor,
     autograd bit for bit.  The kernel rounds each to bf16."""
     silu = torch.nn.functional.silu(g)
     return silu * u, torch.ops.aten.silu_backward(da * u, g), da * silu
+
+
+def moe_experts_ref(h: torch.Tensor, rows: torch.Tensor,
+                    offsets: torch.Tensor, gates: torch.Tensor,
+                    slots: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor
+                    ) -> torch.Tensor:
+    """Grouped SwiGLU experts over a dropless routing
+    (``csrc/moe_experts.cu``).  h: (T, d) normed tokens; the R = T K
+    choices sorted by expert: ``rows`` (R,) their tokens, ``gates`` (R,)
+    their weights, ``offsets`` (E + 1,) expert e's rows
+    ``offsets[e]:offsets[e + 1]``; ``slots`` (T, K) each token's rows in
+    ascending order; w_gate / w_up (E, d, f), w_down (E, f, d).
+
+    Row p of expert e: ``a = silu(h[rows[p]] @ Wg[e]) * (h[rows[p]] @
+    Wu[e])``, rounded to h's type, then ``y = gates[p] * (a @ Wd[e])``;
+    token t's output is ``0 + y[slots[t, 0]] + ... + y[slots[t, K - 1]]``
+    in that order.  Products and sums in float32 (float64 for float64
+    inputs).  Returns (T, d) in that type.  It reads the offsets on the
+    host: a plain version, not one for a CUDA graph."""
+    acc = _acc(h, w_gate, w_up, w_down)
+    y = torch.zeros((rows.shape[0], h.shape[1]), dtype=acc, device=h.device)
+    off = offsets.tolist()
+    for e in range(w_gate.shape[0]):
+        lo, hi = off[e], off[e + 1]
+        if lo == hi:
+            continue
+        x = h[rows[lo:hi].long()].to(acc)
+        a = (torch.nn.functional.silu(x @ w_gate[e].to(acc))
+             * (x @ w_up[e].to(acc))).to(h.dtype).to(acc)
+        y[lo:hi] = gates[lo:hi, None].to(acc) * (a @ w_down[e].to(acc))
+    yk = y[slots.long()]                                  # (T, K, d)
+    out = torch.zeros_like(yk[:, 0])
+    for j in range(yk.shape[1]):
+        out = out + yk[:, j]
+    return out
 
 
 # ----------------------------------------------------------------------

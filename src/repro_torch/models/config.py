@@ -5,10 +5,18 @@ One :class:`ModelConfig` per assigned architecture lives in
 assigned input shapes.  The fields are the reference's, unchanged, so a
 config means the same model in both packages; the port serves every
 family (:mod:`repro_torch.models.model`).
+
+:class:`ExtendedConfig` adds the architecture that the reference has no
+field for (DeepSeek-V2's leading dense layers, shared experts, routing
+without renormalisation or capacity, YaRN).  Its fields are plain class
+attributes of :class:`ModelConfig` at today's behaviour, so every
+:class:`ModelConfig` reads them, and ``dataclasses.asdict`` of one is
+still the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
@@ -80,6 +88,9 @@ class ModelConfig:
     mla_absorb: str = "decode"         # "decode" | "always": absorbed
                                        # MLA only where it wins
 
+    # --- architecture the reference has no field for: ExtendedConfig's
+    # fields, class attributes here at their defaults (set below) ---
+
     @property
     def hd(self) -> int:
         if self.head_dim:
@@ -107,14 +118,17 @@ class ModelConfig:
         per_attn = d * Hq * hd + 2 * d * Hkv * hd + Hq * hd * d
         if self.use_mla:
             r, kr = self.kv_lora_rank, self.rope_head_dim
-            qr = self.q_lora_rank or d
-            per_attn = (d * qr + qr * Hq * (hd + kr)      # q down/up
+            qr = self.q_lora_rank
+            q = (d * qr + qr * Hq * (hd + kr) if qr       # q down/up
+                 else d * Hq * (hd + kr))                  # or direct
+            per_attn = (q
                         + d * (r + kr)                     # kv down + rope k
                         + r * Hq * 2 * hd                  # kv up (k_nope, v)
                         + Hq * hd * d)                     # o
         per_mlp = 3 * d * ff
         if self.n_experts:
-            per_mlp = per_mlp * self.n_experts + d * self.n_experts
+            per_mlp = (per_mlp * (self.n_experts + self.n_shared_experts)
+                       + d * self.n_experts)
         per_norms = 2 * d
         per_layer = per_attn + per_mlp + per_norms
         if self.family in ("ssm", "hybrid"):
@@ -129,7 +143,9 @@ class ModelConfig:
                 shared_attn = per_attn + per_mlp + per_norms
                 n_sites = L // self.attn_every if self.attn_every else 0
                 return emb + L * per_mamba + shared_attn + d + n_sites * 0
-        total = emb + L * per_layer + d
+        k = self.first_dense_layers    # leading layers with a dense MLP
+        dense = per_attn + 3 * d * (self.dense_d_ff or ff) + per_norms
+        total = emb + (L - k) * per_layer + k * dense + d
         if self.n_enc_layers:
             total += self.n_enc_layers * per_layer
         return total
@@ -142,7 +158,63 @@ class ModelConfig:
         dense_mlp = 3 * d * ff
         moe_mlp = dense_mlp * self.n_experts
         active_mlp = dense_mlp * self.experts_per_token
-        return self.n_params() - self.n_layers * (moe_mlp - active_mlp)
+        return self.n_params() - (self.n_layers - self.first_dense_layers
+                                  ) * (moe_mlp - active_mlp)
+
+    @property
+    def yarn_mscale(self) -> float:
+        """YaRN's factor on the softmax scale (its mscale twice, at
+        ``rope_mscale_all_dim``); 1 without YaRN."""
+        return yarn_m(self.rope_factor, self.rope_mscale_all_dim) ** 2 \
+            if self.rope_mscale_all_dim else 1.0
+
+
+def yarn_m(factor: float, m: float) -> float:
+    """YaRN's ``get_mscale``: 0.1 m ln(factor) + 1 above factor 1."""
+    return 0.1 * m * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtendedConfig(ModelConfig):
+    """A :class:`ModelConfig` with the architecture the reference has no
+    field for, as fields (their defaults are today's behaviour).
+
+    ``first_dense_layers`` leading layers take a dense SwiGLU of width
+    ``dense_d_ff``; the rest are MoE layers, each with
+    ``n_shared_experts`` shared experts of width ``d_ff`` on the same
+    normed input, added.  ``moe_renorm`` False keeps the top-k softmax
+    gates as they are; ``moe_dropless`` routes every choice, with no
+    capacity and no dropped token.  ``rope_factor`` > 1 turns on YaRN for
+    MLA's rope dims (DeepSeek-V2's ``rope_scaling``: factor, original
+    length, beta_fast, beta_slow, mscale, mscale_all_dim)."""
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    n_shared_experts: int = 0
+    moe_renorm: bool = True
+    moe_dropless: bool = False
+    rope_factor: float = 0.0
+    rope_original_len: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        # the capacity route runs no shared experts and renormalises
+        if not self.moe_dropless and (self.n_shared_experts
+                                      or not self.moe_renorm):
+            raise ValueError(
+                f"{self.name}: shared experts, and top-k gates that are not "
+                "renormalised, run only on the dropless route "
+                "(moe_dropless=True)")
+
+
+# every ModelConfig reads ExtendedConfig's defaults, today's behaviour, as
+# class attributes and not fields, so its asdict is still the reference's
+for _f in dataclasses.fields(ExtendedConfig):
+    if _f.name not in ModelConfig.__dataclass_fields__:
+        setattr(ModelConfig, _f.name, _f.default)
+del _f
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,10 +27,12 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.launch import f32_matmul
-from repro_torch.models.config import ModelConfig
+from repro_torch.kernels.moe_experts import dispatch as moe_dispatch
+from repro_torch.models.config import ModelConfig, yarn_m
+from repro_torch.obs.tracer import get_tracer, maybe_span
 
 __all__ = ["ParamDef", "init_tree", "moe_stats", "rmsnorm", "rope",
-           "embed_tokens",
+           "yarn_of", "rope_freqs", "embed_tokens",
            "unembed", "softmax_cross_entropy", "attn_defs",
            "attention_block", "mla_defs", "mla_attention_block",
            "mlp_defs", "mlp_block", "moe_defs", "moe_route", "moe_block",
@@ -104,17 +106,61 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return ops.rmsnorm(x, w, eps)
 
 
-def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+def yarn_of(cfg: ModelConfig) -> tuple | None:
+    """The config's YaRN settings for :func:`rope` (factor, original
+    length, beta_fast, beta_slow, mscale, mscale_all_dim), or None for
+    plain rotary embeddings (``rope_factor`` <= 1)."""
+    if cfg.rope_factor <= 1:
+        return None
+    return (cfg.rope_factor, cfg.rope_original_len, cfg.rope_beta_fast,
+            cfg.rope_beta_slow, cfg.rope_mscale, cfg.rope_mscale_all_dim)
+
+
+def rope_freqs(D: int, theta: float, yarn: tuple | None,
+               device: torch.device) -> tuple[torch.Tensor, float]:
+    """The D / 2 rotary frequencies and the factor on cos and sin.
+
+    Plain: ``theta^(-i / (D / 2))``.  YaRN (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): those frequencies (extrapolated)
+    and the same over ``factor`` (interpolated), blended by
+    ``1 - clamp((i - low) / (high - low), 0, 1)`` with ``low = floor(c(
+    beta_fast))``, ``high = ceil(c(beta_slow))``, ``c(r) = D ln(original
+    / (2 pi r)) / (2 ln theta)`` (clamped to [0, D - 1]); cos and sin
+    times ``m(factor, mscale) / m(factor, mscale_all_dim)``."""
+    half = D // 2
+    i = torch.arange(0, half, dtype=torch.float32, device=device)
+    # a Python base: no host-to-device copy, so a CUDA graph can capture it
+    freqs = torch.pow(float(theta), -i / half)
+    if yarn is None:
+        return freqs, 1.0
+    factor, original, fast, slow, m, m_all = yarn
+
+    def dim(rotations):
+        return D * math.log(original / (rotations * 2 * math.pi)) / (
+            2 * math.log(theta))
+    low = max(math.floor(dim(fast)), 0)
+    high = min(math.ceil(dim(slow)), D - 1)
+    if low == high:
+        high += 0.001
+    keep = 1.0 - ((i - low) / (high - low)).clamp(0.0, 1.0)
+    freqs = freqs / factor * (1.0 - keep) + freqs * keep
+    return freqs, yarn_m(factor, m) / yarn_m(factor, m_all)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
+         yarn: tuple | None = None) -> torch.Tensor:
     """Rotary embedding, rotate-half form.  x: (..., S, H, D); pos: (S,)
-    for a shared position run, or (B, 1) per sequence at decode."""
+    for a shared position run, or (B, 1) per sequence at decode.  With
+    ``yarn`` (:func:`yarn_of`) the frequencies and factor of
+    :func:`rope_freqs`."""
     D = x.shape[-1]
     half = D // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    # a Python base: no host-to-device copy, so a CUDA graph can capture it
-    freqs = torch.pow(float(theta), exps)
+    freqs, mscale = rope_freqs(D, theta, yarn, x.device)
     ang = pos[..., None].to(torch.float32) * freqs        # (..., S, half)
     ang = ang[..., None, :]                               # broadcast heads
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -329,14 +375,18 @@ def _length_bias(index: int | torch.Tensor, B: int, Smax: int,
 # MLA: multi-head latent attention (minicpm3)
 # ----------------------------------------------------------------------
 def mla_defs(cfg: ModelConfig) -> dict:
+    """MLA's leaves.  With ``q_lora_rank`` 0 q is one projection ``wq``
+    (DeepSeek-V2-Lite's ``q_proj``), where the reference builds a d-wide
+    down-projection and its norm."""
     d, hd, Hq = cfg.d_model, cfg.hd, cfg.n_heads
-    r, kr = cfg.kv_lora_rank, cfg.rope_head_dim
-    qr = cfg.q_lora_rank or cfg.d_model
+    r, kr, qr = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.q_lora_rank
+    q = ({"wdq": ParamDef((d, qr), ("embed", None)),
+          "q_ln": ParamDef((qr,), (None,), "ones"),
+          "wuq": ParamDef((qr, Hq * (hd + kr)), (None, "heads"))} if qr
+         else {"wq": ParamDef((d, Hq * (hd + kr)), ("embed", "heads"))})
     return {
         "ln": ParamDef((d,), ("embed",), "ones"),
-        "wdq": ParamDef((d, qr), ("embed", None)),
-        "q_ln": ParamDef((qr,), (None,), "ones"),
-        "wuq": ParamDef((qr, Hq * (hd + kr)), (None, "heads")),
+        **q,
         "wdkv": ParamDef((d, r + kr), ("embed", None)),
         "kv_ln": ParamDef((r,), (None,), "ones"),
         "wuk": ParamDef((r, Hq * hd), (None, "heads")),
@@ -366,6 +416,11 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         ) -> tuple[torch.Tensor, dict | None]:
     """Multi-head latent attention (MiniCPM3 / DeepSeek style).
 
+    q from ``wq`` where the config has no q LoRA, else ``wuq`` over the
+    normed ``wdq`` down-projection.  The softmax scale is
+    ``1 / sqrt(hd + kr)`` times YaRN's ``cfg.yarn_mscale`` (1 without
+    YaRN), and the rope dims take YaRN's frequencies where it is on.
+
     cache: {"c_kv" (B, Smax, r), "k_rope" (B, Smax, kr)}, written at
     ``cache_index`` in place.  At S == 1 (decode) the absorbed form: the
     query projected into the latent space attends, as MQA (Hkv = 1,
@@ -382,15 +437,19 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     r, kr = cfg.kv_lora_rank, cfg.rope_head_dim
     absorb = cfg.mla_absorb == "always" or S == 1
     f32 = torch.float32
+    yarn = yarn_of(cfg)
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
-    cq = rmsnorm(h @ p["wdq"], p["q_ln"], cfg.norm_eps)
-    q = (cq @ p["wuq"]).reshape(B, S, Hq, hd + kr)
+    if "wq" in p:
+        q = h @ p["wq"]
+    else:
+        q = rmsnorm(h @ p["wdq"], p["q_ln"], cfg.norm_eps) @ p["wuq"]
+    q = q.reshape(B, S, Hq, hd + kr)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
-    q_rope = rope(q_rope, pos, cfg.rope_theta)
+    q_rope = rope(q_rope, pos, cfg.rope_theta, yarn)
 
     dkv = h @ p["wdkv"]                                 # (B, S, r + kr)
     c_kv = rmsnorm(dkv[..., :r], p["kv_ln"], cfg.norm_eps)
-    k_rope = rope(dkv[..., None, r:], pos, cfg.rope_theta)[:, :, 0]
+    k_rope = rope(dkv[..., None, r:], pos, cfg.rope_theta, yarn)[:, :, 0]
 
     if cache is not None:      # the (B, Smax, D) leaves as (B, 1, Smax, D)
         _write_cache(cache["c_kv"][:, None], c_kv[:, None], cache_index)
@@ -400,7 +459,7 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     wuk = p["wuk"].reshape(r, Hq, hd)
     wuv = p["wuv"].reshape(r, Hq, hd)
-    scale = 1.0 / math.sqrt(hd + kr)
+    scale = cfg.yarn_mscale / math.sqrt(hd + kr)
     if absorb:                 # MQA over the latent rows
         q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(f32),
                              wuk.to(f32)).to(x.dtype)
@@ -437,8 +496,9 @@ def mla_attention_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # ----------------------------------------------------------------------
 # MLP
 # ----------------------------------------------------------------------
-def mlp_defs(cfg: ModelConfig) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg: ModelConfig, ff: int = 0) -> dict:
+    """A SwiGLU MLP's leaves, of width ``ff`` (default ``cfg.d_ff``)."""
+    d, ff = cfg.d_model, ff or cfg.d_ff
     return {
         "ln": ParamDef((d,), ("embed",), "ones"),
         "wg": ParamDef((d, ff), ("embed", "ff")),
@@ -457,53 +517,64 @@ def mlp_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # MoE: top-k experts with grouped capacity dispatch
 # ----------------------------------------------------------------------
 def moe_defs(cfg: ModelConfig) -> dict:
+    """The router and the routed experts' leaves; with shared experts
+    also ``shared``, one SwiGLU of width ``n_shared_experts * d_ff``."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {
+    defs = {
         "ln": ParamDef((d,), ("embed",), "ones"),
         "router": ParamDef((d, E), ("embed", None), scale=0.02),
         "wg": ParamDef((E, d, ff), ("experts", "embed", "expert_ff")),
         "wu": ParamDef((E, d, ff), ("experts", "embed", "expert_ff")),
         "wd": ParamDef((E, ff, d), ("experts", "expert_ff", "embed")),
     }
+    if cfg.n_shared_experts:
+        shared = mlp_defs(cfg, cfg.n_shared_experts * ff)
+        del shared["ln"]                # the shared experts read ln too
+        defs["shared"] = shared
+    return defs
 
 
 def moe_route(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """The router: (h, gates, topw, tope).  h = rmsnorm(x) (B, S, d);
     gates the float32 softmax over the E experts (B, S, E); tope the K
-    chosen experts of each token, best first, and topw their gates
-    renormalised to sum 1 (both (B, S, K))."""
+    chosen experts of each token, best first, and topw their gates,
+    renormalised to sum 1 where ``cfg.moe_renorm`` (both (B, S, K))."""
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     gates = torch.softmax(h.to(torch.float32)
                           @ p["router"].to(torch.float32), dim=-1)
     topw, tope = torch.topk(gates, cfg.experts_per_token, dim=-1)
-    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.moe_renorm:
+        topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
     return h, gates, topw, tope
 
 
-def _renormalised(gates: torch.Tensor, experts: torch.Tensor) -> torch.Tensor:
-    """The gates of ``experts``, renormalised to sum 1."""
+def _renormalised(gates: torch.Tensor, experts: torch.Tensor,
+                  renorm: bool = True) -> torch.Tensor:
+    """The gates of ``experts``, renormalised to sum 1 (unless not
+    ``renorm``)."""
     w = gates.gather(-1, experts)
-    return w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return w / w.sum(-1, keepdim=True).clamp_min(1e-9) if renorm else w
 
 
 class ExpertChoices:
     """What :func:`expert_choices` yields: ``chosen`` holds each
     ``moe_block`` call's own router choices (B, S, K), best first, in
     call order.  With ``replay`` (such a list) each call takes the next
-    entry as its choices instead, weighted by its own gates renormalised
-    to sum 1."""
+    entry as its choices instead, weighted by its own gates (renormalised
+    to sum 1 where the config renormalises)."""
 
     def __init__(self, replay: list | None = None):
         self.chosen: list[torch.Tensor] = []
         self.replay = replay
 
     def take(self, gates: torch.Tensor, topw: torch.Tensor,
-             tope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+             tope: torch.Tensor, renorm: bool = True
+             ) -> tuple[torch.Tensor, torch.Tensor]:
         self.chosen.append(tope)
         if self.replay is None:
             return topw, tope
         forced = self.replay[len(self.chosen) - 1]
-        return _renormalised(gates, forced), forced
+        return _renormalised(gates, forced, renorm), forced
 
 
 class _Recompute:
@@ -518,11 +589,12 @@ class _Recompute:
         self._replay = None if replay is None else iter(replay)
 
     def take(self, gates: torch.Tensor, topw: torch.Tensor,
-             tope: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+             tope: torch.Tensor, renorm: bool = True
+             ) -> tuple[torch.Tensor, torch.Tensor]:
         if self._replay is None:
             return topw, tope
         tope = next(self._replay)
-        return _renormalised(gates, tope), tope
+        return _renormalised(gates, tope, renorm), tope
 
 
 _CHOICES: ExpertChoices | _Recompute | None = None   # set by the two below
@@ -623,8 +695,10 @@ def _expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity dispatch in ``G = cfg.moe_groups or B``
-    groups.  x: (B, S, d).  Returns (x + moe_out, aux), aux the Switch
-    load-balance loss E * sum_e f_e P_e.
+    groups, or with ``cfg.moe_dropless`` the dropless route
+    (:func:`_dropless_moe`).  x: (B, S, d).  Returns (x + moe_out, aux),
+    aux the Switch load-balance loss E * sum_e f_e P_e (0 on the
+    dropless route).
 
     The reference's semantics, kept exactly: per group of T tokens, each
     expert takes ``cap = max(ceil(T K / E * capacity_factor), K)`` of
@@ -642,6 +716,8 @@ def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor
     its einsums to XLA.  No step reads the device on the host and no
     shape depends on the data, so a CUDA graph can capture it.
     """
+    if cfg.moe_dropless:
+        return _dropless_moe(p, cfg, x)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     G = cfg.moe_groups or B
@@ -696,6 +772,39 @@ def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor
     if _MOE_STATS is not None and not isinstance(_CHOICES, _Recompute):
         _MOE_STATS.append((me, ce))
     return x + out, E * torch.sum(me * ce)
+
+
+def _dropless_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V2's MoE: every token's top-K choices run, none dropped.
+
+    The router (:func:`moe_route`, gates renormalised only where
+    ``cfg.moe_renorm``) and the sort by expert (``moe_dispatch``: on the
+    device, no host read) run inside the ``moe.dispatch`` span; the
+    routed experts run through ``ops.moe_experts`` (float32 out, each
+    token's K gated outputs added in ascending expert id), and the
+    shared experts, where the config has them, through ``ops.mlp`` on x
+    with the router's norm weight ``ln``; ``moe.layer`` spans the whole.
+    Returns (x + (routed + shared) in x's type, 0): no aux loss."""
+    B, S, d = x.shape
+    tracer = get_tracer()
+    with maybe_span(tracer, "moe.layer", cat="model"):
+        with maybe_span(tracer, "moe.dispatch", cat="model"):
+            h, gates, topw, tope = moe_route(p, cfg, x)
+            if _CHOICES is not None:
+                topw, tope = _CHOICES.take(gates, topw, tope, cfg.moe_renorm)
+            K = tope.shape[-1]
+            route = moe_dispatch(tope.reshape(B * S, K),
+                                 topw.reshape(B * S, K), cfg.n_experts)
+        out = ops.moe_experts(h.reshape(B * S, d), route, p["wg"], p["wu"],
+                              p["wd"], impl=cfg.attn_impl)
+        if "shared" in p:
+            sh = p["shared"]
+            out = out + ops.mlp(x, p["ln"], sh["wg"], sh["wu"], sh["wd"],
+                                eps=cfg.norm_eps, impl=cfg.attn_impl
+                                ).reshape(B * S, d).to(out.dtype)
+        y = x + out.reshape(B, S, d).to(x.dtype)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def decode_attn_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -77,21 +77,32 @@ def _stack(defs: Any, n: int) -> Any:
     return {k: _stack(v, n) for k, v in defs.items()}
 
 
-def _block_defs(cfg: ModelConfig) -> dict:
+def _block_defs(cfg: ModelConfig, dense: bool = False) -> dict:
+    """One layer's leaves; ``dense``: a leading layer of a MoE config,
+    whose MLP is a SwiGLU of width ``dense_d_ff``."""
     if cfg.family in ("ssm", "hybrid"):
         return {"mamba": L.mamba2_defs(cfg)}
     attn = L.mla_defs(cfg) if cfg.use_mla else L.attn_defs(cfg)
+    if dense:
+        return {"attn": attn, "mlp": L.mlp_defs(cfg, cfg.dense_d_ff)}
     mlp = L.moe_defs(cfg) if cfg.n_experts else L.mlp_defs(cfg)
     return {"attn": attn, "mlp": mlp}
 
 
 def param_defs(cfg: ModelConfig) -> dict:
+    """The parameter tree.  A config with ``first_dense_layers`` k keeps
+    its leading dense layers in ``dense_blocks`` (stacked on k) and the
+    other ``n_layers - k`` in ``blocks``; layer i < k is
+    ``dense_blocks[i]``, layer i >= k ``blocks[i - k]``."""
     d, V = cfg.d_model, cfg.vocab_size
+    k = cfg.first_dense_layers
     defs: dict[str, Any] = {
         "embed": L.ParamDef((V, d), ("vocab", "embed"), scale=0.02),
         "final_ln": L.ParamDef((d,), ("embed",), "ones"),
-        "blocks": _stack(_block_defs(cfg), cfg.n_layers),
+        "blocks": _stack(_block_defs(cfg), cfg.n_layers - k),
     }
+    if k:
+        defs["dense_blocks"] = _stack(_block_defs(cfg, dense=True), k)
     if not cfg.tie_embeddings:
         defs["lm_head"] = L.ParamDef((d, V), ("embed", "vocab"))
     if cfg.family == "hybrid":
@@ -203,17 +214,27 @@ def _layer(tree: Any, i: int) -> Any:
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
+def _block_params(params: dict, cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s leaves (:func:`param_defs`: the leading dense
+    layers first)."""
+    k = cfg.first_dense_layers
+    if i < k:
+        return _layer(params["dense_blocks"], i)
+    return _layer(params["blocks"], i - k)
+
+
 def _dense_block(p, cfg, x, pos, cache=None, idx=None, causal=True):
     """One decoder block of the dense and moe families: attention (MLA
-    where ``use_mla``), then the MLP (MoE where ``n_experts``).  Returns
-    (x, cache, aux), aux the MoE's load-balance loss (0 without one)."""
+    where ``use_mla``), then the MLP (MoE where ``n_experts`` and the
+    layer has a router).  Returns (x, cache, aux), aux the MoE's
+    load-balance loss (0 without one)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.use_mla:
         x, cache = L.mla_attention_block(p["attn"], cfg, x, pos, cache, idx)
     else:
         x, cache = L.attention_block(p["attn"], cfg, x, pos, cache, idx,
                                      causal=causal)
-    if cfg.n_experts:
+    if cfg.n_experts and "router" in p["mlp"]:
         x, aux = L.moe_block(p["mlp"], cfg, x)
     else:
         x = L.mlp_block(p["mlp"], cfg, x)
@@ -229,7 +250,7 @@ def _run_blocks(params, cfg, x, pos, cache=None, index=None,
         return _iterate_ssm(params, cfg, x, pos, cache, index, decode)
     for i in range(cfg.n_layers):
         cache_l = None if cache is None else _layer(cache["attn"], i)
-        x, _, _ = _dense_block(_layer(params["blocks"], i), cfg, x, pos,
+        x, _, _ = _dense_block(_block_params(params, cfg, i), cfg, x, pos,
                                cache_l, index)
         if enc_out is not None:
             cross = _layer(params["cross_blocks"], i)
@@ -379,6 +400,8 @@ def _train_blocks(params, cfg, x, pos, enc_out=None):
     load-balance losses (0 for the ssm and hybrid families), as the
     reference's ``_run_blocks``."""
     blocks = _unbind(params["blocks"])
+    if cfg.first_dense_layers:
+        blocks = _unbind(params["dense_blocks"]) + blocks
     cross = (_unbind(params["cross_blocks"]) if cfg.family == "encdec"
              else None)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)

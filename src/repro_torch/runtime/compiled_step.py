@@ -69,8 +69,10 @@ def launch_counters() -> tuple:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.moe_experts import moe_experts
     from repro_torch.kernels.ssd_scan import ssd_scan
-    return (decode_attention, flash_attention, fused_mlp, ssd_scan)
+    return (decode_attention, flash_attention, fused_mlp, moe_experts,
+            ssd_scan)
 
 
 def _count_names(fn) -> list[str]:

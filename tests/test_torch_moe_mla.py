@@ -381,13 +381,17 @@ def test_route_and_plan_of_the_latent_instance():
     assert DA.route(24, 8, 64, 64) == "split"        # granite-moe
     assert DA.route(4, 1, 24, 16) == "split"         # the smoke MLA
     assert DA.route(64, 1, 320, 256) == "mla"
-    for bad in ((65, 1, 288, 256), (40, 1, 324, 256), (40, 1, 288, 264),
-                (40, 1, 288, 252), (40, 2, 288, 256), (6, 4, 64, 64)):
+    assert DA.route(16, 1, 576, 512) == "mla"        # deepseek-v2-lite
+    # past G 64, Dk 576 or Dv 512, Dv not a multiple of 8, Hkv > 1 past
+    # the split instance's limits, or more shared memory than a block has
+    for bad in ((65, 1, 288, 256), (40, 1, 580, 256), (40, 1, 288, 520),
+                (40, 1, 288, 252), (40, 2, 288, 256), (6, 4, 64, 64),
+                (64, 1, 576, 512)):
         assert DA.route(*bad) is None, bad
-    p = DA.mla_plan(4, 512)
+    p = DA.mla_plan(4, 512, 132)
     assert (p.keys_per_split, p.splits, p.blocks) == (32, 16, 64)
     for S in (1, 31, 33, 255, 511, 4096):
-        p = DA.mla_plan(2, S)
+        p = DA.mla_plan(2, S, 132)
         assert p.keys_per_split % DA.SPLIT_KEYS == 0
         assert p.splits <= DA.MLA_MAX_SPLITS
         assert (p.splits - 1) * p.keys_per_split < S <= \
@@ -413,6 +417,8 @@ LATENT_SHAPES = {
                         ((5, 999, 500),)),
     "G33 Dk288 Dv256 bf16 cache": (33, 288, 256, torch.bfloat16, 512,
                                    ((5, 511, 256),)),
+    "deepseek-v2-lite": (16, 576, 512, torch.float32, 1920,
+                         ((17, 330, 1200, 1919), (0, 1919, 5, 64))),
 }
 
 

@@ -171,7 +171,9 @@ def profile_decode(torch, cfg, params, rng, smi, steps: int = STEPS
     with L.expert_choices() as routing:
         batcher.step()           # admits, then the eager first step
     # each MoE layer's experts in that decode step, after the prefills'
-    chosen = routing.chosen[-cfg.n_layers:] if routing.chosen else []
+    # (the leading dense layers route nothing)
+    moe_layers = cfg.n_layers - cfg.first_dense_layers
+    chosen = routing.chosen[-moe_layers:] if routing.chosen else []
     for _ in range(WARM - 1):
         batcher.step()
     torch.cuda.synchronize()
