@@ -161,7 +161,8 @@ no result line) on any error:
    the plain route on its own choices reported beside it unchecked;
    minicpm3 within 6e-2); deepseek-v2-lite's kernels alone (the routed
    experts at T = 64, 300 and 602, one of each row tile, and the latent
-   decode at G 16, Dk 576, Dv 512 over 64 slots x 1920 float32 rows),
+   decode at G 16, Dk 576, Dv 512 over 64 slots x 1920 float32 rows,
+   at the gen mix's mean length and at its ragged lengths),
    then the model served the same way (prompts 17, 255, 400 and 100, so
    each row tile runs at prefill; one MLP a layer, the routed experts on
    the 26 MoE layers, counted) and teacher-forced within 5e-2; the
@@ -1382,6 +1383,9 @@ MOE_SERVE, MLA_SERVE = (4, 16, 0), (4, 16, 3)
 # slots, and prompts that take mt 2 and mt 4)
 DS_SERVE, DS_PROMPT_LENS = (4, 16, 2), (17, 255, 400, 100)
 DS_EXPERT_T = (64, 300, 602)
+# the gen mix's prompt and answer lengths, each log-uniform between these
+# (bench/traffic/gen.json): the latent decode row's ragged slots
+DS_GEN_LAWS = ((16, 602), (32, 1280))
 # decode steps in each of a serving_profile line's windows (timed, then
 # profiled), here and in phase 12: 5 since phase 14, for the time budget
 # (tools/serve_profile.py's own default is 10)
@@ -1623,7 +1627,9 @@ def deepseek_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
     and at prompts of 300 and 602 tokens, so each of ``plan``'s row
     tiles (mt 1, 2, 4) is held to the plain version, and the latent
     decode at G 16, Dk 576, Dv 512 over a float32 cache of 64 slots x
-    1920 positions at the gen mix's mean length."""
+    1920 positions at the gen mix's mean length and at its ragged
+    lengths."""
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import moe_experts as ME
     from repro_torch.kernels import ref as R
@@ -1655,21 +1661,32 @@ def deepseek_kernel_rows(torch, timer, smi: str, seed: int) -> list[dict]:
           f"deepseek-v2-lite: {DS_EXPERT_T} miss one of the row tiles")
     T, G, r, kr = 64, cfg.n_heads, cfg.kv_lora_rank, cfg.rope_head_dim
     Dk, Dv, S = r + kr, r, 1920
-    lens = torch.full((T,), 330, device="cuda")   # the mix's mean, about
-    keep = torch.arange(S, device="cuda")[None] <= lens[:, None]
-    bias = torch.where(keep, 0.0, -1e30)
     rows = randn(T, S, Dk)
     k, v = rows[:, None], rows[:, None, :, :Dv]
     q = randn(T, G, Dk).to(bf16)
     scale = cfg.yarn_mscale / (cfg.hd + kr) ** 0.5
-    live = int(keep.sum())
-    cases.append((
-        "decode_attention.mla", f"deepseek-v2-lite {T}x{S} at 330",
-        lambda: decode_attention(q, k, v, bias=bias, scale=scale),
-        lambda: R.decode_attention_ref(q, k, v, bias=bias, scale=scale),
-        None,
-        lm_bound(T * G * (Dk + Dv) * 2 + live * Dk * 4 + T * S * 4,
-                 2 * G * (Dk + Dv) * live, FP32_OPS_PER_S)))
+    # the mix's mean live length in every slot, and ragged lengths as
+    # the mix leaves them: a prompt and an answer from its laws, the
+    # answer part way through
+    rng = np.random.default_rng(seed + 34)
+    prompt, answer = (np.exp(rng.uniform(np.log(lo), np.log(hi), T))
+                      for lo, hi in DS_GEN_LAWS)
+    ragged = np.minimum(prompt + rng.uniform(0, 1, T) * answer, S - 1)
+    for label, lens in (("at 330", [330] * T),
+                        ("gen mix", ragged.astype(np.int64).tolist())):
+        lens = torch.tensor(lens, device="cuda")
+        keep = torch.arange(S, device="cuda")[None] <= lens[:, None]
+        bias = torch.where(keep, 0.0, -1e30)
+        live = int(keep.sum())
+        cases.append((
+            "decode_attention.mla", f"deepseek-v2-lite {T}x{S} {label}",
+            lambda bias=bias: decode_attention(q, k, v, bias=bias,
+                                               scale=scale),
+            lambda bias=bias: R.decode_attention_ref(q, k, v, bias=bias,
+                                                     scale=scale),
+            None,
+            lm_bound(T * G * (Dk + Dv) * 2 + live * Dk * 4 + T * S * 4,
+                     2 * G * (Dk + Dv) * live, FP32_OPS_PER_S)))
     return time_cases(torch, timer, smi, cases, LM_PATH_TOL)
 
 

@@ -372,61 +372,235 @@ int launch_g(const void* q, const void* k, const void* v, const float* bias,
 // kernel takes Dv != Dk for this case
 // (decode_attention.py:71-75).  The split instance above keeps the (G, Dv)
 // accumulator in registers per lane group, which does not scale to 40 x 256.
-// Here:
-// - a block is one (slot, split).  Its G query rows, padded to GP = 16 x MT,
-//   sit in shared memory as float32 (48 x 288 for minicpm3);
-// - the split's keys go through shared memory 32 rows at a time, each live
-//   row loaded once, 16 bytes a load, a thread's loads all issued before
-//   its stores.  When v is the first Dv columns of the same rows (the
-//   serving path's cache holds [c_kv ; k_rope] in one row, and v is c_kv),
-//   the V rows are not loaded again: the cache is read once per slot for
-//   all G heads, which is the point of MLA;
-// - both products run on the tensor cores, m16n8k8 TF32 in three passes
-//   (3xTF32: hi x hi + hi x lo + lo x hi, about float32's accuracy; an
-//   operand that is exact in TF32, a bf16 query or cache, skips its lo
-//   pass): the logits (GP x 32) = Q K^T as 2 x MT tiles of 16 x 16, each
-//   tile's depth split over KG = 8 / (2 MT) warps (4 at G <= 16, so all
-//   8 warps work at Dk 576) whose partial sums the softmax adds in warp
-//   order; P V (GP x Dv) with warp w owning columns 8 NC w .. of every
-//   head (NC = 4, or 8 past Dv 256 where G <= 32), its accumulator in mma
-//   fragments;
-// - between them the online softmax of each head runs across the lanes of
-//   one warp (lane = key; shuffles), in place in shared memory;
-// - masked keys (bias <= NEG_INF / 2) are not read: their rows are zero in
-//   shared memory and their p is 0; a tile with no live key is skipped; a
-//   row whose keys are all masked gives 0;
-// - the splits of a slot are one thread-block cluster (at most 16, a
-//   non-portable size the instance opts into: 4 slots x 16 splits of one
-//   32-key tile at 512 positions).  After a cluster barrier, block r merges
-//   the heads h = r, r + splits, ... from every split's shared memory, in
-//   split order: no scratch, no atomics, the same bits on every replay.
-// What bounds it: at the served shapes the live latent rows are a few MB,
-// about a microsecond of HBM time; the products are 2 G (Dk + Dv) operations
-// a key.
+//
+// What bounds it: the live latent rows, read once for all G heads (a float32
+// row of deepseek's is 2.3 KB; 64 slots of ~330 live rows are ~49 MB, ~15 us
+// of HBM time), and close behind, the products: 2 G (Dk + Dv) operations a
+// key, in 3xTF32 (three m16n8k8 passes, two where q is bf16) on the tensor
+// cores.  So the design gives every SM an even share of the live rows and
+// keeps its loads in flight behind the products.  Three passes, each with a
+// grid fixed by the shapes, so a CUDA graph replays them with new lengths:
+// - mla_extent_kernel, a block a slot: the slot's live extent, its first to
+//   its last key that the bias leaves unmasked (bias > NEG_INF / 2);
+// - mla_decode_kernel, one or two blocks an SM: the slots laid end to end,
+//   each as kSlotRows rows for its fixed cost (its query rows' load, its
+//   write-out) and then its extent's rows, are cut into equal runs, one a
+//   block (a multiple of kTile rows), so a long slot spreads over many SMs
+//   and short slots share one.  A block walks its run
+//   kTile keys at a time through a ring of `stages` tiles in shared memory,
+//   filled `stages` - 1 tiles ahead of the products by bulk copies (TMA), a
+//   row a copy, each stage's bytes counted on its mbarrier (a float32 cache
+//   on 16 bytes; a bf16 one goes through registers).  A tile's bias is read
+//   one tile ahead of its rows; masked keys inside an extent are zeroed in
+//   shared memory, never read.  The G query rows (padded to GP = 16 MT) sit
+//   in shared memory in q's type, copied in as soon as the last tile of the
+//   slot before is done with them.  The logits (GP x kTile) = Q K^T run as
+//   MT row tiles of 16 x 16, each tile's depth split over KG warps; the
+//   online softmax takes a head a half-warp (lane = key); P V (GP x Dv)
+//   gives warp w columns 8 NC w .. of every head, its accumulator in mma
+//   fragments.  Both products run in 3xTF32 (hi x hi + hi x lo + lo x hi,
+//   each operand kept to about 2^-20 of itself; a bf16 operand is exact in
+//   TF32 and skips its lo pass).  When v is the first Dv columns of k's
+//   rows (the model's [c_kv ; k_rope] row, v = c_kv), the V rows are the K
+//   rows: each row is read once.  A slot whose extent lies inside the run
+//   is written out normalised; a run's first and last slot, when the cut
+//   splits them, leave a partial state (running max and sum per head, the
+//   unnormalised G x Dv output) in scratch.  At G <= 16 two blocks share an
+//   SM, so one's loads, barriers and softmax overlap the other's products;
+// - mla_combine_kernel, a block a (slot, head): merges a split slot's
+//   partial states in a fixed order; a slot with no live key gives 0.
+// No atomics, and every cut follows from the extents alone: the same inputs
+// give the same bits on every call and every replay.
 namespace mla {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;       // keys a step: one per lane in the softmax
-constexpr int kMaxSplits = 16;  // a cluster of 16: non-portable, opted in
+constexpr int kTile = 16;         // keys a tile: one a lane of a half-warp
+constexpr int kMaxStages = 4;     // tiles in the ring, at most
+constexpr int kSlotRows = 16;     // a slot's fixed cost, in rows of a run
+constexpr int kMaxG = 64;
 constexpr int kMaxDk = 576, kMaxDv = kWarps * 64;
 constexpr int kMaxRow = kMaxDk + 4;  // the widest shared-memory row
-constexpr int kPS = kTile + 4;       // a logits / p row (4 mod 32 words)
+constexpr int kPS = kTile + 4;       // a logits / p row (20 words)
 
-// warps that split one logits tile's depth: 8 / (2 MT), at least 1
+// warps that split one logits tile's depth: 8, 4, 2, 1 at MT = 1-4
 template <int MT>
-constexpr int kKG = kWarps / (2 * MT) > 0 ? kWarps / (2 * MT) : 1;
+constexpr int kKG = MT == 1 ? 8 : MT == 2 ? 4 : MT == 3 ? 2 : 1;
+
+// a tile's flags
+constexpr int kFirst = 1;  // the run's first tile of its slot
+constexpr int kLast = 2;   // the run's last tile of its slot
+constexpr int kWhole = 4;  // the run holds the slot's whole extent
 
 struct Args {
-  int B, G, S, Dk, Dv, keys_per_split, splits;
+  int B, G, S, Dk, Dv;
+  int blocks;  // runs: the decode pass's blocks
+  int stages;  // tiles in the ring, 2 to kMaxStages
   int vec;     // K and V rows may be read with 16-byte loads
   int q_vec;   // so may q's rows
   int v_in_k;  // v is k[..., :Dv]: the V rows are the K rows
-  int ks;      // shared-memory row of q and K, in floats: Dk rounded up to
-               // 8, 4 mod 32 (a fragment load free of bank conflicts)
+  int ks;      // shared-memory row of K, in floats: Dk rounded up to 8,
+               // 4 mod 32 (a fragment load free of bank conflicts)
+  int qs;      // shared-memory row of q, in q's elements: Dk rounded up to
+               // 8, 4 mod 32 words
   float scale;
   long long qb, qh, kb, kpos, vb, vpos, ob, oh, bias_b;
 };
+
+// The scratch (decode_attention.py:_mla_scratch_bytes): each slot's extent
+// (first key, rows), then two partial states a run (its first and its last
+// slot): the max and the sum per head, the unnormalised output per head.
+struct Scratch {
+  int* ext;
+  float *pm, *pl, *pacc;
+};
+
+__host__ __device__ inline Scratch carve(void* base, const Args& a) {
+  const long long parts = 2LL * a.blocks * a.G;
+  Scratch s;
+  s.ext = static_cast<int*>(base);
+  s.pm = reinterpret_cast<float*>(static_cast<char*>(base) +
+                                  (8LL * a.B + 15) / 16 * 16);
+  s.pl = s.pm + parts;
+  s.pacc = s.pl + parts;
+  return s;
+}
+
+// a slot's rows laid end to end: its fixed cost, then its extent (none
+// for a slot with no live key)
+__device__ __forceinline__ int slot_rows(int len) {
+  return len > 0 ? kSlotRows + len : 0;
+}
+
+// the rows of a run: an even share of the rows, rounded up to whole tiles
+__device__ __forceinline__ int run_rows(int total, int blocks) {
+  return ((total + blocks - 1) / blocks + kTile - 1) / kTile * kTile;
+}
+
+// Block-wide, over the slots laid end to end: returns the rows in all, and
+// writes to s_out the slot `want_slot` or, if that is negative, the slot
+// that holds this block's run's first row (blockIdx.x * run_rows), with the
+// slot's first row, its extent's first key and its extent's rows; s_out[0]
+// is -1 if no slot holds that row.  One load of the extents where B <=
+// kThreads, else a pass to count them and a pass to find the slot.
+__device__ int scan_rows(const int* ext, int B, int blocks, int want_slot,
+                         int* s_w, int* s_out) {
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  if (t == 0) s_out[0] = -1;
+  int first = 0, key = 0, len = 0;  // this thread's slot of the last chunk
+  auto found = [&](int i) {
+    s_out[0] = i;
+    s_out[1] = first;
+    s_out[2] = key;
+    s_out[3] = len;
+  };
+  auto pass = [&](int want_row) {
+    int run = 0;
+    for (int c0 = 0; c0 < B; c0 += kThreads) {
+      const int i = c0 + t;
+      key = i < B ? ext[2 * i] : 0;
+      len = i < B ? ext[2 * i + 1] : 0;
+      const int rows = slot_rows(len);
+      int x = rows;  // the warp's inclusive sum up to this lane
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+      if (lane == 31) s_w[w] = x;
+      __syncthreads();
+      int before = run, chunk = 0;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) {
+        if (ww < w) before += s_w[ww];
+        chunk += s_w[ww];
+      }
+      first = before + x - rows;
+      if (i < B && (i == want_slot ||
+                    (rows > 0 && first <= want_row && want_row < first + rows)))
+        found(i);
+      run += chunk;
+      __syncthreads();
+    }
+    return run;
+  };
+  const int total = pass(-1);
+  if (want_slot >= 0) return total;
+  const int r = blockIdx.x * run_rows(total, blocks);
+  if (B > kThreads) {
+    pass(r);
+  } else {
+    if (t < B && len > 0 && first <= r && r < first + slot_rows(len))
+      found(t);
+    __syncthreads();
+  }
+  return total;
+}
+
+__device__ __forceinline__ float half_max(float v) {  // over a half-warp
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+mla_extent_kernel(const float* __restrict__ bias, int* __restrict__ ext,
+                  const Args a) {
+  __shared__ int slo[kWarps], shi[kWarps];
+  const int b = blockIdx.x, t = threadIdx.x, w = t >> 5, lane = t & 31;
+  int lo = a.S, hi = -1;
+  if (bias == nullptr) {
+    lo = 0;
+    hi = a.S - 1;
+  } else {
+    const float* bp = bias + b * a.bias_b;
+    // 16-byte loads where the rows allow: a row in one or two loads a thread
+    const int n4 = a.S % 4 == 0 && a.bias_b % 4 == 0 &&
+                           (reinterpret_cast<uintptr_t>(bias) & 15) == 0
+                       ? a.S / 4 : 0;
+#pragma unroll 2
+    for (int u = t; u < n4; u += kThreads) {
+      const float4 x = reinterpret_cast<const float4*>(bp)[u];
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (xs[i] > kSkip) {
+          lo = min(lo, 4 * u + i);
+          hi = max(hi, 4 * u + i);
+        }
+    }
+    for (int key = 4 * n4 + t; key < a.S; key += kThreads)
+      if (bp[key] > kSkip) {
+        lo = min(lo, key);
+        hi = max(hi, key);
+      }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if (lane == 0) {
+    slo[w] = lo;
+    shi[w] = hi;
+  }
+  __syncthreads();
+  if (t == 0) {
+    for (int ww = 1; ww < kWarps; ++ww) {
+      lo = min(lo, slo[ww]);
+      hi = max(hi, shi[ww]);
+    }
+    ext[2 * b] = hi >= lo ? lo : 0;
+    ext[2 * b + 1] = hi >= lo ? hi - lo + 1 : 0;
+  }
+}
 
 // ``rows`` rows of D elements (row r at src + r * stride) into shared memory
 // (row r at dst + r * ds) as float32, zeros from D to Dpad; a row with bit r
@@ -480,231 +654,548 @@ __device__ __forceinline__ void rows_to_smem(float* dst, int ds, const T* src,
   }
 }
 
+// The ring's barriers and copies (Hopper's bulk copy engine, TMA): a copy
+// of a whole row from device to shared memory that reports its bytes to an
+// mbarrier; a consumer waits for the barrier's phase to flip.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                   tcore::smem_addr(bar))
+               : "memory");
+}
+
+// the one arrival of a phase, and the bytes the copies will bring
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          tcore::smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(tcore::smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// bytes (a multiple of 16, both ends on 16 bytes) from device memory into
+// shared memory, counted on bar; ordered after this thread's (and, after a
+// barrier, the block's) earlier accesses to shared memory
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(tcore::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(tcore::smem_addr(bar))
+      : "memory");
+}
+
+// q's G rows of Dk elements (row h at src + h * stride) into shared memory
+// in their own type (row h at dst + h * ds), element by element: the rows
+// that bulk copies cannot take
+template <typename T>
+__device__ __forceinline__ void q_rows(T* dst, int ds, const T* src,
+                                       long long stride, int G, int Dk,
+                                       int t) {
+  for (int e = t; e < G * Dk; e += kThreads) {
+    const int row = e / Dk;
+    dst[row * ds + e - row * Dk] = src[row * stride + e - row * Dk];
+  }
+}
+
 template <typename T>
 constexpr bool kExact = sizeof(T) == 2;  // bf16 values are TF32 values
 
+// x = hi + lo for 3xTF32: hi is x cut to TF32 (a mask of its 13 low
+// bits), lo the rest, exact in float32 and cut to TF32 in turn; so x is
+// kept to about 2^-20 of itself, at one integer operation a part where
+// rounding conversions would take two cvt.  EXACT: x is a TF32 value (a
+// bf16 one), lo is 0 and is not formed.
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  constexpr unsigned kMask = 0xffffe000u;
+  hi = __float_as_uint(x) & (EXACT ? ~0u : kMask);
+  if constexpr (!EXACT) lo = __float_as_uint(x - __uint_as_float(hi)) & kMask;
+}
+
+// A warp's logits over depth [kb, kb + kn) (a multiple of 8): acc[n] +=
+// sum_k Q[m0 + row][k] K[8 n + col][k] in mma fragments (row m0 + lane / 4
+// in acc[n][0..1], 8 rows on in [2..3], columns 8 n + 2 (lane % 4) and the
+// next), Q in q's type (row stride QS), K float32 rows (stride KS), in
+// 3xTF32, the small terms first; BX: every K value is exact in TF32.
+template <typename TQ, bool BX>
+__device__ __forceinline__ void mma_qk(float (&acc)[kTile / 8][4],
+                                       const TQ* qs, int QS, int m0,
+                                       const float* kt, int KS, int kb,
+                                       int kn) {
+  constexpr bool AX = kExact<TQ>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  const TQ* const ap = qs + (m0 + g) * QS + kb + tg;
+  const float* const bp = kt + g * KS + kb + tg;
+  for (int k0 = 0; k0 < kn; k0 += 8) {
+    unsigned ah[4], al[4];
+    split<AX>(lm::to_f(ap[k0]), ah[0], al[0]);
+    split<AX>(lm::to_f(ap[k0 + 8 * QS]), ah[1], al[1]);
+    split<AX>(lm::to_f(ap[k0 + 4]), ah[2], al[2]);
+    split<AX>(lm::to_f(ap[k0 + 8 * QS + 4]), ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n) {
+      const float* const b0 = bp + 8 * n * KS + k0;
+      unsigned bh[2], bl[2];
+      split<BX>(b0[0], bh[0], bl[0]);
+      split<BX>(b0[4], bh[1], bl[1]);
+      if (!AX) tcore::mma_tf32(acc[n], al, bh);
+      if (!BX) tcore::mma_tf32(acc[n], ah, bl);
+      tcore::mma_tf32(acc[n], ah, bh);
+    }
+  }
+}
+
+// A warp's P V over a tile's kTile keys: acc[n] += sum_k P[m0 + row][k]
+// V[k][n0 + 8 n + col] for n < nt (fragments as mma_qk's), P float32 rows
+// (stride kPS), V rows k-major (stride VS), in 3xTF32; BX: every V value is
+// exact in TF32.
+template <int NC, bool BX>
+__device__ __forceinline__ void mma_pv(float (&acc)[NC][4], const float* ps,
+                                       int m0, const float* vt, int VS,
+                                       int n0, int nt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  const float* const ap = ps + (m0 + g) * kPS + tg;
+  const float* const bp = vt + tg * VS + n0 + g;
+#pragma unroll
+  for (int k0 = 0; k0 < kTile; k0 += 8) {
+    unsigned ah[4], al[4];
+    split<false>(ap[k0], ah[0], al[0]);
+    split<false>(ap[k0 + 8 * kPS], ah[1], al[1]);
+    split<false>(ap[k0 + 4], ah[2], al[2]);
+    split<false>(ap[k0 + 8 * kPS + 4], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      if (n < nt) {
+        const float* const b0 = bp + k0 * VS + 8 * n;
+        unsigned bh[2], bl[2];
+        split<BX>(b0[0], bh[0], bl[0]);
+        split<BX>(b0[4 * VS], bh[1], bl[1]);
+        tcore::mma_tf32(acc[n], al, bh);
+        if (!BX) tcore::mma_tf32(acc[n], ah, bl);
+        tcore::mma_tf32(acc[n], ah, bh);
+      }
+    }
+  }
+}
+
+// floats before the ring in the decode pass's shared memory: q's rows
+__host__ __device__ inline int q_floats(int GP, int qs, int q_size) {
+  return (GP * qs * q_size + 15) / 16 * 4;
+}
+
 template <typename TQ, typename TKV, int MT, int NC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
 mla_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                   const TKV* __restrict__ v, const float* __restrict__ bias,
-                  TQ* __restrict__ o, const Args a) {
+                  TQ* __restrict__ o, void* __restrict__ scratch,
+                  const Args a) {
   constexpr int GP = 16 * MT;        // heads, padded to the mma's rows
-  constexpr int HPW = GP / kWarps;   // heads a warp in the softmax
   constexpr int KG = kKG<MT>;        // warps a logits tile's depth takes
   extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
-  __shared__ float salpha[GP], bm[GP], bl[GP];
+  __shared__ float salpha[GP], sm[GP], sl[GP];
+  __shared__ float sbias[kMaxStages][kTile];
+  __shared__ int sdesc[kMaxStages][4];  // slot, live bits, flags, partial
+  __shared__ int s_w[kWarps], s_out[4];
+  __shared__ alignas(8) uint64_t mbar[kMaxStages + 1];  // the ring's, q's
 
   const int t = threadIdx.x, w = t >> 5, lane = t & 31;
-  const int g = lane >> 2, tg = lane & 3;   // an mma fragment's row, column
-  const int b = blockIdx.x;
-  const int KS = a.ks, Dk8 = (a.Dk + 7) & ~7, Dv = a.Dv;
-  const bool vec = a.vec != 0, v_in_k = a.v_in_k != 0;
+  const int g = lane >> 2, tg = lane & 3;     // an mma fragment's row, column
+  const int half = lane >> 4, j = lane & 15;  // the softmax's head, key
+  const int G = a.G, Dk = a.Dk, Dv = a.Dv, KS = a.ks, QS = a.qs;
+  const int Dk8 = (Dk + 7) & ~7;
+  const bool v_in_k = a.v_in_k != 0;
   const int VS = v_in_k ? KS : Dv + 8;                 // 8 mod 32 words
-  float* const qs = smem;                              // GP x KS
-  float* const kt = qs + GP * KS;                      // kTile x KS
-  float* const vt = kt + kTile * KS;                   // kTile x VS
-  float* const ps = vt + (v_in_k ? 0 : kTile * VS);    // KG x GP x kPS
-  const float* const vrows = v_in_k ? kt : vt;
+  const int stage = kTile * KS + (v_in_k ? 0 : kTile * VS);
+  TQ* const qs = reinterpret_cast<TQ*>(smem4);         // GP x QS
+  float* const ring = reinterpret_cast<float*>(smem4) +
+                      q_floats(GP, QS, sizeof(TQ));    // stages x stage
+  float* const ps = ring + a.stages * stage;           // KG x GP x kPS
+  const Scratch sc = carve(scratch, a);
 
-  rows_to_smem(qs, KS, q + b * a.qb, a.qh, GP, a.Dk, Dk8,
-               a.G >= 64 ? ~0ull : (1ull << a.G) - 1, a.q_vec != 0, t);
-  float m[HPW], l[HPW];             // heads w + 8 j, in every lane
-#pragma unroll
-  for (int j = 0; j < HPW; ++j) {
-    m[j] = lm::kNegInf;
-    l[j] = 0.f;
+  // this block's run: rows [r0, r1) of the slots laid end to end
+  const int total = scan_rows(sc.ext, a.B, a.blocks, -1, s_w, s_out);
+  const int per = run_rows(total, a.blocks);
+  const int r0 = blockIdx.x * per;
+  if (r0 >= total) return;
+  const int r1 = min(total, r0 + per);
+  // zeros where no copy writes: q's pad rows and columns, K's columns
+  // Dk .. Dk8
+  for (int e = t; e < GP * QS; e += kThreads) qs[e] = lm::from_f<TQ>(0.f);
+  for (int e = t; e < a.stages * kTile * (Dk8 - Dk); e += kThreads) {
+    const int row = e / (Dk8 - Dk);
+    ring[(row / kTile) * stage + (row % kTile) * KS + Dk + e % (Dk8 - Dk)] =
+        0.f;
   }
+  if (t == 0) {
+    for (int i = 0; i <= kMaxStages; ++i) mbar_init(&mbar[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // float32 rows on 16 bytes come by bulk copies; others through registers
+  const bool tma = sizeof(TKV) == 4 && a.vec != 0;
+
+  // the feed, the same in every thread: the next tile to copy starts at row
+  // fr, inside slot fb, whose rows start at fbase (its extent kSlotRows
+  // later, at key ffirst)
+  int fb = s_out[0], fbase = s_out[1], ffirst = s_out[2], flen = s_out[3];
+  int nfirst = 0, nlen = 0;  // slot fb + 1's extent, read ahead
+  if (fb + 1 < a.B) {
+    nfirst = sc.ext[2 * fb + 2];
+    nlen = sc.ext[2 * fb + 3];
+  }
+  int fr = max(r0, fbase + kSlotRows);
+  // past slot fb's extent: on to the next slot with live rows
+  auto settle = [&]() {
+    while (fr < r1 && fr >= fbase + slot_rows(flen)) {
+      fbase += slot_rows(flen);
+      ++fb;
+      ffirst = nfirst;
+      flen = nlen;
+      if (fb + 1 < a.B) {
+        nfirst = sc.ext[2 * fb + 2];
+        nlen = sc.ext[2 * fb + 3];
+      }
+      fr = max(fr, fbase + (flen > 0 ? kSlotRows : 0));
+    }
+  };
+  // the bias of lane j's key in the next tile (0 past the tile)
+  auto tile_bias = [&]() {
+    const int n = min(kTile, min(r1, fbase + slot_rows(flen)) - fr);
+    return j < n && bias != nullptr
+               ? bias[fb * a.bias_b + ffirst + (fr - fbase - kSlotRows) + j]
+               : 0.f;
+  };
+  settle();
+  float bnext = fr < r1 ? tile_bias() : 0.f;
+  int issued = 0;
+  // the next tile into ring stage st; then on to the tile after it
+  auto issue = [&](int st) {
+    const int end = min(r1, fbase + slot_rows(flen));  // the run's rows of fb
+    const int n = min(kTile, end - fr);
+    const int key0 = ffirst + (fr - fbase - kSlotRows);
+    const unsigned live =
+        __ballot_sync(0xffffffffu, j < n && bnext > kSkip) & 0xffffu;
+    if (t < kTile) sbias[st][t] = bnext;
+    if (t == 0) {
+      sdesc[st][0] = fb;
+      sdesc[st][1] = (int)live;
+      sdesc[st][2] = (fr == max(r0, fbase + kSlotRows) ? kFirst : 0) |
+                     (fr + n == end ? kLast : 0) |
+                     (fbase + kSlotRows >= r0 &&
+                              fbase + slot_rows(flen) <= r1 ? kWhole : 0);
+      sdesc[st][3] = 2 * blockIdx.x + (fbase <= r0 ? 0 : 1);
+    }
+    float* const kt = ring + st * stage;
+    float* const vt = kt + kTile * KS;  // V rows of their own
+    const TKV* const kp = k + fb * a.kb + key0 * a.kpos;
+    const TKV* const vp = v + fb * a.vb + key0 * a.vpos;
+    if (tma) {
+      // zeros in the rows the copies leave out: p = 0 must not meet a NaN
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int row = w; row < kTile; row += kWarps) {
+        if ((live >> row) & 1u) continue;
+        for (int c4 = 4 * lane; c4 < Dk; c4 += 128)
+          *reinterpret_cast<float4*>(kt + row * KS + c4) = z;
+        for (int c4 = 4 * lane; !v_in_k && c4 < Dv; c4 += 128)
+          *reinterpret_cast<float4*>(vt + row * VS + c4) = z;
+      }
+      if (w == 0) {  // one copy a live row, a lane each
+        if (lane == 0)
+          mbar_expect(&mbar[st],
+                      __popc(live) * 4 * (Dk + (v_in_k ? 0 : Dv)));
+        __syncwarp();
+        if ((live >> lane) & 1u) {
+          bulk_copy(kt + lane * KS, kp + lane * a.kpos, 4 * Dk, &mbar[st]);
+          if (!v_in_k)
+            bulk_copy(vt + lane * VS, vp + lane * a.vpos, 4 * Dv, &mbar[st]);
+        }
+      }
+    } else {
+      rows_to_smem(kt, KS, kp, a.kpos, kTile, Dk, Dk8, live, a.vec != 0, t);
+      if (!v_in_k)
+        rows_to_smem(vt, VS, vp, a.vpos, kTile, Dv, Dv, live, a.vec != 0, t);
+      if (t == 0) mbar_expect(&mbar[st], 0);
+    }
+    ++issued;
+    fr += n;
+    settle();
+    if (fr < r1) bnext = tile_bias();
+  };
+
+  float m[MT], l[MT];  // heads w + kWarps (2 i + half), in every lane
+  float acc[MT][NC][4];
   // P V: warp w's columns 8 (NC w + n) of the heads 16 mt + g (+ 8)
   const int n0 = 8 * NC * w;
   const int nt = n0 < Dv ? min(NC, (Dv - n0) / 8) : 0;
-  float acc[MT][NC][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
 
-  const TKV* kp = k + b * a.kb;
-  const TKV* vp = v + b * a.vb;
-  const float* bp = bias != nullptr ? bias + b * a.bias_b : nullptr;
-  const int k_begin = blockIdx.y * a.keys_per_split;
-  const int k_end = min(a.S, k_begin + a.keys_per_split);
+  // a slot's query rows by bulk copies (rows on 16 bytes), a lane a row of
+  // warp 0; done with the last tile's logits, the buffer is free
+  auto issue_q = [&](int slot) {
+    if (lane == 0) mbar_expect(&mbar[kMaxStages], G * Dk * sizeof(TQ));
+    __syncwarp();
+    for (int h = lane; h < G; h += 32)
+      bulk_copy(qs + h * QS, q + slot * a.qb + h * a.qh, Dk * sizeof(TQ),
+                &mbar[kMaxStages]);
+  };
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
-    // this lane's key: the bias first, a masked key's row is never loaded
-    const int key = k0 + lane;
-    const float bv = key < k_end && bp != nullptr ? bp[key] : 0.f;
-    const bool on = key < k_end && bv > kSkip;
-    const unsigned live = __ballot_sync(0xffffffffu, on);  // the same in
-    // every warp; the barrier also ends the last tile's reads of kt, vt, ps
-    if (!__syncthreads_or(on)) continue;
-    // masked rows are zeros: p = 0 must not meet a NaN
-    rows_to_smem(kt, KS, kp + (long long)k0 * a.kpos, a.kpos, kTile, a.Dk,
-                 Dk8, live, vec, t);
-    if (!v_in_k)
-      rows_to_smem(vt, VS, vp + (long long)k0 * a.vpos, a.vpos, kTile, Dv,
-                   Dv, live, vec, t);
-    __syncthreads();
-
-    // logits: tile w % 2 MT (heads 16 (tile / 2) .., keys 16 (tile % 2)
-    // ..) over depth slice w / 2 MT of KG, into partial plane w / 2 MT
-    if (w < 2 * MT * KG) {
-      const int tile = w % (2 * MT), kg = w / (2 * MT);
-      const int m0 = 16 * (tile >> 1), c0 = 16 * (tile & 1);
-      const int per = 8 * ((Dk8 / 8 + KG - 1) / KG);
-      const int kb = kg * per, kn = min(Dk8 - kb, per);
-      float s[2][4];
+  int nq = 0;  // query rows' loads waited for
+  // the ring's first stages - 1 tiles (c < 0), then one ahead of each tile
+  for (int c = 1 - a.stages; c < issued; ++c) {
+    if (c >= 0) {
+      mbar_wait(&mbar[c % a.stages], (c / a.stages) & 1);
+      __syncthreads();  // tile c is in; every thread is done with tile c - 1
+    }
+    if (fr < r1) issue((c + a.stages - 1) % a.stages);
+    if (c < 0) {
+      if (c == -1 && w == 0 && a.q_vec && issued > 0) issue_q(sdesc[0][0]);
+      continue;
+    }
+    const int st = c % a.stages;
+    const int slot = sdesc[st][0], bits = sdesc[st][2];
+    const unsigned live = (unsigned)sdesc[st][1];
+    const float* const kt = ring + st * stage;
+    const float* const vt = v_in_k ? kt : kt + kTile * KS;
+    if (bits & kFirst) {  // a new slot: its query rows, a fresh state
+      if (a.q_vec) mbar_wait(&mbar[kMaxStages], nq++ & 1);
+      else q_rows(qs, QS, q + slot * a.qb, a.qh, G, Dk, t);
 #pragma unroll
-      for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      if (kn > 0)
-        tcore::warp_mma<2, kExact<TQ>, kExact<TKV>, false, false>(
-            s, qs + kb, KS, m0, kt + kb, KS, c0, 2, kn);
+      for (int i = 0; i < MT; ++i) {
+        m[i] = lm::kNegInf;
+        l[i] = 0.f;
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        float* r0 = ps + kg * GP * kPS + (m0 + g) * kPS + c0 + 8 * n + 2 * tg;
-        r0[0] = s[n][0];
-        r0[1] = s[n][1];
-        r0[8 * kPS] = s[n][2];
-        r0[8 * kPS + 1] = s[n][3];
+        for (int n = 0; n < NC; ++n)
+          acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
       }
+      if (!a.q_vec) __syncthreads();
     }
-    __syncthreads();
-    // each head's online softmax across its warp's lanes, p in place
+    if (live != 0) {
+      // logits: tile w % MT (heads 16 (w % MT) ..) over depth slice w / MT
+      // of KG, into partial plane w / MT
+      if (w < MT * KG) {
+        const int mt = w % MT, kg = w / MT;
+        const int per_k = 8 * ((Dk8 / 8 + KG - 1) / KG);
+        const int kb = kg * per_k, kn = min(Dk8 - kb, per_k);
+        float s[kTile / 8][4] = {};
+        if (kn > 0)
+          mma_qk<TQ, kExact<TKV>>(s, qs, QS, 16 * mt, kt, KS, kb, kn);
 #pragma unroll
-    for (int j = 0; j < HPW; ++j) {
-      const int h = w + kWarps * j;
-      float raw = ps[h * kPS + lane];
-#pragma unroll
-      for (int kg = 1; kg < KG; ++kg) raw += ps[kg * GP * kPS + h * kPS + lane];
-      const float sv = on ? raw * a.scale + bv : -INFINITY;
-      const float mn = fmaxf(m[j], lm::warp_max(sv));
-      const bool alive = mn > kSkip;
-      const float p = alive ? expf(sv - mn) : 0.f;
-      const float alpha = expf(m[j] - mn);
-      l[j] = alpha * l[j] + lm::warp_sum(p);
-      m[j] = mn;
-      ps[h * kPS + lane] = p;
-      if (lane == 0) salpha[h] = alpha;
-    }
-    __syncthreads();
-
-    // P V into warp w's columns of every head
-    if (nt > 0) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float a0 = salpha[16 * mt + g], a1 = salpha[16 * mt + g + 8];
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          acc[mt][n][0] *= a0;
-          acc[mt][n][1] *= a0;
-          acc[mt][n][2] *= a1;
-          acc[mt][n][3] *= a1;
+        for (int n = 0; n < kTile / 8; ++n) {
+          float* r0p =
+              ps + kg * GP * kPS + (16 * mt + g) * kPS + 8 * n + 2 * tg;
+          r0p[0] = s[n][0];
+          r0p[1] = s[n][1];
+          r0p[8 * kPS] = s[n][2];
+          r0p[8 * kPS + 1] = s[n][3];
         }
-        tcore::warp_mma<NC, false, kExact<TKV>, false, true>(
-            acc[mt], ps, kPS, 16 * mt, vrows, VS, n0, nt, kTile);
+      }
+      __syncthreads();
+      // each head's online softmax across a half-warp's lanes, p in place
+      const float bv = sbias[st][j];
+      const bool on = (live >> j) & 1u;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int h = w + kWarps * (2 * i + half);
+        float raw = ps[h * kPS + j];
+#pragma unroll
+        for (int kg = 1; kg < KG; ++kg) raw += ps[kg * GP * kPS + h * kPS + j];
+        const float sv = on ? raw * a.scale + bv : -INFINITY;
+        const float mn = fmaxf(m[i], half_max(sv));
+        const bool alive = mn > kSkip;
+        const float p = alive ? expf(sv - mn) : 0.f;
+        const float alpha = expf(m[i] - mn);
+        l[i] = alpha * l[i] + half_sum(p);
+        m[i] = mn;
+        ps[h * kPS + j] = p;
+        if (j == 0) salpha[h] = alpha;
+      }
+      __syncthreads();
+      // P V into warp w's columns of every head
+      if (nt > 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float a0 = salpha[16 * mt + g], a1 = salpha[16 * mt + g + 8];
+#pragma unroll
+          for (int n = 0; n < NC; ++n) {
+            acc[mt][n][0] *= a0;
+            acc[mt][n][1] *= a0;
+            acc[mt][n][2] *= a1;
+            acc[mt][n][3] *= a1;
+          }
+          mma_pv<NC, kExact<TKV>>(acc[mt], ps, 16 * mt, vt, VS, n0, nt);
+        }
+      }
+    }
+    if (w == 0 && a.q_vec) {  // the next tile's slot's query rows, ahead
+      __syncwarp();
+      const int nx = (c + 1) % a.stages;
+      if (c + 1 < issued && (sdesc[nx][2] & kFirst)) issue_q(sdesc[nx][0]);
+    }
+    if (bits & kLast) {  // the run is done with this slot: out, or a partial
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int h = w + kWarps * (2 * i + half);
+          sm[h] = m[i];
+          sl[h] = l[i];
+        }
+      }
+      __syncthreads();
+      const bool whole = (bits & kWhole) != 0;
+      const int part = sdesc[st][3];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int h = 16 * mt + g + 8 * r;
+          if (h >= G) continue;
+          const float tot = fmaxf(sl[h], 1e-30f);
+#pragma unroll
+          for (int n = 0; n < NC; ++n) {
+            const int d = n0 + 8 * n + 2 * tg;
+            const float x0 = acc[mt][n][2 * r], x1 = acc[mt][n][2 * r + 1];
+            if (n >= nt) {
+            } else if (whole) {
+              TQ* op = o + slot * a.ob + h * a.oh + d;
+              op[0] = lm::from_f<TQ>(x0 / tot);
+              op[1] = lm::from_f<TQ>(x1 / tot);
+            } else {
+              *reinterpret_cast<float2*>(
+                  sc.pacc + ((long long)part * G + h) * Dv + d) =
+                  make_float2(x0, x1);
+            }
+          }
+        }
+      if (!whole && t < G) {
+        sc.pm[part * G + t] = sm[t];
+        sc.pl[part * G + t] = sl[t];
       }
     }
   }
-
-  // this split's state, for the cluster: m and l per head, the accumulator
-  // over the tiles' shared memory
-  __syncthreads();
-  float* const bacc = smem;                            // GP x Dv
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < HPW; ++j) {
-      bm[w + kWarps * j] = m[j];
-      bl[w + kWarps * j] = l[j];
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-      if (n < nt) {
-        float* r0 = bacc + (16 * mt + g) * Dv + n0 + 8 * n + 2 * tg;
-        r0[0] = acc[mt][n][0];
-        r0[1] = acc[mt][n][1];
-        r0[8 * Dv] = acc[mt][n][2];
-        r0[8 * Dv + 1] = acc[mt][n][3];
-      }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  // block r merges heads r, r + splits, ... from every split, in order
-  const int splits = a.splits;
-  for (int h = (int)cluster.block_rank(); h < a.G; h += splits) {
-    float ms[kMaxSplits], f[kMaxSplits];
-    float mx = lm::kNegInf;
-#pragma unroll
-    for (int sp = 0; sp < kMaxSplits; ++sp) {
-      ms[sp] = sp < splits ? *cluster.map_shared_rank(&bm[h], sp)
-                           : lm::kNegInf;
-      mx = fmaxf(mx, ms[sp]);
-    }
-    float tot = 0.f;
-#pragma unroll
-    for (int sp = 0; sp < kMaxSplits; ++sp) {
-      f[sp] = expf(ms[sp] - mx);
-      if (sp < splits) tot += *cluster.map_shared_rank(&bl[h], sp) * f[sp];
-    }
-    tot = fmaxf(tot, 1e-30f);
-    for (int d = t; d < Dv; d += kThreads) {
-      float as = 0.f;
-#pragma unroll
-      for (int sp = 0; sp < kMaxSplits; ++sp)
-        if (sp < splits)
-          as += *cluster.map_shared_rank(&bacc[h * Dv + d], sp) * f[sp];
-      o[b * a.ob + (long long)h * a.oh + d] = lm::from_f<TQ>(as / tot);
-    }
-  }
-  cluster.sync();  // the other blocks' shared memory lives until read
 }
 
-// floats of dynamic shared memory: the tiles' and the merge's, overlaid
-inline int smem_floats(const Args& a, int GP, int KG) {
-  const int tiles = GP * a.ks + kTile * a.ks
-                    + (a.v_in_k ? 0 : kTile * (a.Dv + 8)) + KG * GP * kPS;
-  const int merge = GP * a.Dv;
-  return tiles > merge ? tiles : merge;
+// A split slot's partial states of one head, merged: the runs' weights
+// exp(m_i - max) by a warp, then each group of Dv / 4 threads sums every
+// groups-th run's output, 4 columns a thread, and the groups' sums are
+// added in group order.  Dynamic shared memory: a weight a run, then a
+// float4 a thread.
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads)
+mla_combine_kernel(TQ* __restrict__ o, void* __restrict__ scratch,
+                   const Args a) {
+  extern __shared__ float4 cmem[];
+  __shared__ int s_w[kWarps], s_out[4];
+  __shared__ float stot;
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int b = blockIdx.x, h = blockIdx.y, G = a.G, Dv = a.Dv;
+  const Scratch sc = carve(scratch, a);
+  const int total = scan_rows(sc.ext, a.B, a.blocks, b, s_w, s_out);
+  const int base = s_out[1], len = s_out[3];
+  TQ* const oh = o + b * a.ob + h * a.oh;
+  if (len == 0) {  // every key masked: 0, as in the TPU kernel
+    for (int d = t; d < Dv; d += kThreads) oh[d] = lm::from_f<TQ>(0.f);
+    return;
+  }
+  // the runs that hold the slot's extent: rows base + kSlotRows ..
+  const int per = run_rows(total, a.blocks), first = base + kSlotRows;
+  const int i0 = first / per, np = (first + len - 1) / per - i0 + 1;
+  if (np == 1) return;  // one run held the slot and wrote it out
+  // run i0 + i's partial state of the head: the run's first slot's, or
+  // (run i0 only) its last's
+  auto at = [&](int i) {
+    return (2LL * (i0 + i) + (base <= (i0 + i) * per ? 0 : 1)) * G + h;
+  };
+  float* const wts = reinterpret_cast<float*>(cmem);            // np
+  float4* const red = cmem + (a.blocks + 3) / 4;                // kThreads
+  if (w == 0) {
+    float mx = lm::kNegInf;
+    for (int i = lane; i < np; i += 32) mx = fmaxf(mx, sc.pm[at(i)]);
+    mx = lm::warp_max(mx);
+    float tot = 0.f;
+    for (int i = lane; i < np; i += 32) {
+      const float f = expf(sc.pm[at(i)] - mx);
+      wts[i] = f;
+      tot += sc.pl[at(i)] * f;
+    }
+    tot = lm::warp_sum(tot);
+    if (lane == 0) stot = fmaxf(tot, 1e-30f);
+  }
+  __syncthreads();
+  const int nc = Dv / 4, groups = kThreads / nc;
+  const int grp = t / nc, c = 4 * (t - grp * nc);
+  float4 as = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (grp < groups) {
+#pragma unroll 4
+    for (int i = grp; i < np; i += groups) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(sc.pacc + at(i) * Dv + c);
+      as.x += x.x * wts[i];
+      as.y += x.y * wts[i];
+      as.z += x.z * wts[i];
+      as.w += x.w * wts[i];
+    }
+  }
+  red[t] = as;
+  __syncthreads();
+  if (grp == 0) {
+    for (int g2 = 1; g2 < groups; ++g2) {
+      const float4 x = red[g2 * nc + t];
+      as.x += x.x;
+      as.y += x.y;
+      as.z += x.z;
+      as.w += x.w;
+    }
+    const float tot = stot;
+    oh[c] = lm::from_f<TQ>(as.x / tot);
+    oh[c + 1] = lm::from_f<TQ>(as.y / tot);
+    oh[c + 2] = lm::from_f<TQ>(as.z / tot);
+    oh[c + 3] = lm::from_f<TQ>(as.w / tot);
+  }
+}
+
+// bytes of the decode pass's dynamic shared memory: the query rows, the
+// ring, the logits' partial planes
+inline int smem_bytes(const Args& a, int GP, int KG, int q_size) {
+  return 4 * (q_floats(GP, a.qs, q_size) +
+              a.stages * kTile * (a.ks + (a.v_in_k ? 0 : a.Dv + 8)) +
+              KG * GP * kPS);
 }
 
 template <typename TQ, typename TKV, int MT, int NC>
 int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* o, const Args& a, cudaStream_t stream) {
+           void* o, void* scratch, const Args& a, cudaStream_t stream) {
   static int opted = 0;  // the dynamic shared memory opted into so far
-  static bool wide_ok = false;
   auto kernel = mla_decode_kernel<TQ, TKV, MT, NC>;
-  constexpr int GP = 16 * MT;
-  const int bytes = 4 * smem_floats(a, GP, kKG<MT>);
-  int e = 0;
+  const int bytes = smem_bytes(a, 16 * MT, kKG<MT>, (int)sizeof(TQ));
   if (bytes > opted && bytes > 48 * 1024) {
-    e = (int)cudaFuncSetAttribute(
+    const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e == 0) opted = bytes;
+    if (e != cudaSuccess) return (int)e;
+    opted = bytes;
   }
-  if (e == 0 && !wide_ok) {
-    e = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    wide_ok = e == 0;
-  }
-  if (e != 0) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.B, a.splits);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = a.splits;  // a slot's splits: one cluster
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t r = cudaLaunchKernelEx(
-      &cfg, kernel, (const TQ*)q, (const TKV*)k, (const TKV*)v, bias, (TQ*)o,
-      a);
-  if (r != cudaSuccess) return (int)r;
+  mla_extent_kernel<<<a.B, kThreads, 0, stream>>>(bias, carve(scratch, a).ext,
+                                                  a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<a.blocks, kThreads, bytes, stream>>>(
+      (const TQ*)q, (const TKV*)k, (const TKV*)v, bias, (TQ*)o, scratch, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  mla_combine_kernel<TQ><<<dim3(a.B, a.G), kThreads,
+                            16 * ((a.blocks + 3) / 4 + kThreads), stream>>>(
+      (TQ*)o, scratch, a);
   return (int)cudaGetLastError();
 }
 
@@ -712,22 +1203,26 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 // accumulators would spill)
 template <typename TQ, typename TKV, int MT>
 int launch_v(const void* q, const void* k, const void* v, const float* bias,
-             void* o, const Args& a, cudaStream_t stream) {
+             void* o, void* scratch, const Args& a, cudaStream_t stream) {
   if (a.Dv <= kWarps * 32)
-    return launch<TQ, TKV, MT, 4>(q, k, v, bias, o, a, stream);
+    return launch<TQ, TKV, MT, 4>(q, k, v, bias, o, scratch, a, stream);
   if constexpr (MT <= 2)
-    return launch<TQ, TKV, MT, 8>(q, k, v, bias, o, a, stream);
+    return launch<TQ, TKV, MT, 8>(q, k, v, bias, o, scratch, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // 16-row tiles of heads: the fewest of 1-4 (GP = 16, 32, 48, 64)
 template <typename TQ, typename TKV>
 int launch_g(const void* q, const void* k, const void* v, const float* bias,
-             void* o, const Args& a, cudaStream_t stream) {
-  if (a.G <= 16) return launch_v<TQ, TKV, 1>(q, k, v, bias, o, a, stream);
-  if (a.G <= 32) return launch_v<TQ, TKV, 2>(q, k, v, bias, o, a, stream);
-  if (a.G <= 48) return launch_v<TQ, TKV, 3>(q, k, v, bias, o, a, stream);
-  if (a.G <= 64) return launch_v<TQ, TKV, 4>(q, k, v, bias, o, a, stream);
+             void* o, void* scratch, const Args& a, cudaStream_t stream) {
+  if (a.G <= 16)
+    return launch_v<TQ, TKV, 1>(q, k, v, bias, o, scratch, a, stream);
+  if (a.G <= 32)
+    return launch_v<TQ, TKV, 2>(q, k, v, bias, o, scratch, a, stream);
+  if (a.G <= 48)
+    return launch_v<TQ, TKV, 3>(q, k, v, bias, o, scratch, a, stream);
+  if (a.G <= kMaxG)
+    return launch_v<TQ, TKV, 4>(q, k, v, bias, o, scratch, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -771,25 +1266,30 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
 }
 
 // The latent instance.  dims: B, G (= Hq; Hkv is 1), S, Dk, Dv (a multiple
-// of 8), keys_per_split (a multiple of 32), splits (at most 16), vec,
-// v_in_k, the shared-memory row of q and K in floats (Dk rounded up to 8,
-// 4 mod 32), q_vec.  strides: qb, qh, kb, kpos, vb, vpos, ob, oh, bias_b.
+// of 8), blocks (the runs of the decode pass), stages (2 to 4), vec, v_in_k,
+// the shared-memory row of K in floats (Dk rounded up to 8, 4 mod 32), q_vec,
+// the shared-memory row of q in its elements (4 mod 32 words).  strides: qb,
+// qh, kb, kpos, vb, vpos, ob, oh, bias_b.  scratch: decode_attention.py's
+// _mla_scratch_bytes of device memory.
 extern "C" int decode_attention_mla_launch(const void* q, const void* k,
                                            const void* v, const void* bias,
-                                           void* o, int q_dtype,
-                                           int kv_dtype, const int* dims,
+                                           void* o, void* scratch,
+                                           int q_dtype, int kv_dtype,
+                                           const int* dims,
                                            const long long* strides,
                                            float scale, void* stream) {
   mla::Args a;
   a.B = dims[0]; a.G = dims[1]; a.S = dims[2]; a.Dk = dims[3];
-  a.Dv = dims[4]; a.keys_per_split = dims[5]; a.splits = dims[6];
+  a.Dv = dims[4]; a.blocks = dims[5]; a.stages = dims[6];
   a.vec = dims[7]; a.v_in_k = dims[8]; a.ks = dims[9]; a.q_vec = dims[10];
+  a.qs = dims[11];
   a.scale = scale;
-  if (a.splits < 1 || a.splits > mla::kMaxSplits ||
-      a.keys_per_split % mla::kTile != 0 || a.keys_per_split < 1 ||
-      (long long)a.splits * a.keys_per_split < a.S ||
+  const int q_size = q_dtype == lm::kF32 ? 4 : 2;
+  if (a.B < 1 || a.blocks < 1 || a.stages < 2 ||
+      a.stages > mla::kMaxStages || a.G < 1 || a.G > mla::kMaxG ||
       a.Dk > mla::kMaxDk || a.Dv > mla::kMaxDv || a.Dv % 8 != 0 ||
       a.ks % 32 != 4 || a.ks < a.Dk || a.ks > mla::kMaxRow ||
+      a.qs < a.Dk || a.qs * q_size % 128 != 16 ||
       (a.v_in_k && a.Dv > a.Dk))
     return (int)cudaErrorInvalidValue;
   long long* s[] = {&a.qb, &a.qh, &a.kb, &a.kpos, &a.vb,
@@ -799,13 +1299,13 @@ extern "C" int decode_attention_mla_launch(const void* q, const void* k,
   const cudaStream_t st = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
   if (q_dtype == lm::kF32 && kv_dtype == lm::kF32)
-    return mla::launch_g<float, float>(q, k, v, bp, o, a, st);
+    return mla::launch_g<float, float>(q, k, v, bp, o, scratch, a, st);
   if (q_dtype == lm::kBF16 && kv_dtype == lm::kBF16)
-    return mla::launch_g<bf16, bf16>(q, k, v, bp, o, a, st);
+    return mla::launch_g<bf16, bf16>(q, k, v, bp, o, scratch, a, st);
   if (q_dtype == lm::kBF16 && kv_dtype == lm::kF32)
-    return mla::launch_g<bf16, float>(q, k, v, bp, o, a, st);
+    return mla::launch_g<bf16, float>(q, k, v, bp, o, scratch, a, st);
   if (q_dtype == lm::kF32 && kv_dtype == lm::kBF16)
-    return mla::launch_g<float, bf16>(q, k, v, bp, o, a, st);
+    return mla::launch_g<float, bf16>(q, k, v, bp, o, scratch, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

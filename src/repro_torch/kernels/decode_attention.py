@@ -27,21 +27,25 @@ MLA's absorbed decode is MQA over the latent cache: one KV head
 rope_head_dim and values of Dv = kv_lora_rank (minicpm3-4b: G = 40,
 Dk = 288, Dv = 256; deepseek-v2-lite: G = 16, Dk = 576, Dv = 512).
 Those shapes take the kernel's latent instance (:func:`route` gives
-``"mla"``): a block per (slot, split) holds the G query rows in shared
-memory, loads each live key row once for all of them, runs the logits
-and P V on the tensor cores in 3xTF32 (about float32's accuracy) with
-the (G, Dv) accumulator spread over its warps (32 columns a warp, 64
-past Dv 256, which G <= 32 takes) and, at G <= 32, each logits tile's
-depth split over several warps;
-the splits of a slot (at most 16, a non-portable cluster size) merge in
-a cluster as above.  When v is the first Dv columns of k's rows (the
-model's latent cache holds [c_kv ; k_rope] in one row, and v is c_kv),
-the rows are read once for both.  The limits:
-the split instance takes Dk, Dv <= :data:`MAX_HEAD_DIM` and G <=
-:data:`MAX_GROUP`; with Hkv = 1 the latent instance takes G <=
-:data:`MLA_MAX_GROUP`, Dk <= :data:`MLA_MAX_DK` and Dv <=
-:data:`MLA_MAX_DV`, a multiple of 8, where its shared memory
-(:func:`mla_smem_bytes`) fits.  Other shapes raise.
+``"mla"``), three passes on the device.  The first finds each slot's
+live extent in its bias row.  The second lays the slots end to end
+and gives each of :func:`mla_plan`'s blocks (one or two an SM) an
+equal run of rows, so a long slot spreads over many SMs and short
+ones share one; a block streams its rows 16 keys a tile through a
+ring of tiles in shared memory filled by bulk copies (TMA) ahead of
+the tensor cores, holds the G query rows of the slot it is in, and
+runs the logits and P V in 3xTF32 (each operand kept to about 2^-20
+of itself).  A slot inside one run is written out there; a slot that
+the cut splits leaves a partial state in scratch, and the third pass
+merges those in run order, so the output is the same bits from run to
+run and a CUDA graph replays the passes with new lengths.  When v is
+the first Dv columns of k's rows (the model's latent cache holds
+[c_kv ; k_rope] in one row, and v is c_kv), the rows are read once for
+both.  The limits: the split instance takes Dk, Dv <=
+:data:`MAX_HEAD_DIM` and G <= :data:`MAX_GROUP`; with Hkv = 1 the
+latent instance takes G <= :data:`MLA_MAX_GROUP`, Dk <=
+:data:`MLA_MAX_DK` and Dv <= :data:`MLA_MAX_DV`, a multiple of 8,
+within :func:`route`'s fence.  Other shapes raise.
 
 :func:`decode_attention` launches the kernel for CUDA tensors, adding
 one to ``decode_attention.launches`` (and to ``mla_launches`` for the
@@ -60,10 +64,10 @@ from repro_torch.kernels.launch import (call_device, dtype_code, sm_count,
                                         stream_of)
 from repro_torch.kernels.ref import decode_attention_ref
 
-__all__ = ["decode_attention", "DecodePlan", "plan", "mla_plan", "route",
-           "mla_smem_bytes", "MAX_HEAD_DIM", "MAX_GROUP", "SPLIT_KEYS",
-           "MAX_SPLITS", "MLA_MAX_SPLITS", "MLA_MAX_GROUP", "MLA_MAX_DK",
-           "MLA_MAX_DV"]
+__all__ = ["decode_attention", "DecodePlan", "plan", "MlaPlan", "mla_plan",
+           "route", "mla_smem_bytes", "MAX_HEAD_DIM", "MAX_GROUP",
+           "SPLIT_KEYS", "MAX_SPLITS", "MLA_TILE", "MLA_MAX_STAGES",
+           "MLA_MAX_GROUP", "MLA_MAX_DK", "MLA_MAX_DV"]
 
 #: the largest Dk or Dv the kernel takes
 MAX_HEAD_DIM = 128
@@ -73,21 +77,25 @@ MAX_GROUP = 16
 SPLIT_KEYS = 32
 #: the most splits of one KV head: a portable thread-block cluster
 MAX_SPLITS = 8
-#: the most splits of a slot in the latent instance: a non-portable
-#: cluster of 16, which the instance opts into
-MLA_MAX_SPLITS = 16
+#: the latent instance's ring: keys a tile, and the most tiles it holds
+MLA_TILE = 16
+MLA_MAX_STAGES = 4
 #: the latent instance's limits (Hkv = 1): query heads, Dk and Dv
 MLA_MAX_GROUP = 64
 MLA_MAX_DK = 576
 MLA_MAX_DV = 512
 #: dynamic shared memory a latent block may take (Hopper's 227 KB, less
-#: the instance's static arrays)
-_MLA_SMEM = 232448 - 1024
+#: the decode pass's static arrays), and each of two blocks on one SM
+#: (its 228 KB halved, less 1 KB reserved a block and the static arrays)
+_MLA_SMEM = 232448 - 2048
+_MLA_SMEM_HALF = 233472 // 2 - 1024 - 2048
 
 _SOURCE = build.CudaSource("decode_attention")
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_float, ctypes.c_void_p])
+#: the latent launch's: the same with its scratch after the output
+_MLA_ARGTYPES = [ctypes.c_void_p] * 6 + _ARGTYPES[5:]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,38 +119,66 @@ def plan(B: int, Hkv: int, S: int, n_sm: int) -> DecodePlan:
     return DecodePlan(kps, splits, heads * splits)
 
 
-def mla_plan(B: int, S: int, n_sm: int) -> DecodePlan:
-    """The latent instance's cut: as many splits of a slot as a cluster
-    holds (at most :data:`MLA_MAX_SPLITS`), but no more than give the B
-    slots two blocks for each of the ``n_sm`` SMs (a block of a wide instance
-    fills an SM, and a slot's cluster holds all of its SMs until its
-    busiest split ends: at 64 slots, 5 splits read 27 % faster than 15,
-    PERF.md); each a multiple of :data:`SPLIT_KEYS` keys (one tile a
-    step)."""
-    want = min(MLA_MAX_SPLITS, -(-S // SPLIT_KEYS), -(-2 * n_sm // B))
-    kps = -(-S // want)
-    kps = -(-kps // SPLIT_KEYS) * SPLIT_KEYS
-    splits = -(-S // kps)
-    return DecodePlan(kps, splits, B * splits)
+@dataclasses.dataclass(frozen=True)
+class MlaPlan:
+    """The latent instance's launch: ``blocks`` runs of the live rows
+    (one or two blocks an SM), a ring of ``stages`` tiles, ``smem`` bytes
+    of dynamic shared memory a block."""
+    blocks: int
+    stages: int
+    smem: int
 
 
-def mla_smem_bytes(G: int, Dk: int, Dv: int, v_in_k: bool = False) -> int:
-    """The latent instance's dynamic shared memory (decode_attention.cu's
-    ``mla::smem_floats``): the G query rows padded to 16, a 32-key tile
-    of K (and of V unless v is in k's rows), the logits' partial planes,
-    or the merge's (G, Dv) accumulator, whichever is larger."""
+def mla_plan(G: int, Dk: int, Dv: int, v_in_k: bool, q_size: int,
+             n_sm: int) -> MlaPlan:
+    """The latent instance's host plan (the cut of the live rows among
+    the blocks is made on the device, from the bias): two blocks for
+    each of the ``n_sm`` SMs at G <= 16 where two rings of two tiles fit
+    an SM (so one block's loads, barriers and softmax overlap the other's
+    products), else one; each with the deepest ring, at most
+    :data:`MLA_MAX_STAGES` tiles, that its share of the SM's shared
+    memory holds beside the query rows (``q_size`` bytes an element)."""
+    def smem(stages):
+        return mla_smem_bytes(G, Dk, Dv, v_in_k, q_size, stages)
+    two = G <= 16 and smem(2) <= _MLA_SMEM_HALF
+    limit = _MLA_SMEM_HALF if two else _MLA_SMEM
+    stages = MLA_MAX_STAGES
+    while stages > 2 and smem(stages) > limit:
+        stages -= 1
+    return MlaPlan(n_sm * (2 if two else 1), stages, smem(stages))
+
+
+def mla_smem_bytes(G: int, Dk: int, Dv: int, v_in_k: bool, q_size: int,
+                   stages: int) -> int:
+    """The latent decode pass's dynamic shared memory
+    (decode_attention.cu's ``mla::smem_bytes``): the G query rows padded
+    to 16 in q's type, ``stages`` tiles of :data:`MLA_TILE` K rows (and V
+    rows unless v is in k's rows) in float32, and the logits' partial
+    planes."""
+    mt = -(-G // 16)
+    gp, ks, kg = 16 * mt, _smem_row(Dk), (8, 4, 2, 1)[mt - 1]
+    q_bytes = -(-gp * _q_row(Dk, q_size) * q_size // 16) * 16
+    stage = MLA_TILE * (ks + (0 if v_in_k else Dv + 8))
+    return q_bytes + 4 * (stages * stage + kg * gp * (MLA_TILE + 4))
+
+
+def _admitted(G: int, Dk: int, Dv: int) -> bool:
+    """:func:`route`'s fence for the latent instance, unchanged since the
+    instance took Dk 576: the G query rows padded to 16, one 32-key tile
+    of K and of V and the logits' planes within a block's 227 KB, less
+    1 KB.  Every shape inside it fits :func:`mla_plan`'s ring at two
+    tiles or more (tests/test_torch_moe_mla.py holds that)."""
     mt = -(-G // 16)
     gp, ks, kg = 16 * mt, _smem_row(Dk), max(1, 8 // (2 * mt))
-    tiles = (gp * ks + 32 * ks + (0 if v_in_k else 32 * (Dv + 8))
-             + kg * gp * 36)
-    return 4 * max(tiles, gp * Dv)
+    tiles = gp * ks + 32 * ks + 32 * (Dv + 8) + kg * gp * 36
+    return 4 * max(tiles, gp * Dv) <= 232448 - 1024
 
 
 def route(Hq: int, Hkv: int, Dk: int, Dv: int) -> str | None:
     """The instance that takes these shapes: ``"split"`` (G = Hq / Hkv
     <= 16, Dk and Dv <= 128), ``"mla"`` (Hkv = 1 past those limits, up
-    to G 64, Dk 576, Dv 512 and a multiple of 8, where its shared memory
-    fits with V rows of their own; past Dv 256 only at G <= 32), or None
+    to G 64, Dk 576, Dv 512 and a multiple of 8, within
+    :func:`_admitted`'s fence; past Dv 256 only at G <= 32), or None
     (refused)."""
     if Hkv <= 0 or Hq % Hkv:
         return None
@@ -151,7 +187,7 @@ def route(Hq: int, Hkv: int, Dk: int, Dv: int) -> str | None:
         return "split"
     if (Hkv == 1 and G <= MLA_MAX_GROUP and Dk <= MLA_MAX_DK
             and Dv <= (MLA_MAX_DV if G <= 32 else 256) and Dv % 8 == 0
-            and mla_smem_bytes(G, Dk, Dv) <= _MLA_SMEM):
+            and _admitted(G, Dk, Dv)):
         return "mla"
     return None
 
@@ -243,31 +279,52 @@ def _v_in_k(k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def _smem_row(Dk: int) -> int:
-    """The latent instance's shared-memory row of q and K, in floats: Dk
-    rounded up to 8 (the tensor cores' depth), then to 4 mod 32 words, so
-    an mma fragment's loads fall on distinct banks."""
+    """The latent instance's shared-memory row of K (and of a float32 q),
+    in floats: Dk rounded up to 8 (the tensor cores' depth), then to 4
+    mod 32 words, so an mma fragment's loads fall on distinct banks."""
     d8 = -(-Dk // 8) * 8
     return d8 + (4 - d8) % 32
+
+
+def _q_row(Dk: int, q_size: int) -> int:
+    """The latent instance's shared-memory row of q, in q's elements:
+    Dk rounded up to 8, then to 4 mod 32 words (as :func:`_smem_row`)."""
+    d8 = -(-Dk // 8) * 8
+    return _smem_row(Dk) if q_size == 4 else d8 + (8 - d8) % 64
+
+
+def _mla_scratch_bytes(B: int, G: int, Dv: int, blocks: int) -> int:
+    """The latent instance's scratch (decode_attention.cu's
+    ``mla::carve``): each slot's extent (two int32, padded to 16 bytes),
+    then two partial states a run, each a float32 max and sum per head
+    and a G x Dv output."""
+    return -(-8 * B // 16) * 16 + 4 * 2 * blocks * G * (2 + Dv)
 
 
 def _launch_mla(q, k, v, bias, out, q_code, kv_code, scale) -> None:
     B, G, Dk = q.shape
     S, Dv = v.shape[2], v.shape[3]
-    p = mla_plan(B, S, sm_count(q.device.index or 0))
+    v_in_k = _v_in_k(k, v)
+    p = mla_plan(G, Dk, Dv, v_in_k, q.element_size(),
+                 sm_count(q.device.index or 0))
     per = 16 // q.element_size()
     q_vec = (q.data_ptr() % 16 == 0 and Dk % per == 0
              and all(st % per == 0 for st in q.stride()[:2]))
-    dims = (ctypes.c_int * 11)(B, G, S, Dk, Dv, p.keys_per_split, p.splits,
-                               int(_wide_loads(k, v)), int(_v_in_k(k, v)),
-                               _smem_row(Dk), int(q_vec))
+    scratch = torch.empty(_mla_scratch_bytes(B, G, Dv, p.blocks),
+                          dtype=torch.uint8, device=q.device)
+    dims = (ctypes.c_int * 12)(B, G, S, Dk, Dv, p.blocks, p.stages,
+                               int(_wide_loads(k, v)), int(v_in_k),
+                               _smem_row(Dk), int(q_vec),
+                               _q_row(Dk, q.element_size()))
     strides = (ctypes.c_longlong * 9)(
         *q.stride()[:2], k.stride(0), k.stride(2), v.stride(0), v.stride(2),
         *out.stride()[:2], S if bias is None else bias.stride(0))
-    fn = _SOURCE.function("decode_attention_mla_launch", _ARGTYPES)
+    fn = _SOURCE.function("decode_attention_mla_launch", _MLA_ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                q_code, kv_code, dims, strides, scale, stream_of(q.device))
+                scratch.data_ptr(), q_code, kv_code, dims, strides, scale,
+                stream_of(q.device))
     _SOURCE.check(rc)
 
 

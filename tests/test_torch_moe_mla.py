@@ -16,8 +16,9 @@ product is exact in float32; the reference's semantics are unchanged).
 The reference's Pallas ``decode_attention`` runs in interpret mode at
 MLA's smoke shapes (Hkv 1, G 4, Dk 24, Dv 16) against the port's plain
 version.  Tests marked ``gpu`` hold the kernel's latent instance against
-its plain version at minicpm3-4b's shapes (4 slots x 512, NaN in the
-masked keys, two calls compared bit for bit).
+its plain version at minicpm3-4b's and deepseek-v2-lite's shapes and
+others (NaN in the masked keys, two calls compared bit for bit), over
+biases with holes, and replayed in a CUDA graph while the lengths change.
 """
 from __future__ import annotations
 
@@ -388,14 +389,38 @@ def test_route_and_plan_of_the_latent_instance():
                 (40, 1, 288, 252), (40, 2, 288, 256), (6, 4, 64, 64),
                 (64, 1, 576, 512)):
         assert DA.route(*bad) is None, bad
-    p = DA.mla_plan(4, 512, 132)
-    assert (p.keys_per_split, p.splits, p.blocks) == (32, 16, 64)
-    for S in (1, 31, 33, 255, 511, 4096):
-        p = DA.mla_plan(2, S, 132)
-        assert p.keys_per_split % DA.SPLIT_KEYS == 0
-        assert p.splits <= DA.MLA_MAX_SPLITS
-        assert (p.splits - 1) * p.keys_per_split < S <= \
-            p.splits * p.keys_per_split
+    # the host plan (the cut of the live rows is made on the device): two
+    # blocks an SM at G <= 16 where two rings of two 16-key tiles fit,
+    # else one with the deepest ring that fits
+    p = DA.mla_plan(16, 576, 512, True, 2, 132)   # deepseek-v2-lite
+    assert (p.blocks, p.stages, p.smem) == (264, 2, 103168)
+    p = DA.mla_plan(16, 576, 512, True, 4, 132)   # a float32 q
+    assert (p.blocks, p.stages, p.smem) == (132, 4, 195840)
+    p = DA.mla_plan(40, 288, 256, True, 2, 132)   # minicpm3-4b
+    assert (p.blocks, p.stages, p.smem) == (132, 4, 113920)
+    p = DA.mla_plan(16, 576, 512, False, 4, 132)  # V rows of their own
+    assert (p.blocks, p.stages, p.smem) == (132, 2, 188160)
+    # every shape that route gives the latent instance fits a ring of two
+    # tiles or more (the worst G of each 16-row tile of heads, a float32 q)
+    for G in (16, 32, 48, 64):
+        for Dk in range(8, DA.MLA_MAX_DK + 1, 8):
+            for Dv in range(8, DA.MLA_MAX_DV + 1, 8):
+                if DA.route(G, 1, Dk, Dv) != "mla":
+                    continue
+                for v_in_k in {False, Dv <= Dk}:
+                    p = DA.mla_plan(G, Dk, Dv, v_in_k, 4, 132)
+                    assert 2 <= p.stages <= DA.MLA_MAX_STAGES, (G, Dk, Dv)
+                    assert p.blocks in (132, 264)
+                    assert p.smem <= DA._MLA_SMEM, (G, Dk, Dv)
+                    assert p.smem == DA.mla_smem_bytes(G, Dk, Dv, v_in_k, 4,
+                                                       p.stages)
+    # the scratch: 64 extents, then two partial states a run
+    assert DA._mla_scratch_bytes(64, 16, 512, 264) == \
+        512 + 4 * 2 * 264 * 16 * 514
+    assert DA._mla_scratch_bytes(3, 40, 256, 2) == 32 + 4 * 2 * 2 * 40 * 258
+    # q's shared-memory row: 4 mod 32 words in its own type
+    assert DA._q_row(576, 2) == 584 and DA._q_row(288, 2) == 328
+    assert DA._q_row(576, 4) == DA._smem_row(576) == 580
     assert DA._smem_row(288) == 292 and DA._smem_row(320) == 324
     assert DA._smem_row(24) == 36 and DA._smem_row(130) == 164
 
@@ -417,8 +442,12 @@ LATENT_SHAPES = {
                         ((5, 999, 500),)),
     "G33 Dk288 Dv256 bf16 cache": (33, 288, 256, torch.bfloat16, 512,
                                    ((5, 511, 256),)),
+    # the live extents the device-side cut has to handle: every slot at
+    # one key; one slot at 1,919 with 63 at 5; lengths on and off the
+    # 16-key tile's edges and 32's
     "deepseek-v2-lite": (16, 576, 512, torch.float32, 1920,
-                         ((17, 330, 1200, 1919), (0, 1919, 5, 64))),
+                         ((17, 330, 1200, 1919), (0, 1919, 5, 64), (0,) * 64,
+                          (1919,) + (5,) * 63, (15, 16, 17, 31, 32, 33))),
 }
 
 
@@ -461,3 +490,89 @@ def test_latent_instance_matches_plain_on_card(shape, q_dtype, joint):
         assert float((got.float() - want.float()).abs().max()) <= \
             tol * float(want.float().abs().max())
         assert torch.equal(got, again)
+
+
+def _holes(gen, B, S):
+    """A (B, S) bias that is no prefix: each slot's live keys a random
+    60 % of a window [first, last] (first past 0 mostly), some at -3; slot
+    0 with no live key, slot 1 with only the last."""
+    pos = torch.arange(S, device="cuda")[None]
+    first = torch.randint(0, S // 2, (B, 1), device="cuda", generator=gen)
+    last = first + torch.randint(0, S, (B, 1), device="cuda", generator=gen)
+    u = torch.rand(B, S, device="cuda", generator=gen)
+    keep = (pos >= first) & (pos <= last) & (u < 0.6)
+    keep[0] = False
+    keep[1] = pos[0] == S - 1
+    return torch.where(keep, torch.where(u < 0.05, -3.0, 0.0), -1e30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["deepseek-v2-lite", "minicpm3"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_latent_instance_over_holes_on_card(shape, q_dtype):
+    """A bias that is not a prefix (``_holes``): masked keys inside each
+    slot's extent hold NaN, so a read would show; a slot with no live key
+    gives 0 (the plain version's masked rows are 0 there too); two calls
+    equal bit for bit."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    G, Dk, Dv, cache_dtype, S, _ = LATENT_SHAPES[shape]
+    B = 24
+    bias = _holes(gen, B, S)
+    rows = torch.randn(B, S, Dk, device="cuda", generator=gen)
+    rows[bias <= -1e29] = float("nan")
+    k, v = rows[:, None], rows[:, None, :, :Dv]
+    q = torch.randn(B, G, Dk, device="cuda", generator=gen).to(q_dtype)
+    want = TR.decode_attention_ref(q, torch.nan_to_num(k),
+                                   torch.nan_to_num(v), bias=bias, scale=0.1)
+    got = DA.decode_attention(q, k, v, bias=bias, scale=0.1)
+    again = DA.decode_attention(q, k, v, bias=bias, scale=0.1)
+    torch.cuda.synchronize()
+    tol = 1e-5 if q_dtype == torch.float32 else 8e-3
+    assert float((got.float() - want.float()).abs().max()) <= \
+        tol * float(want.float().abs().max())
+    assert not got[0].any()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_latent_instance_replays_in_a_graph_on_card():
+    """The latent decode captured in a CUDA graph at deepseek-v2-lite's
+    served shape (64 slots x 1920, bf16 q, v inside k's rows); between
+    replays the rows, the lengths and the bias change (ragged prefixes,
+    every slot at one key, one long slot among short ones, a bias with
+    holes), NaN in the masked rows.  Each replay against the plain
+    version and, bit for bit, against an eager call on the same inputs."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    G, Dk, Dv, _, S, _ = LATENT_SHAPES["deepseek-v2-lite"]
+    B = 64
+    rows = torch.randn(B, S, Dk, device="cuda", generator=gen)
+    k, v = rows[:, None], rows[:, None, :, :Dv]
+    q = torch.randn(B, G, Dk, device="cuda", generator=gen).to(torch.bfloat16)
+    bias = torch.zeros(B, S, device="cuda")
+    DA.decode_attention(q, k, v, bias=bias, scale=0.1)   # built, opted in
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DA.decode_attention(q, k, v, bias=bias, scale=0.1)
+    pos = torch.arange(S, device="cuda")[None]
+    ragged = torch.randint(0, 600, (B,), device="cuda", generator=gen)
+    for lens in (ragged, (0,) * B, (1919,) + (5,) * (B - 1), None):
+        if lens is None:
+            new = _holes(gen, B, S)
+        else:
+            keep = pos <= torch.as_tensor(lens, device="cuda")[:, None]
+            new = torch.where(keep, 0.0, -1e30)
+        rows.copy_(torch.randn(B, S, Dk, device="cuda", generator=gen))
+        rows[new <= -1e29] = float("nan")
+        bias.copy_(new)
+        graph.replay()
+        eager = DA.decode_attention(q, k, v, bias=bias, scale=0.1)
+        want = TR.decode_attention_ref(q, torch.nan_to_num(k),
+                                       torch.nan_to_num(v), bias=bias,
+                                       scale=0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert float((out.float() - want.float()).abs().max()) <= \
+            8e-3 * float(want.float().abs().max())

@@ -89,7 +89,8 @@ FAMILIES = {"fused_mlp": ("mlp_",),
             "ssd_scan": ("ssd_kernel", "chunk_pass", "state_pass",
                          "output_pass"),
             "decode_attention": ("decode_kernel", "decode_split_kernel",
-                                 "mla_decode_kernel")}
+                                 "mla_extent_kernel", "mla_decode_kernel",
+                                 "mla_combine_kernel")}
 
 
 def _device_us(evt) -> float:
