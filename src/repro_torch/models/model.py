@@ -7,6 +7,7 @@ Public API (plain functions over dicts of tensors):
   init(cfg, rng, device)                   parameter values
   from_jax_params(cfg, params_np, device)  the reference's values, carried over
   init_cache(cfg, batch, max_len, dtype, device)   decode cache
+  CACHE_AXES, cache_axes(cache), cache_slot(cache, i)   its layout, a slot
   prefill(params, cfg, tokens, cache, enc_embeds=, extra_embeds=)
                                            fill the cache, last-position logits
   decode_step(params, cfg, token, cache)   one token for every sequence
@@ -50,11 +51,12 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.autograd import needs_grad
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim.adamw import tree_leaves
+from repro_torch.optim.adamw import tree_leaves, tree_map
 
 __all__ = ["param_defs", "param_axes", "init", "from_jax_params",
            "from_jax_train_state", "to_numpy", "forward", "loss_fn",
-           "loss_sums", "init_cache", "prefill",
+           "loss_sums", "CACHE_AXES", "cache_axes", "cache_slot",
+           "init_cache", "prefill",
            "decode_step", "torch_dtype", "L_cross_kv"]
 
 
@@ -481,12 +483,45 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Mapping
 
 
 # ----------------------------------------------------------------------
-# serving: cache init / prefill / decode
+# serving: the cache's layout / prefill / decode
 # ----------------------------------------------------------------------
+_KV = ("layers", "batch", "kv_heads", "seq", None)
+_LATENT = ("layers", "batch", "seq", None)
+
+#: The logical axes of every decode-cache leaf, in the tree of
+#: :func:`init_cache` and the reference's vocabulary: ``batch`` is the
+#: slot, ``seq`` the cache length (``enc_out``'s: the encoder's frames).
+#: ``index`` has none: a scalar, or a (batch,) vector of per-slot lengths
+#: once a batcher decodes.
+CACHE_AXES = {
+    "attn": {"k": _KV, "v": _KV, "c_kv": _LATENT, "k_rope": _LATENT},
+    "conv": ("layers", "batch", None, "ssm_inner"),
+    "ssm": ("layers", "batch", "ssm_inner", None, None),
+    "enc_out": ("batch", "seq", None),
+}
+
+
+def cache_axes(cache: dict) -> dict:
+    """The :data:`CACHE_AXES` of ``cache``'s leaves (of any type), in its
+    tree without ``index``."""
+    return {k: ({n: CACHE_AXES[k][n] for n in v} if isinstance(v, dict)
+                else CACHE_AXES[k])
+            for k, v in cache.items() if k != "index"}
+
+
+def cache_slot(cache: dict, i: int) -> dict:
+    """Slot ``i`` of ``cache`` as a B = 1 cache of views, without
+    ``index`` (a prefill returns its own): each leaf narrowed on its
+    ``batch`` axis, so MLA's two latent leaves stay views of their one
+    buffer.  A prefill into it writes the slot in place."""
+    return tree_map(lambda t, axes: t.narrow(axes.index("batch"), i, 1),
+                    {k: v for k, v in cache.items() if k != "index"},
+                    cache_axes(cache))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """The decode cache; every leaf but ``index`` and ``enc_out`` has the
-    batch on axis 1.
+    """The decode cache, each leaf laid out as :data:`CACHE_AXES` says.
 
     dense, moe, encdec and vlm: {"index", "attn": {"k", "v"} (layers,
     batch, Hkv, max_len, D)} (Hkv raised to ``kv_repeat_to`` where that

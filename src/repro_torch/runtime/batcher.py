@@ -7,10 +7,13 @@ Each slot decodes against its own history length: the cache index is a
 per-slot vector, so the attention bias masks each slot at its own
 length and sequences of different ages share one batch.
 
-As in the reference, prompts are prefilled one at a time (B = 1, into
-a fresh float32 cache whose rows are then copied into the slot), decode
+As in the reference, prompts are prefilled one at a time (B = 1), decode
 runs across all slots every step, and the host's lengths are the
-scheduler's truth.  The reference jits the decode step once per batcher
+scheduler's truth.  The reference prefills into a fresh cache and copies
+its rows into the slot; here :func:`M.cache_slot` gives the slot's own
+rows as a B = 1 cache of views (each leaf narrowed on the ``batch`` axis
+that :data:`M.CACHE_AXES` declares), which admission zeroes and prefills
+in place.  The reference jits the decode step once per batcher
 (``jax.jit(self._decode_step)``); here a :class:`CompiledStep` captures
 it once as a CUDA graph and replays it every step, so on the card a step
 is one graph launch.  Its inputs, the tokens and the per-slot lengths,
@@ -52,6 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.tracer import maybe_span, resolve_tracer
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime.compiled_step import CompiledStep
 from repro_torch.runtime.slots import SlotPool
 
@@ -152,44 +156,20 @@ class ContinuousBatcher:
                     marks[3] = time.perf_counter()
 
     def _prefill(self, slot: int, req: Request) -> None:
-        """One request's B = 1 prefill, copied into ``slot``; its first
-        token is read back to the host."""
+        """One request's B = 1 prefill, written in place into ``slot``'s
+        views (:func:`M.cache_slot`), zeroed first: the rows past the
+        prompt and any state a finished request left read zero, as in
+        the reference's fresh cache.  Its first token is read back to
+        the host."""
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
                                  device=self.device)[None]
-        tmp_cache = M.init_cache(self.cfg, 1, self.max_len,
-                                 dtype=torch.float32, device=self.device)
-        logits, tmp_cache = M.prefill(self.params, self.cfg, prompt,
-                                      tmp_cache)
-        self._copy_slot(tmp_cache, slot)
+        view = M.cache_slot(self.cache, slot)
+        for t in tree_leaves(view):
+            t.zero_()
+        logits, _ = M.prefill(self.params, self.cfg, prompt, view)
         req.tokens.append(int(torch.argmax(logits[0], -1)))
         self.lengths[slot] = len(req.prompt)
         self.prefills += 1
-
-    def _copy_slot(self, src_cache: dict, slot: int) -> None:
-        """Copy a B = 1 cache into slot ``slot`` of the pool cache, in
-        place, each leaf along its batch axis, found as the reference
-        finds it: the axis where the pool has ``n_slots``, the B = 1
-        cache 1, and every other dim matches (axis 1 for the stacked
-        (layers, batch, ...) leaves, axis 0 for ``enc_out``).  A leaf
-        with no such axis is left as it is.  Copying them all is what
-        resets the slot's state (the conv and SSM states) on admission.
-        """
-        def copy(pool, one):
-            if isinstance(pool, dict):
-                for name in pool:
-                    copy(pool[name], one[name])
-                return
-            if pool.dim() == 0 or pool.dim() != one.dim():
-                return
-            for a in range(pool.dim()):
-                if (pool.shape[a] == self.n_slots and one.shape[a] == 1
-                        and pool.shape[:a] == one.shape[:a]
-                        and pool.shape[a + 1:] == one.shape[a + 1:]):
-                    pool.narrow(a, slot, 1).copy_(one)
-                    return
-
-        copy({k: v for k, v in self.cache.items() if k != "index"},
-             src_cache)
 
     # ------------------------------------------------------------------
     def _forward(self, token: torch.Tensor, index: torch.Tensor):

@@ -157,27 +157,18 @@ def abstract_cache(cfg: ModelConfig, shape: ShapeConfig) -> dict:
                         dtype=M.torch_dtype(cfg.dtype), device="meta")
 
 
-def _cache_axes(name: str, v: torch.Tensor, mesh: Any
-                ) -> tuple[str | None, ...]:
-    """The reference's logical axes of cache leaf ``name``."""
-    if "enc_out" in name:
-        axes = ("batch", "seq", None)
-    elif "conv" in name:
-        axes = ("layers", "batch", None, "ssm_inner")
-    elif "ssm" in name:
-        axes = ("layers", "batch", "ssm_inner", None, None)
-    elif "c_kv" in name or "k_rope" in name:
-        # latent cache: the long seq dim over the model axis
-        axes = ("layers", "batch", "seq_model", None)
-    else:  # k / v attention caches (layers, B, Hkv, S, D)
-        msize = mesh.shape.get("model", 1)
-        if v.dim() >= 3 and v.shape[2] % msize == 0:
-            axes = ("layers", "batch", "kv_heads", "seq", None)
-        else:
-            # kv heads don't divide the model axis: the cache length
-            axes = ("layers", "batch", None, "seq_model", None)
-    return (axes[:v.dim()] if len(axes) >= v.dim()
-            else (None,) * (v.dim() - len(axes)) + axes)
+def _shard_axes(axes: tuple, shape: tuple, mesh: Any) -> tuple:
+    """A cache leaf's declared axes (:data:`M.CACHE_AXES`) as the
+    reference shards them: a per-layer cache's length over the model
+    axis (``seq_model``) where no KV heads take it (the latent cache's,
+    and k / v where their heads do not divide it)."""
+    if "layers" not in axes or "seq" not in axes:
+        return axes
+    if "kv_heads" in axes and shape[axes.index("kv_heads")] % \
+            mesh.shape.get("model", 1) == 0:
+        return axes
+    return tuple({"kv_heads": None, "seq": "seq_model"}.get(a, a)
+                 for a in axes)
 
 
 def _paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -201,14 +192,10 @@ def cache_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
     ``index`` replicated."""
     aval = abstract_cache(cfg, shape)
     rules_sm = rules.replace(seq_model="model")
-    out = []
-    for name, v in _paths(aval):
-        if v.dim() == 0 or "index" in name:
-            out.append(NamedSharding(mesh, P()))
-            continue
-        out.append(NamedSharding(mesh, spec_for_axes(
-            mesh, rules_sm, _cache_axes(name, v, mesh), tuple(v.shape))))
-    return _unflatten(aval, out)
+    out = tree_map(lambda v, axes: NamedSharding(mesh, spec_for_axes(
+        mesh, rules_sm, _shard_axes(axes, v.shape, mesh), tuple(v.shape))),
+        {k: v for k, v in aval.items() if k != "index"}, M.cache_axes(aval))
+    return {**out, "index": NamedSharding(mesh, P())}
 
 
 # ----------------------------------------------------------------------
@@ -276,45 +263,40 @@ def _plain(x: Any) -> torch.Tensor:
     return x.gather() if isinstance(x, ShardedTensor) else x
 
 
-def _batch_dim(name: str) -> int:
-    return 0 if "enc_out" in name else 1
-
-
 def _work_cache(cfg: ModelConfig, cache: dict, rows: slice,
                 dev: torch.device, pos: tuple[int, ...],
                 index: torch.Tensor) -> dict:
     """A data shard's slots of the sharded cache as one whole cache on
     ``dev`` (mesh position ``pos``), in :func:`M.init_cache`'s layout
-    (MLA's two leaves one buffer)."""
-    named = [(n, t) for n, t in _paths(cache) if n != "index"]
-    attn = [t for n, t in named if n.startswith("attn/")]
-    max_len = (1 if not attn else attn[0].shape[2] if cfg.use_mla
-               else attn[0].shape[3])
-    dtype = (attn[0] if attn else named[0][1]).dtype
-    work = M.init_cache(cfg, rows.stop - rows.start, max_len, dtype=dtype,
-                        device=dev)
+    (MLA's two leaves one buffer), each leaf gathered along its declared
+    ``batch`` axis."""
+    axes = dict(_paths(M.cache_axes(cache)))
+    named = [(n, t) for n, t in _paths(cache) if n in axes]
+    _sharded_leaves(dict(named), "cache")
+    n = rows.stop - rows.start
+    lens = [t.shape[axes[k].index("seq")] for k, t in named
+            if "layers" in axes[k] and "seq" in axes[k]]
+    work = M.init_cache(cfg, n, lens[0] if lens else 1,
+                        dtype=named[0][1].dtype, device=dev)
     flat = dict(_paths(work))
     for name, st in named:
-        if not isinstance(st, ShardedTensor):
-            raise TypeError(f"cache leaf {name!r}: a sharded step takes the "
-                            f"cache as ShardedTensors (cache_shardings)")
-        dst = flat[name]
-        if dst.shape[_batch_dim(name)] != rows.stop - rows.start or \
-                dst.dim() != st.ndim:
+        b = axes[name].index("batch")
+        if flat[name].shape[b] != n or flat[name].dim() != st.ndim:
             raise ValueError(f"cache leaf {name!r} {tuple(st.shape)} does not "
                              f"fit {cfg.name}'s cache layout")
-        st.gather_rows(_batch_dim(name), rows.start, rows.stop, dst, at=pos)
+        st.gather_rows(b, rows.start, rows.stop, flat[name], at=pos)
     work["index"] = (index[rows] if index.dim() == 1 else index).to(dev)
     return work
 
 
 def _put_back(cache: dict, work: dict, rows: slice,
               pos: tuple[int, ...]) -> None:
+    axes = dict(_paths(M.cache_axes(cache)))
     flat = dict(_paths(work))
     for name, st in _paths(cache):
-        if name != "index":
-            st.scatter_rows(_batch_dim(name), rows.start, flat[name],
-                            at=pos)
+        if name in axes:
+            st.scatter_rows(axes[name].index("batch"), rows.start,
+                            flat[name], at=pos)
 
 
 def _sharded_serving(cfg: ModelConfig, mesh: Mesh, rules: ShardingRules,

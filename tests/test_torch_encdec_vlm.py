@@ -12,14 +12,16 @@ whisper-base's with ``attn_chunk`` at a ragged length (the plain route's
 chunked scan, pad keys masked at -1e30): prefill logits and cache, then
 decode steps with a scalar and a per-slot index, within 1e-5 *
 max|logits|.  Also: the plain ``_chunked_attention`` against the
-reference's, the new parameter subtrees carried bit for bit, the
-batcher's slot copy of an encdec cache (``enc_out`` along axis 0)
-against the reference's, internvl2's batcher (text-only, as the
-reference's) against the reference's batcher, an encdec request refused
-by both batchers (a ``Request`` has no frames), the step builders
-passing the frontends through, and ``launch.serve``'s cache sizing for a
-vision prefix longer than ``gen_len + 8``, where the reference's own
-sizing overflows.
+reference's, the new parameter subtrees carried bit for bit, admission
+into slot 2 of a batcher whose slots hold seeded data, for a config of
+each cache layout (dense, MLA, SSM, hybrid, encdec: ``enc_out`` along
+axis 0), against the reference batcher's slot copy of the same prefill,
+and into a slot a finished request left; internvl2's batcher (text-only,
+as the reference's) against the reference's batcher, an encdec request
+refused by both batchers (a ``Request`` has no frames), the step
+builders passing the frontends through, and ``launch.serve``'s cache
+sizing for a vision prefix longer than ``gen_len + 8``, where the
+reference's own sizing overflows.
 
 Tests marked ``gpu`` hold the kernels at the shapes these two models
 put on the card (whisper's 1,500 ragged frames non-causal and in
@@ -31,6 +33,7 @@ against its eager step, bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -227,29 +230,93 @@ def test_new_subtrees_carry_across_bit_for_bit():
                                   if k != "cross_blocks"}, "cpu")
 
 
-def test_copy_slot_of_an_encdec_cache_matches_the_reference():
-    cfg, jp, tcfg, tp = _pair("whisper_base", {})
+# (label, arch): a config of each cache layout
+SLOT_CASES = [("dense", "granite_3_2b"), ("mla", "minicpm3_4b"),
+              ("ssm", "mamba2_2p7b"), ("hybrid", "zamba2_1p2b"),
+              ("encdec", "whisper_base")]
+
+
+@pytest.mark.parametrize("arch", [c[1] for c in SLOT_CASES],
+                         ids=[c[0] for c in SLOT_CASES])
+def test_admission_writes_the_slot_the_reference_copies(arch, monkeypatch):
+    """A 5-token prompt admitted into slot 2 of 3 slots that all hold
+    seeded data: slot 2 ends as the reference batcher's after its
+    ``_copy_slot`` of the same prefill (within 1e-5 * max|leaf|), the
+    first token is the reference's, and slots 0 and 1 are untouched.
+    Each leaf's declared ``batch`` axis is the one the reference copies
+    along (0 for ``enc_out``, else 1).  An encdec prompt has no frames
+    in a ``Request``; the port's prefill is given them here."""
+    cfg, jp, tcfg, tp = _pair(arch, {})
+    n_slots, max_len = 3, 16
+    prompt = np.arange(3, 8, dtype=np.int32)
     front = _frontend(cfg, 1)
-    toks = np.arange(5, dtype=np.int32)[None]
-    _, jone = JM.prefill(jp, cfg, jnp.asarray(toks),
-                         JM.init_cache(cfg, 1, 16, dtype=jnp.float32),
-                         enc_embeds=jnp.asarray(front["enc_embeds"]))
-    _, tone = TM.prefill(tp, tcfg, torch.from_numpy(toks),
-                         TM.init_cache(tcfg, 1, 16, dtype=torch.float32,
-                                       device="cpu"),
-                         enc_embeds=torch.from_numpy(front["enc_embeds"]))
-    jb = JBatcher(cfg, jp, n_slots=3, max_len=16)
-    tb = ContinuousBatcher(tcfg, tp, n_slots=3, max_len=16, device="cpu")
-    jb._copy_slot(jone, 2)
-    tb._copy_slot(tone, 2)
-    assert tb.cache["enc_out"].shape == (3, cfg.n_frontend_tokens,
-                                         cfg.d_model)
+    jlogits, jone = JM.prefill(
+        jp, cfg, jnp.asarray(prompt)[None],
+        JM.init_cache(cfg, 1, max_len, dtype=jnp.float32),
+        **{k: jnp.asarray(v) for k, v in front.items()})
+    jb = JBatcher(cfg, jp, n_slots=n_slots, max_len=max_len)
+    tb = ContinuousBatcher(tcfg, tp, n_slots=n_slots, max_len=max_len,
+                           device="cpu")
+    rng = np.random.default_rng(3)
+    fill = {}
     for path in _cache_leaves(tb.cache):
-        _close(_get(tb.cache, path), _get(jb.cache, path))
-    enc = tb.cache["enc_out"]
-    assert torch.equal(enc[2], tone["enc_out"][0]) and float(
-        enc[:2].abs().max()) == 0.0
-    assert float(tb.cache["attn"]["k"][:, :2].abs().max()) == 0.0
+        fill[path] = rng.standard_normal(
+            _get(tb.cache, path).shape).astype(np.float32)
+        _get(tb.cache, path).copy_(torch.from_numpy(fill[path]))
+        _get(jb.cache, path[:-1])[path[-1]] = jnp.asarray(fill[path])
+    jb._copy_slot(jone, 2)
+    if front:
+        monkeypatch.setattr(TM, "prefill", functools.partial(
+            TM.prefill, **{k: torch.from_numpy(v) for k, v in front.items()}))
+    req = Request(rid=0, prompt=prompt)
+    tb._prefill(2, req)
+    assert req.tokens == [int(jnp.argmax(jlogits[0]))]
+    axes = TM.cache_axes(tb.cache)
+    for path in _cache_leaves(tb.cache):
+        got, want = _get(tb.cache, path), np.asarray(_get(jb.cache, path))
+        a = 0 if path == ("enc_out",) else 1
+        assert _get(axes, path).index("batch") == a
+        assert len(_get(axes, path)) == got.dim() and got.shape[a] == n_slots
+        _close(got.narrow(a, 2, 1), np.take(want, [2], axis=a))
+        rest = torch.from_numpy(np.take(fill[path], [0, 1], axis=a))
+        assert torch.equal(got.narrow(a, 0, 2), rest), path
+        assert np.array_equal(np.take(want, [0, 1], axis=a), rest.numpy())
+    if tcfg.use_mla:                 # the slot's two leaves: one buffer
+        c, r = (TM.cache_slot(tb.cache, 2)["attn"][k]
+                for k in ("c_kv", "k_rope"))
+        assert r.data_ptr() == c.data_ptr() + c.shape[-1] * c.element_size()
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "minicpm3_4b"])
+def test_admission_into_a_slot_a_finished_request_left(arch):
+    """One slot serves a 9-token prompt for 6 tokens, then admits a
+    4-token one: the positions past the new prompt read zero again, and
+    every leaf (the hybrid's conv and SSM state among them) equals a
+    fresh B = 1 prefill's, as does the first token."""
+    cfg = tconfigs.get_smoke(arch)
+    params = TM.init(cfg, 0, device="cpu")
+    tb = ContinuousBatcher(cfg, params, n_slots=1, max_len=24, device="cpu")
+    rng = np.random.default_rng(4)
+    first, second = (Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, size=(n,)).astype(np.int32), max_new_tokens=6)
+        for i, n in enumerate((9, 4)))
+    tb.submit(first)
+    tb.run_to_completion()
+    assert first.done and tb.active == 0
+    seq = {k: TM.cache_axes(tb.cache)["attn"][k].index("seq")
+           for k in tb.cache["attn"]}
+    for k, t in tb.cache["attn"].items():
+        assert float(t.narrow(seq[k], 4, 20).abs().max()) > 0.0, k
+    tb.submit(second)
+    tb._admit()
+    fresh = TM.init_cache(cfg, 1, 24, dtype=torch.float32, device="cpu")
+    logits, _ = TM.prefill(params, cfg, torch.from_numpy(second.prompt)[None],
+                           fresh)
+    assert second.tokens == [int(logits.argmax(-1))]
+    for path in _cache_leaves(fresh):
+        assert torch.equal(_get(tb.cache, path), _get(fresh, path)), path
+    for k, t in tb.cache["attn"].items():
+        assert float(t.narrow(seq[k], 4, 20).abs().max()) == 0.0, k
 
 
 def test_vlm_batcher_matches_the_reference_batcher():

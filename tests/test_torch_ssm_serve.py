@@ -69,18 +69,22 @@ def test_batcher_matches_the_reference_batcher(arch):
 
 class _Checked(ContinuousBatcher):
     """Checks after every admission that the slot holds exactly the
-    state of the prompt's own prefill."""
+    state of the prompt's own prefill into a fresh B = 1 cache."""
 
     admissions = 0
 
-    def _copy_slot(self, src_cache, slot):
+    def _prefill(self, slot, req):
         dirty = self.cache["ssm"][:, slot].abs().sum() > 0
-        super()._copy_slot(src_cache, slot)
-        names = ["conv", "ssm"] + (["attn"] if "attn" in src_cache else [])
+        super()._prefill(slot, req)
+        one = TM.init_cache(self.cfg, 1, self.max_len, dtype=torch.float32,
+                            device="cpu")
+        TM.prefill(self.params, self.cfg, torch.from_numpy(req.prompt)[None],
+                   one)
+        names = ["conv", "ssm"] + (["attn"] if "attn" in one else [])
         for name in names:
-            pool, one = self.cache[name], src_cache[name]
-            pairs = ([(pool[k], one[k]) for k in pool]
-                     if isinstance(pool, dict) else [(pool, one)])
+            pool, fresh = self.cache[name], one[name]
+            pairs = ([(pool[k], fresh[k]) for k in pool]
+                     if isinstance(pool, dict) else [(pool, fresh)])
             for p, o in pairs:
                 assert torch.equal(p[:, slot:slot + 1], o), (name, slot)
         self.admissions += 1

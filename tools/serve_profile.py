@@ -230,8 +230,8 @@ def profile_lockstep(torch, cfg, params, seed, smi, steps: int = STEPS
                            generator=gen, device="cuda")
     inputs = frontend_inputs(torch, cfg, N_SLOTS, seed + 2)
     n_steps = WARM + 2 * steps
-    cache = M.init_cache(cfg, N_SLOTS,
-                         cache_len(cfg, FRONTEND_PROMPT, n_steps + 1),
+    max_len = cache_len(cfg, FRONTEND_PROMPT, n_steps + 1)
+    cache = M.init_cache(cfg, N_SLOTS, max_len,
                          dtype=M.torch_dtype(cfg.dtype), device="cuda")
     logits, cache = M.prefill(params, cfg, prompt, cache, **inputs)
 
@@ -275,7 +275,7 @@ def profile_lockstep(torch, cfg, params, seed, smi, steps: int = STEPS
     summary = {"profile": cfg.name, "slots": N_SLOTS,
                "prompt_len": FRONTEND_PROMPT,
                "frontend_tokens": cfg.n_frontend_tokens,
-               "max_len": cache["attn"]["k"].shape[3],
+               "max_len": max_len,
                **step_summary(torch, prof, rows, step, wall_ms,
                               profiled_wall_ms, event_ms, smi, steps),
                **lockstep_bound(torch, cfg, params, cache, live)}
@@ -302,6 +302,21 @@ def step_summary(torch, prof, rows, step, wall_ms, profiled_wall_ms,
         "longest": longest_launches(torch, prof, 6), "card": smi}
 
 
+def kv_row_bytes(cache) -> int:
+    """The bytes of one slot's position in every per-layer attention
+    leaf of ``cache`` (those whose declared axes, ``M.CACHE_AXES``, hold
+    ``layers`` and ``seq``): K and V, or MLA's latent row."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves
+    leaves = tree_leaves({k: v for k, v in cache.items() if k != "index"})
+    n = 0
+    for t, axes in zip(leaves, tree_leaves(M.cache_axes(cache))):
+        if "layers" in axes and "seq" in axes:
+            n += t.numel() // (t.shape[axes.index("batch")]
+                               * t.shape[axes.index("seq")]) * t.element_size()
+    return n
+
+
 def lockstep_bound(torch, cfg, params, cache, live: int) -> dict:
     """The least time of one lock-step decode step: every parameter, the
     ``live`` KV rows and the encoder output read once at the card's
@@ -312,15 +327,12 @@ def lockstep_bound(torch, cfg, params, cache, live: int) -> dict:
         if isinstance(tree, torch.Tensor):
             return tree.numel() * tree.element_size()
         return sum(nbytes(v) for v in tree.values())
-    k = cache["attn"]["k"]               # (layers, slots, Hkv, S, D)
-    n = nbytes(params) + 2 * k.shape[0] * k.shape[2] * k.shape[4] * \
-        k.element_size() * live
+    n = nbytes(params) + kv_row_bytes(cache) * live
     ops = 0
-    if "enc_out" in cache:
+    if "enc_out" in cache:               # (slots, frames, d)
         enc = cache["enc_out"]
         n += enc.numel() * enc.element_size()
-        ops = (cfg.n_layers * 2 * 2 * enc.shape[0] * enc.shape[1]
-               * cfg.d_model * cfg.n_kv_heads * cfg.hd)
+        ops = cfg.n_layers * 2 * 2 * enc.numel() * cfg.n_kv_heads * cfg.hd
     bytes_ms = n / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms), "bound_bytes_ms": bytes_ms,
@@ -349,15 +361,7 @@ def step_bound_ms(torch, params, batcher, chosen=()) -> float:
                      for t in chosen)
         n -= unread * per_expert
     live = int(batcher.lengths.sum() + N_SLOTS)
-    if "attn" in cache and "c_kv" in cache["attn"]:  # MLA: one latent row
-        c, r = cache["attn"]["c_kv"], cache["attn"]["k_rope"]
-        row = (c.shape[3] + r.shape[3]) * c.element_size()
-        n += c.shape[0] * row * live
-    elif "attn" in cache:                # (sites, slots, Hkv, S, D) each
-        k = cache["attn"]["k"]
-        row = k.shape[2] * k.shape[4] * k.element_size()
-        n += 2 * k.shape[0] * row * live
-    return n / HBM_BYTES_PER_S * 1e3
+    return (n + kv_row_bytes(cache) * live) / HBM_BYTES_PER_S * 1e3
 
 
 def families(rows) -> dict:
